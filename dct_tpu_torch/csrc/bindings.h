@@ -1,0 +1,54 @@
+// Plain C interface of the port's CUDA kernels, loaded from Python with
+// ctypes (dct_tpu_torch/ops/_build.py declares the same signatures).
+//
+// Every pointer is a device pointer taken from a contiguous torch tensor;
+// `stream` is the caller's cudaStream_t (torch.cuda.current_stream()).
+// Each launcher enqueues one kernel on that stream, does not synchronise,
+// allocates nothing, and returns cudaGetLastError() as an int (0 = the
+// launch was accepted).
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#define DCT_EXPORT extern "C" __attribute__((visibility("default")))
+
+// Kernel A: (n_blocks, n2) u8 pixel blocks -> (n_blocks, n2) int32
+// quantized zigzag coefficients. m0/m1/m2 are the float32 bf16-valued
+// split operator parts and bias the encode bias, each with row stride ld
+// (128 for the packed block-diagonal form; the kernel reads the top-left
+// n2 x n2 block). recip: (n_blocks,) reciprocal adaptive scale, or NULL.
+DCT_EXPORT int dct_encode_blocks(const void* px, const void* m0,
+                                 const void* m1, const void* m2,
+                                 const void* bias, int ld, const void* recip,
+                                 void* out, long long n_blocks, int n2,
+                                 void* stream);
+
+// Kernel C: (n_blocks, n2) int16 zigzag coefficients -> (n_blocks, n2) u8
+// pixels. m_dec: float32 decode operator, row stride ld. scale:
+// (n_blocks,) adaptive scale, or NULL.
+DCT_EXPORT int dct_decode_blocks(const void* zz, const void* m_dec, int ld,
+                                 const void* scale, void* out,
+                                 long long n_blocks, int n2, void* stream);
+
+// Kernel B: one CTA per stripe, 8x8 blocks, category mode. px: (n_stripes
+// * bps, 64) u8 blocks. cat_len/cat_code: (16,) int32 canonical table.
+// run_len/run_code: (65,) int32 run table, or NULL for the fixed
+// run_bits-wide run field. words: (n_stripes, n_words) int32 output, each
+// word holding two 16-bit units with its halves swapped, so that the
+// buffer read as int16 is the unit stream in order. stripe_bits:
+// (n_stripes,) int32; block_bits: (n_stripes, bps) int32. A stripe whose
+// shared-memory need exceeds the device's opt-in limit is refused with
+// the error cudaFuncSetAttribute returns.
+DCT_EXPORT int dct_encode_stripes(const void* px, const void* m0,
+                                  const void* m1, const void* m2,
+                                  const void* bias, int ld, const void* recip,
+                                  const void* cat_len, const void* cat_code,
+                                  const void* run_len, const void* run_code,
+                                  int run_bits, int dc_prediction,
+                                  int n_stripes, int bps, void* words,
+                                  int n_words, void* stripe_bits,
+                                  void* block_bits, void* stream);
+
+// cudaGetErrorString of a code returned above.
+DCT_EXPORT const char* dct_error_string(int code);

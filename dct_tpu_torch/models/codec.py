@@ -1,0 +1,383 @@
+"""End-to-end grayscale image codec: u8 image -> TPDC bitstream -> u8 image
+(port of ``dct_tpu.models.codec``, gray planes).
+
+  encode:  pad -> [device] transform + entropy stage -> packed stripe units
+           -> [host] stripe bytes + container (dct_tpu.container)
+  decode:  [host] parse container + entropy decode (dct_tpu.native, or the
+           Python decoder) -> [device] dequant + IDCT -> crop
+
+Static tables (cfg.static_tables) encode in one kernel (ops/
+fused_encode_cuda.py, kernel B). Dynamic tables first run the analyze pass
+— transform (kernel A), RLE, category histogram — build the per-image
+canonical table on the host, then run kernel B with it. On the CPU the same
+functions run the plain versions, through the staged pipeline.
+
+The device is explicit: ``ImageCodec(config, device=...)`` and the tensors
+handed to the step functions decide where the work runs. Color and video
+are not ported yet.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from dct_tpu import container as cont
+from dct_tpu.config import CodecConfig
+from dct_tpu_torch import tables
+from dct_tpu_torch.ops import bitstream as bs
+from dct_tpu_torch.ops import blocks as blk
+from dct_tpu_torch.ops import fused_encode_cuda, quant, rle, transform
+from dct_tpu_torch.ops import huffman as hf
+from dct_tpu_torch.ops.transform_cuda import (
+    decode_blocks_kernel, encode_blocks_kernel,
+)
+
+DIRECT_VMIN = -255  # direct-mode alphabet [-255, 255] + ESC
+
+
+def _padded_grid(h: int, w: int, cfg: CodecConfig) -> tuple[int, int, int]:
+    """(block rows padded to stripe multiple, block cols, n_stripes)."""
+    n = cfg.block_size
+    bh = -(-h // n)
+    bw = -(-w // n)
+    bh = -(-bh // cfg.stripe_rows) * cfg.stripe_rows
+    return bh, bw, bh // cfg.stripe_rows
+
+
+def _default_device() -> torch.device:
+    return torch.device("cuda" if torch.cuda.is_available() else "cpu")
+
+
+def dc_predict(zz: torch.Tensor, n_stripes: int) -> torch.Tensor:
+    """Stripe-local DC DPCM (cfg.dc_prediction): each block's DC becomes
+    the delta against the previous block in its stripe (first block raw).
+    zz: (NB, n2); returns a new tensor."""
+    nb = zz.shape[0]
+    dc = zz[:, 0].reshape(n_stripes, nb // n_stripes)
+    prev = torch.cat([torch.zeros_like(dc[:, :1]), dc[:, :-1]], dim=1)
+    out = zz.clone()
+    out[:, 0] = (dc - prev).reshape(-1)
+    return out
+
+
+def dc_reconstruct(zz: np.ndarray, n_stripes: int) -> np.ndarray:
+    """Inverse of dc_predict on host-decoded (NB, n2) coefficients."""
+    nb = zz.shape[0]
+    dc = zz[:, 0].reshape(n_stripes, nb // n_stripes)
+    out = zz.copy()
+    out[:, 0] = np.cumsum(dc, axis=1).reshape(-1)
+    return out
+
+
+def _adaptive(pixels: torch.Tensor, cfg: CodecConfig):
+    """(variance codes, scales) per block under cfg.adaptive, else
+    (None, None)."""
+    if not cfg.adaptive:
+        return None, None
+    codes = quant.variance_code(
+        quant.block_variance_flat(transform.level_shift(pixels))
+    )
+    return codes, quant.scale_from_variance_code(codes)
+
+
+def pad_plane_for_encode(plane: torch.Tensor, cfg: CodecConfig) -> torch.Tensor:
+    """The canonical encoder padding: (..., H, W) u8 -> (..., bh*n, bw*n),
+    edge-replicated to the block grid and then the stripe grid."""
+    h, w = int(plane.shape[-2]), int(plane.shape[-1])
+    bh, bw, _ = _padded_grid(h, w, cfg)
+    n = cfg.block_size
+    return blk.pad_edge(plane.to(torch.uint8), bh * n, bw * n)
+
+
+def encode_analyze(
+    image: torch.Tensor, cfg: CodecConfig, ops: tables.CodecOperators
+):
+    """Stage 1: padded plane (Hp, Wp) -> (symbols, var_codes, histogram,
+    run_histogram). run_histogram is the (65,) run histogram under
+    cfg.coded_runs, else a zero stub. Category and "none" modes."""
+    n = cfg.block_size
+    pixels = blk.image_to_blocks(image, n)  # (NB, n2)
+    var_codes, scale = _adaptive(pixels, cfg)
+    zz = encode_blocks_kernel(pixels, cfg, ops, scale)
+    if cfg.dc_prediction:
+        zz = dc_predict(zz, (image.shape[0] // n) // cfg.stripe_rows)
+    mode = cfg.huffman_mode if cfg.use_huffman else "none"
+    if mode == "direct":
+        raise NotImplementedError("direct-mode tables: not ported yet")
+    symbols = rle.rle_encode_positional(zz)
+    if mode == "category":
+        hist = hf.category_histogram_masked(symbols.values, symbols.is_sym)
+    else:
+        hist = torch.zeros(1, dtype=torch.int32, device=zz.device)
+    if cfg.coded_runs:
+        run_hist = hf.run_histogram_masked(symbols.runs, symbols.is_sym)
+    else:
+        run_hist = torch.zeros(1, dtype=torch.int32, device=zz.device)
+    return symbols, var_codes, hist, run_hist
+
+
+def symbol_chunks_for(symbols: rle.RLEPositional, cfg: CodecConfig,
+                      ops: tables.CodecOperators):
+    """The codec's mode dispatch over bs.symbol_chunks: (cv, cl)."""
+    rkw = dict(
+        run_lengths=ops.run_lengths if cfg.coded_runs else None,
+        run_codes=ops.run_codes if cfg.coded_runs else None,
+        run_bits=bs.run_field_bits(cfg.n2),
+    )
+    mode = cfg.huffman_mode if cfg.use_huffman else "none"
+    if mode == "category":
+        return bs.symbol_chunks(symbols, mode, cat_lengths=ops.cat_lengths,
+                                cat_codes=ops.cat_codes, **rkw)
+    if mode == "direct":
+        return bs.symbol_chunks(symbols, mode, val_lengths=ops.cat_lengths,
+                                val_codes=ops.cat_codes, vmin=DIRECT_VMIN,
+                                **rkw)
+    return bs.symbol_chunks(symbols, mode, **rkw)
+
+
+def encode_pack(
+    symbols: rle.RLEPositional, cfg: CodecConfig, n_stripes: int,
+    ops: tables.CodecOperators,
+):
+    """Stage 2, staged: symbols + tables -> (PackedStripes, (n_stripes,
+    bps) int32 per-block bit lengths)."""
+    if cfg.coded_runs and ops.run_lengths is None:
+        raise ValueError("coded_runs requires a run table")
+    cv, cl = symbol_chunks_for(symbols, cfg, ops)
+    nb = symbols.values.shape[0]
+    bps = nb // n_stripes
+    block_bits = cl.sum(dim=(1, 2)).reshape(n_stripes, bps).to(torch.int32)
+    cv = cv.reshape(n_stripes, -1, 3)
+    cl = cl.reshape(n_stripes, -1, 3)
+    capacity = bps * bs.units_per_block_worst(cfg.n2, cfg.coded_runs)
+    return bs.pack_chunks(cv, cl, capacity), block_bits
+
+
+def _build_table(cfg: CodecConfig, hist: np.ndarray | None):
+    if not cfg.use_huffman or cfg.huffman_mode == "none":
+        return None
+    if cfg.static_tables:
+        if cfg.huffman_mode != "category":
+            raise ValueError("static_tables requires huffman_mode='category'")
+        return hf.default_category_table(cfg.quality)
+    return hf.CanonicalTable.from_frequencies(hist)
+
+
+def _build_run_table(cfg: CodecConfig, run_hist: np.ndarray | None):
+    if not cfg.coded_runs:
+        return None
+    if cfg.static_tables or run_hist is None:
+        return hf.default_run_table(cfg.quality)
+    # +1 smoothing: every run 0..64 must stay encodable
+    return hf.CanonicalTable.from_frequencies(
+        np.asarray(run_hist, np.int64) + 1, max_len=hf.RUN_MAX_CODE_LEN
+    )
+
+
+def encode_fused_step(
+    image: torch.Tensor,
+    cfg: CodecConfig,
+    n_stripes: int,
+    ops: tables.CodecOperators,
+):
+    """Padded plane(s) (..., Hp, Wp) + tables -> (PackedStripes, var_codes,
+    block_bits-or-None), one fused stripe encode over every stripe of
+    every frame. Outputs keep the leading frame axes: units (...,
+    n_stripes, U), bit lengths (..., n_stripes), var_codes (..., NB),
+    block_bits (..., n_stripes, bps) when cfg.decode_index is truthy."""
+    lead = image.shape[:-2]
+    pixels = blk.image_to_blocks(image, cfg.block_size)
+    var_codes, scale = _adaptive(pixels, cfg)
+    frames = int(np.prod(lead, dtype=np.int64))
+    packed, block_bits = fused_encode_cuda.encode_stripes_fused(
+        pixels.reshape(-1, cfg.n2), cfg, frames * n_stripes, ops, scale
+    )
+    packed = bs.PackedStripes(
+        units=packed.units.reshape(*lead, n_stripes, -1),
+        bit_lengths=packed.bit_lengths.reshape(*lead, n_stripes),
+    )
+    block_bits = block_bits.reshape(*lead, n_stripes, -1)
+    return packed, var_codes, (block_bits if cfg.decode_index else None)
+
+
+def encode_step(image: torch.Tensor, cfg: CodecConfig, n_stripes: int):
+    """Full static-table encode of padded plane(s) (..., Hp, Wp) on the
+    tensor's device: -> (PackedStripes, var_codes, block_bits-or-None)."""
+    if not cfg.static_tables:
+        raise ValueError("encode_step requires cfg.static_tables")
+    ops = tables.build(cfg, device=image.device)
+    return encode_fused_step(image, cfg, n_stripes, ops)
+
+
+def encode_plane(
+    plane: np.ndarray, cfg: CodecConfig,
+    device: str | torch.device | None = None,
+) -> cont.PlaneData:
+    """Encode one u8 gray plane to PlaneData (device compute + host
+    assembly)."""
+    device = torch.device(device) if device is not None else _default_device()
+    h, w = int(plane.shape[0]), int(plane.shape[1])
+    _, _, n_stripes = _padded_grid(h, w, cfg)
+    img = pad_plane_for_encode(
+        torch.from_numpy(np.array(plane, np.uint8)).to(device), cfg
+    )
+    ops = tables.build(cfg, device=device)
+
+    if cfg.static_tables:
+        table = _build_table(cfg, None)
+        run_table = _build_run_table(cfg, None)
+        packed, var_codes, block_bits = encode_fused_step(
+            img, cfg, n_stripes, ops
+        )
+    else:
+        symbols, var_codes, hist, run_hist = encode_analyze(img, cfg, ops)
+        table = _build_table(cfg, hist.cpu().numpy())
+        run_table = _build_run_table(cfg, run_hist.cpu().numpy())
+        ops = ops.with_tables(table, run_table)
+        if device.type == "cuda":
+            # the fused kernel re-runs the transform with the real tables
+            packed, var_codes, block_bits = encode_fused_step(
+                img, cfg, n_stripes, ops
+            )
+        else:
+            packed, block_bits = encode_pack(symbols, cfg, n_stripes, ops)
+            if not cfg.decode_index:
+                block_bits = None
+    packed = bs.fetch_packed(packed)  # trim worst-case slack before D2H
+    return cont.PlaneData(
+        width=w,
+        height=h,
+        table_lengths=table.lengths if table is not None else None,
+        vmin=DIRECT_VMIN,
+        variance_codes=var_codes.cpu().numpy() if cfg.adaptive else None,
+        stripe_bits=packed.bit_lengths.astype(np.uint32),
+        stripes=bs.stripes_to_bytes(packed),
+        run_table_lengths=(
+            run_table.lengths if run_table is not None else None
+        ),
+        block_bits=(
+            block_bits.cpu().numpy().reshape(-1).astype(np.uint16)
+            if block_bits is not None else None
+        ),
+    )
+
+
+def host_decoder() -> str:
+    """Which host entropy decoder decode runs: "native" (the C++ decoder
+    of dct_tpu.native, when it builds) or "python"."""
+    from dct_tpu import native
+
+    return "native" if native.available() else "python"
+
+
+def _decode_stripes(
+    p: cont.PlaneData, cfg: CodecConfig, table, mode: str, n_stripes: int,
+    bps: int, run_table=None,
+) -> np.ndarray:
+    """Entropy-decode all stripes on the host to (NB, n2) int16 zigzag
+    coefficients: the native C++ decoder when it builds, else the Python
+    decoder."""
+    from dct_tpu import native
+
+    if host_decoder() == "native":
+        return native.unpack_stripes(
+            p.stripes, bps, cfg.n2, mode, table, DIRECT_VMIN,
+            run_table=run_table,
+        )
+    return np.concatenate([
+        bs.unpack_stripe_host(
+            p.stripes[s], bps, cfg.n2, mode,
+            cat_table=table if mode == "category" else None,
+            val_table=table if mode == "direct" else None,
+            vmin=DIRECT_VMIN, run_table=run_table,
+        )
+        for s in range(n_stripes)
+    ], axis=0)
+
+
+def decode_plane_device(
+    p: cont.PlaneData, cfg: CodecConfig,
+    device: str | torch.device | None = None,
+) -> torch.Tensor:
+    """PlaneData -> reconstructed (H, W) u8 plane as a tensor on
+    ``device``: host entropy decode, then dequant + IDCT (kernel C on
+    CUDA) on the device."""
+    device = torch.device(device) if device is not None else _default_device()
+    n = cfg.block_size
+    bh, bw, n_stripes = _padded_grid(p.height, p.width, cfg)
+    bps = (bh // n_stripes) * bw  # blocks per stripe
+
+    mode = cfg.huffman_mode if cfg.use_huffman else "none"
+    table = hf.CanonicalTable(p.table_lengths) if mode != "none" else None
+    run_table = (
+        hf.CanonicalTable(p.run_table_lengths) if cfg.coded_runs else None
+    )
+    zz = _decode_stripes(p, cfg, table, mode, n_stripes, bps, run_table)
+    if cfg.dc_prediction:
+        zz = dc_reconstruct(zz, n_stripes)
+
+    scale = None
+    if cfg.adaptive:
+        scale = quant.scale_from_variance_code(
+            torch.from_numpy(np.array(p.variance_codes, np.uint8)).to(device)
+        )
+    ops = tables.build(cfg, device=device)
+    pixels = decode_blocks_kernel(torch.from_numpy(zz).to(device), cfg, ops,
+                                  scale)
+    # rebuild on the (stripe-padded) encoder grid, then crop to true dims
+    return blk.blocks_to_image(pixels, bh * n, bw * n, n)[: p.height, : p.width]
+
+
+def decode_plane(
+    p: cont.PlaneData, cfg: CodecConfig,
+    device: str | torch.device | None = None,
+) -> np.ndarray:
+    """PlaneData -> reconstructed u8 plane (host array)."""
+    return decode_plane_device(p, cfg, device).cpu().numpy()
+
+
+class ImageCodec:
+    """Grayscale single-plane codec on one device."""
+
+    def __init__(self, config: CodecConfig | None = None,
+                 device: str | torch.device | None = None):
+        self.config = config or CodecConfig()
+        self.device = (torch.device(device) if device is not None
+                       else _default_device())
+        if self.config.chroma != "gray":
+            raise NotImplementedError("color codecs: not ported yet")
+
+    def encode(self, image: np.ndarray) -> bytes:
+        if image.ndim != 2:
+            raise ValueError(f"expected (H, W) grayscale, got {image.shape}")
+        plane = encode_plane(image, self.config, device=self.device)
+        c = cont.Container(
+            config=self.config,
+            width=int(image.shape[1]),
+            height=int(image.shape[0]),
+            planes=[plane],
+        )
+        return cont.serialize(c)
+
+    def decode(self, data: bytes) -> np.ndarray:
+        return self.decode_to_device(data).cpu().numpy()
+
+    def decode_to_device(self, data: bytes) -> torch.Tensor:
+        """Decode with the reconstruction left on this codec's device."""
+        c = cont.deserialize(data)
+        if c.config.chroma != "gray":
+            raise NotImplementedError("color containers: not ported yet")
+        return decode_plane_device(c.planes[0], c.config, device=self.device)
+
+
+def encode(image: np.ndarray, config: CodecConfig | None = None,
+           device: str | torch.device | None = None) -> bytes:
+    """Module-level convenience: grayscale (H, W) images."""
+    if image.ndim != 2:
+        raise NotImplementedError("color images: not ported yet")
+    return ImageCodec(config or CodecConfig(), device).encode(image)
+
+
+def decode(data: bytes, device: str | torch.device | None = None) -> np.ndarray:
+    return ImageCodec(device=device).decode(data)

@@ -1,0 +1,135 @@
+"""Build and load the port's CUDA kernels (dct_tpu_torch/csrc/*.cu).
+
+Each ``.cu`` source is compiled by ``nvcc`` into its own shared library
+with a plain C interface (csrc/bindings.h) and loaded with ctypes. The
+sources include no PyTorch header, so a build takes seconds; all of them
+are compiled in parallel, one nvcc each, on first use. Libraries land in
+``build/torch_kernels/`` at the repository root (listed in .gitignore),
+named by a digest of the sources and flags, so an edited source is rebuilt
+and an unchanged one is reused.
+
+Nothing here runs at import: a machine without nvcc or a GPU imports the
+package and runs the plain versions.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+
+CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
+SOURCES = ("transform", "fused_encode")
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_p, _i, _ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_SIGNATURES = {
+    "transform": {
+        "dct_encode_blocks": [_p, _p, _p, _p, _p, _i, _p, _p, _ll, _i, _p],
+        "dct_decode_blocks": [_p, _p, _i, _p, _p, _ll, _i, _p],
+    },
+    "fused_encode": {
+        "dct_encode_stripes": [_p, _p, _p, _p, _p, _i, _p, _p, _p, _p, _p,
+                               _i, _i, _i, _i, _p, _i, _p, _p, _p],
+    },
+}
+
+# Launches per kernel, counted by the wrappers where they launch (and
+# nowhere else), so a run can show which kernels the path went through.
+LAUNCHES = {"encode_blocks": 0, "encode_stripes": 0, "decode_blocks": 0}
+
+_libs: dict[str, ctypes.CDLL] = {}
+
+
+def reset_launch_counts() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def nvcc_path() -> str:
+    for root in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if root and (pathlib.Path(root) / "bin" / "nvcc").exists():
+            return str(pathlib.Path(root) / "bin" / "nvcc")
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels build only on a "
+                           "machine with the CUDA toolkit")
+    return found
+
+
+def _digest(name: str) -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in sorted(CSRC.glob("*.h")) + sorted(CSRC.glob("*.cuh")):
+        h.update(path.read_bytes())
+    h.update((CSRC / f"{name}.cu").read_bytes())
+    return h.hexdigest()[:16]
+
+
+def library_path(name: str) -> pathlib.Path:
+    return BUILD_DIR / f"{name}-{_digest(name)}.so"
+
+
+def build_all() -> dict[str, str]:
+    """Compile every stale source, all nvcc processes at once. Returns
+    {name: compiler output} for the sources built (ptxas register and
+    shared-memory lines included); raises with the log if one fails."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name in SOURCES:
+        out = library_path(name)
+        if out.exists():
+            continue
+        tmp = out.with_suffix(f".tmp{os.getpid()}.so")
+        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True),
+                       tmp, out)
+    logs, failed = {}, []
+    for name, (proc, tmp, out) in procs.items():
+        logs[name] = proc.communicate()[0]
+        if proc.returncode != 0:
+            failed.append(name)
+            tmp.unlink(missing_ok=True)
+        else:
+            os.replace(tmp, out)  # atomic: concurrent builds agree
+    if failed:
+        raise RuntimeError("nvcc failed for " + ", ".join(failed) + ":\n"
+                           + "\n".join(logs[n] for n in failed))
+    return logs
+
+
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library of csrc/<name>.cu, built on first use."""
+    lib = _libs.get(name)
+    if lib is None:
+        path = library_path(name)
+        if not path.exists():
+            build_all()
+        lib = ctypes.CDLL(str(path))
+        for fn, args in _SIGNATURES[name].items():
+            getattr(lib, fn).argtypes = args
+            getattr(lib, fn).restype = _i
+        lib.dct_error_string.argtypes = [_i]
+        lib.dct_error_string.restype = ctypes.c_char_p
+        _libs[name] = lib
+    return lib
+
+
+def ptr(t) -> int | None:
+    """A tensor's device pointer, or None (NULL) for an absent operand."""
+    return None if t is None else t.data_ptr()
+
+
+def check(lib: ctypes.CDLL, rc: int, what: str) -> None:
+    """Raise if a launcher reported a CUDA error."""
+    if rc != 0:
+        msg = lib.dct_error_string(rc).decode()
+        raise RuntimeError(f"{what} launch failed: CUDA error {rc} ({msg})")
+

@@ -1,0 +1,139 @@
+"""The port's gray codec end to end against the JAX reference on the CPU:
+byte-identical containers, cross-decoding, batched encode_step.
+
+Cross-decoded pixels: equal, except at most 1 apart where the float64
+value lies within 1e-3 of a .5 boundary (the two decode products sum in
+different orders).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from dct_tpu import container as cont
+from dct_tpu.config import CodecConfig
+from dct_tpu.models import codec as ref_codec
+from dct_tpu.utils import image_io
+from dct_tpu_torch import testing
+from dct_tpu_torch.models import codec
+from dct_tpu_torch.ops import bitstream as bs
+
+SIZES = {"odd": (61, 97), "even": (72, 136)}
+
+CONFIGS = {
+    "static_q50": dict(quality=50, static_tables=True),
+    "dynamic_q50": dict(quality=50),
+    "static_q90": dict(quality=90, static_tables=True),
+    "dynamic_q90": dict(quality=90),
+    "adaptive_q50": dict(quality=50, adaptive=True),
+    "dc_runs_q50": dict(quality=50, dc_prediction=True, coded_runs=True),
+    "all_static_q90": dict(quality=90, static_tables=True, adaptive=True,
+                           dc_prediction=True, coded_runs=True),
+    "all_dynamic_q50": dict(quality=50, adaptive=True, dc_prediction=True,
+                            coded_runs=True),
+}
+
+
+@pytest.fixture(scope="module")
+def images():
+    return {k: image_io.synthetic_image(h, w, "photo", seed=41)
+            for k, (h, w) in SIZES.items()}
+
+
+def _decoded_close(got, want, data, cfg):
+    """got/want pixels agree, or differ by at most 1 at decode ties."""
+    if np.array_equal(got, want):
+        return
+    c = cont.deserialize(data)
+    p = c.planes[0]
+    bh, bw, n_stripes = codec._padded_grid(p.height, p.width, c.config)
+    n = c.config.block_size
+    zz = codec._decode_stripes(
+        p, c.config, codec.hf.CanonicalTable(p.table_lengths), "category",
+        n_stripes, bh // n_stripes * bw,
+        codec.hf.CanonicalTable(p.run_table_lengths)
+        if c.config.coded_runs else None)
+    if c.config.dc_prediction:
+        zz = codec.dc_reconstruct(zz, n_stripes)
+    scale = None
+    if c.config.adaptive:
+        scale = codec.quant.scale_from_variance_code(
+            torch.from_numpy(p.variance_codes)).numpy()
+    vals = codec.blk.blocks_to_image(
+        torch.from_numpy(testing.decode_values_f64(zz, c.config, scale)),
+        bh * n, bw * n, n)[: p.height, : p.width].numpy()
+    n_mis, n_bad = testing.tie_mismatches(got, want, vals,
+                                          testing.DECODE_TIE_TOL)
+    assert n_bad == 0, f"{n_bad} non-tie pixel differences"
+
+
+@pytest.mark.parametrize("size", sorted(SIZES))
+@pytest.mark.parametrize("case", sorted(CONFIGS))
+def test_containers_byte_identical_and_cross_decode(images, size, case):
+    cfg = CodecConfig(**CONFIGS[case])
+    img = images[size]
+    want = ref_codec.encode(img, cfg)
+    got = codec.encode(img, cfg, device="cpu")
+    assert got == want
+    ref_pixels = ref_codec.decode(want)
+    ours = codec.ImageCodec(cfg, device="cpu")
+    _decoded_close(ours.decode(want), ref_pixels, want, cfg)
+    on_dev = ours.decode_to_device(want)
+    assert on_dev.device.type == "cpu" and on_dev.dtype == torch.uint8
+    np.testing.assert_array_equal(on_dev.numpy(), ours.decode(want))
+
+
+def test_both_container_versions_are_covered(images):
+    """q50 writes v1 (no decode index), q90 writes v2 at these sizes."""
+    versions = {codec.encode(images["even"], CodecConfig(quality=q),
+                             device="cpu")[4] for q in (50, 90)}
+    assert versions == {1, 2}
+
+
+def test_pallas_reference_path_decodes_to_the_same_pixels(images):
+    """The JAX side through kernels A and C in interpret mode."""
+    cfg = CodecConfig(quality=50, use_pallas=True)
+    img = images["odd"]
+    want = ref_codec.ImageCodec(cfg).encode(img)
+    assert codec.encode(img, cfg, device="cpu") == want
+    ref_pixels = ref_codec.ImageCodec(cfg).decode(want)
+    _decoded_close(codec.decode(want, device="cpu"), ref_pixels, want, cfg)
+
+
+def test_encode_step_frames_equal_single_frames():
+    cfg = CodecConfig(quality=50, static_tables=True, adaptive=True)
+    frames = np.stack([image_io.synthetic_image(64, 120, "photo", seed=s)
+                       for s in range(3)])
+    n_stripes = 8
+    batch, var_codes, bb = codec.encode_step(torch.from_numpy(frames), cfg,
+                                             n_stripes)
+    for f in range(3):
+        one, vc1, bb1 = codec.encode_step(torch.from_numpy(frames[f]), cfg,
+                                          n_stripes)
+        a = bs.fetch_packed(one)
+        b = bs.fetch_packed(bs.PackedStripes(batch.units[f],
+                                             batch.bit_lengths[f]))
+        np.testing.assert_array_equal(a.bit_lengths, b.bit_lengths)
+        np.testing.assert_array_equal(a.units, b.units[:, :a.units.shape[1]])
+        torch.testing.assert_close(vc1, var_codes[f], rtol=0, atol=0)
+        torch.testing.assert_close(bb1, bb[f], rtol=0, atol=0)
+        ref, _, ref_bb = ref_codec.encode_step(jnp.asarray(frames[f]), cfg,
+                                               n_stripes)
+        r = bs.fetch_packed(bs.PackedStripes(torch.from_numpy(np.array(
+            ref.units).astype(np.int32)), torch.from_numpy(np.array(
+                ref.bit_lengths))))
+        np.testing.assert_array_equal(a.units, r.units)
+        np.testing.assert_array_equal(bb1.numpy(), np.asarray(ref_bb))
+
+
+def test_color_is_not_ported_yet(images):
+    rgb = np.stack([images["odd"]] * 3, axis=-1)
+    with pytest.raises(NotImplementedError):
+        codec.encode(rgb, device="cpu")
+    with pytest.raises(NotImplementedError):
+        codec.ImageCodec(CodecConfig(chroma="420"), device="cpu")
+    color = ref_codec.encode(rgb, CodecConfig(quality=50))
+    with pytest.raises(NotImplementedError):
+        codec.decode(color, device="cpu")

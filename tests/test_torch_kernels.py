@@ -1,0 +1,170 @@
+"""The port's CUDA kernels (A: encode transform, B: fused stripe encode,
+C: decode transform) against their plain PyTorch versions.
+
+These need an NVIDIA GPU and skip without one; run them on the card with
+``python -m pytest --noconftest tests/test_torch_kernels.py -q`` (the
+suite's conftest.py imports jax). Shapes are small; the full-size
+comparison at 8 x 1088 x 1920 is chip_smoke.py's.
+
+Tolerances: kernel B is held bit-exact against the plain staged pipeline
+fed kernel A's integers (A and B share one device function). A and C sum
+their float32 products in another order than the plain version's matrix
+product, so their integers may differ at ties only: at most 1 apart, where
+the float64 value lies within 1e-6 (encode, tests/test_parity.py's
+criterion) or 1e-3 (decode) of a .5 boundary. The plain versions run on the
+card here with TF32 off, so their float32 products stay float32.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from dct_tpu import container as cont
+from dct_tpu.config import CodecConfig
+from dct_tpu.utils import image_io
+from dct_tpu_torch import tables, testing
+from dct_tpu_torch.models import codec
+from dct_tpu_torch.ops import _build, blocks, bitstream as bs, rle
+from dct_tpu_torch.ops import fused_encode_cuda, transform, transform_cuda
+
+
+@pytest.fixture(scope="module")
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    yield torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+
+
+@pytest.fixture(scope="module")
+def image():
+    return image_io.synthetic_image(72, 136, "photo", seed=11)
+
+
+def _blocks_and_scale(image, cfg, device):
+    img = codec.pad_plane_for_encode(torch.from_numpy(image), cfg)
+    px = blocks.image_to_blocks(img, cfg.block_size).to(device)
+    _, scale = codec._adaptive(px, cfg)
+    return px, scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", (2, 4, 8))
+@pytest.mark.parametrize("adaptive", (False, True))
+def test_encode_and_decode_kernels_match_plain(cuda, image, n, adaptive):
+    cfg = CodecConfig(block_size=n, quality=50, adaptive=adaptive)
+    px, scale = _blocks_and_scale(image, cfg, cuda)
+    ops_d, ops_h = tables.build(cfg, device=cuda), tables.build(cfg)
+    scale_h = None if scale is None else scale.cpu()
+    got = transform_cuda.encode_blocks_kernel(px, cfg, ops_d, scale).cpu()
+    want = transform.encode_blocks(px.cpu(), cfg, ops_h, scale_h)
+    recip = None if scale is None else transform.reciprocal_scale(scale_h)
+    vals = testing.encode_values_f64(px.cpu().numpy(), cfg, recip)
+    n_mis, n_bad = testing.tie_mismatches(got, want, vals,
+                                          testing.ENCODE_TIE_TOL)
+    assert n_bad == 0 and n_mis <= got.numel() // 1000
+
+    dec = transform_cuda.decode_blocks_kernel(want.to(cuda), cfg, ops_d, scale)
+    ref = transform.decode_blocks(want, cfg, ops_h, scale_h)
+    dvals = testing.decode_values_f64(
+        want.numpy(), cfg, None if scale_h is None else scale_h.numpy())
+    n_mis, n_bad = testing.tie_mismatches(dec.cpu(), ref, dvals,
+                                          testing.DECODE_TIE_TOL)
+    assert n_bad == 0 and n_mis <= ref.numel() // 1000
+
+
+STRIPE_CASES = {
+    "static_q50": dict(quality=50, static_tables=True),
+    "dynamic_q50": dict(quality=50),
+    "q90_adaptive_dc_runs": dict(quality=90, adaptive=True,
+                                 dc_prediction=True, coded_runs=True),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(STRIPE_CASES))
+def test_stripe_kernel_matches_staged_pipeline(cuda, image, case):
+    cfg = CodecConfig(**STRIPE_CASES[case])
+    px, scale = _blocks_and_scale(image, cfg, cuda)
+    n_stripes = 9
+    ops = tables.build(cfg, device=cuda)
+    if not cfg.static_tables:  # per-image tables, as the codec builds them
+        _, _, hist, run_hist = codec.encode_analyze(
+            codec.pad_plane_for_encode(torch.from_numpy(image).to(cuda), cfg),
+            cfg, ops)
+        ops = ops.with_tables(codec._build_table(cfg, hist.cpu().numpy()),
+                              codec._build_run_table(cfg, run_hist.cpu().numpy()))
+    packed, bbits = fused_encode_cuda.encode_stripes_fused(
+        px, cfg, n_stripes, ops, scale)
+    zz = transform_cuda.encode_blocks_kernel(px, cfg, ops, scale)
+    if cfg.dc_prediction:
+        zz = codec.dc_predict(zz, n_stripes)
+    ref, ref_bbits = codec.encode_pack(rle.rle_encode_positional(zz), cfg,
+                                       n_stripes, ops)
+    got_h, ref_h = bs.fetch_packed(packed), bs.fetch_packed(ref)
+    np.testing.assert_array_equal(got_h.bit_lengths, ref_h.bit_lengths)
+    np.testing.assert_array_equal(got_h.units, ref_h.units)
+    np.testing.assert_array_equal(bbits.cpu(), ref_bbits.cpu())
+    assert packed.units.shape == ref.units.shape
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(STRIPE_CASES))
+def test_codec_on_cuda_matches_cpu(cuda, image, case):
+    cfg = CodecConfig(**STRIPE_CASES[case])
+    _build.reset_launch_counts()
+    data = codec.ImageCodec(cfg, device=cuda).encode(image)
+    assert data == codec.ImageCodec(cfg, device="cpu").encode(image)
+    rec = codec.ImageCodec(cfg, device=cuda).decode_to_device(data)
+    assert rec.device.type == "cuda"
+    ref = codec.ImageCodec(cfg, device="cpu").decode(data)
+    assert np.abs(rec.cpu().numpy().astype(int) - ref).max() <= 1
+    assert _build.LAUNCHES["encode_stripes"] == 1
+    assert _build.LAUNCHES["encode_blocks"] == (0 if cfg.static_tables else 1)
+    assert _build.LAUNCHES["decode_blocks"] == 1
+
+
+@pytest.mark.cuda
+def test_encode_step_frames_on_cuda(cuda):
+    cfg = CodecConfig(quality=50, static_tables=True)
+    frames = np.stack([image_io.synthetic_image(64, 120, "photo", seed=s)
+                       for s in range(3)])
+    batch, _, bb = codec.encode_step(torch.from_numpy(frames).to(cuda), cfg, 8)
+    for f in range(3):
+        one, _, bb1 = codec.encode_step(torch.from_numpy(frames[f]).to(cuda),
+                                        cfg, 8)
+        a, b = bs.fetch_packed(one), bs.fetch_packed(
+            bs.PackedStripes(batch.units[f], batch.bit_lengths[f]))
+        np.testing.assert_array_equal(a.units, b.units)
+        np.testing.assert_array_equal(bb1.cpu(), bb[f].cpu())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw", (dict(block_size=4), dict(huffman_mode="none")))
+def test_stripe_kernel_refuses_what_it_does_not_cover(cuda, kw):
+    cfg = CodecConfig(static_tables=False, **kw)
+    px = torch.zeros(16, cfg.n2, dtype=torch.uint8, device=cuda)
+    with pytest.raises(NotImplementedError):
+        fused_encode_cuda.encode_stripes_fused(
+            px, cfg, 2, tables.build(cfg, device=cuda))
+
+
+@pytest.mark.cuda
+def test_container_of_1080p_frame_is_v1_at_q50(cuda):
+    img = image_io.synthetic_image(1080, 1920, "photo", seed=7)
+    data = codec.ImageCodec(CodecConfig(quality=50, static_tables=True),
+                            device=cuda).encode(img)
+    assert cont.deserialize(data).planes[0].block_bits is None
+
+
+@pytest.mark.cuda
+def test_stripe_wider_than_shared_memory_is_refused(cuda):
+    cfg = CodecConfig(static_tables=True)
+    px = torch.zeros(1200, 64, dtype=torch.uint8, device=cuda)  # ~290 KB
+    with pytest.raises(RuntimeError, match="1200 blocks per stripe"):
+        fused_encode_cuda.encode_stripes_fused(
+            px, cfg, 1, tables.build(cfg, device=cuda))
