@@ -21,14 +21,33 @@ then:
      containers must equal the CPU path's byte for byte, or differ only
      in tie coefficients; pixels must agree within 1;
   5. times of each kernel and its plain version at those shapes (CUDA
-     events), end-to-end encode_step and decode rates.
+     events), end-to-end encode_step and decode rates;
+  6. the indexed decode (kernel D), the main path of the second slice:
+     ImageCodec(CodecConfig(quality=90), device="cuda") encodes the 1080p
+     frame to a v2 container (kernels A and B), decodes it (decode and
+     decode_to_device: kernels D and C), counted as in 4; the pixels must
+     equal the host route's (host decoder, then kernel C) on the same
+     container exactly, and the CPU path's within 1;
+  7. kernel D against its plain version and the host decoder, bit-exact,
+     on the 8-frame batch (1,088 stripes, 261,120 blocks in one launch)
+     encoded by kernel B at static q90 and at adaptive + DC prediction +
+     coded runs, and on 1080p streams in the modes the card cannot encode
+     yet ("none" from the CPU encoder, "direct" packed from kernel A's
+     coefficients by the plain packer);
+  8. times of D and its plain version at the batch, its bound, and the
+     1080p q90 decode on both routes, stage by stage.
 
 A and C may differ from their plain versions only at ties: at most 1
 apart, where the float64 value lies within 1e-6 (encode) or 1e-3 (decode)
 of a .5 boundary (the two sum float32 products in different orders;
-dct_tpu_torch.testing). Any failed check raises.
-The last line is the JSON status; the line before it the kernel table, and
-the one before that the card's name and power limit.
+dct_tpu_torch.testing). B and D are held bit-exact. Any failed check
+raises. Each kernel's bound is the larger of the bytes it must move (each
+input read once, each output written once) over 3.35 TB/s and its
+operations over the H100's peak for their type (989 TFLOP/s bf16 for A
+and B, whose u8 x bf16 products are exact there; 67 TFLOP/s float32 for
+C, whose coefficients need float32), computed from this run's inputs.
+The last line is the JSON status; the line before it the card's name and
+power limit, and the one before that the kernel table.
 """
 
 from __future__ import annotations
@@ -42,6 +61,9 @@ import time
 import numpy as np
 
 FRAMES, H, W = 8, 1088, 1920  # 1080p on the 8-px grid: 136 x 240 blocks
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
+BF16_FLOPS = 989e12
+F32_FLOPS = 67e12
 
 
 def log(msg: str) -> None:
@@ -99,8 +121,38 @@ def tie_check(name, got, want, values_of, tol):
     return n_mis, max_err
 
 
+def bound_ms(n_bytes: float, flops: float = 0.0, peak: float = 1.0):
+    """(least milliseconds, what bounds them): bytes over the memory rate
+    or operations over the peak rate, whichever is larger."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / peak * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def batch_tables(cfg, px, scale, n_stripes, ops):
+    """Per-batch canonical tables from the histograms of kernel A's
+    coefficients (static tables: the defaults): (ops, table, run_table)."""
+    from dct_tpu_torch.models import codec
+    from dct_tpu_torch.ops import huffman as hf
+    from dct_tpu_torch.ops import rle, transform_cuda
+
+    if cfg.static_tables:
+        return (ops, hf.default_category_table(cfg.quality),
+                codec._build_run_table(cfg, None))
+    zz = transform_cuda.encode_blocks_kernel(px, cfg, ops, scale)
+    if cfg.dc_prediction:
+        zz = codec.dc_predict(zz, n_stripes)
+    sym = rle.rle_encode_positional(zz)
+    table = codec._build_table(cfg, hf.category_histogram_masked(
+        sym.values, sym.is_sym).cpu().numpy())
+    run_table = codec._build_run_table(cfg, hf.run_histogram_masked(
+        sym.runs, sym.is_sym).cpu().numpy())
+    return ops.with_tables(table, run_table), table, run_table
+
+
 def coefficients(data: bytes, cfg):
     """Entropy-decoded (NB, 64) zigzag coefficients of a gray container."""
+    import torch
     from dct_tpu_torch.models import codec
 
     p = codec.cont.deserialize(data).planes[0]
@@ -108,7 +160,9 @@ def coefficients(data: bytes, cfg):
     zz = codec._decode_stripes(
         p, cfg, codec.hf.CanonicalTable(p.table_lengths), "category",
         n_stripes, bh // n_stripes * bw)
-    return codec.dc_reconstruct(zz, n_stripes) if cfg.dc_prediction else zz
+    if cfg.dc_prediction:
+        zz = codec.dc_reconstruct(torch.from_numpy(zz), n_stripes).numpy()
+    return zz
 
 
 def main() -> int:
@@ -118,10 +172,15 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
 
-    from dct_tpu_torch import CodecConfig, tables, testing
+    import dataclasses
+
+    from dct_tpu_torch import CodecConfig, native, tables, testing
+    from dct_tpu_torch import container as cont
     from dct_tpu_torch.models import codec
     from dct_tpu_torch.ops import _build, blocks, bitstream as bs, rle
-    from dct_tpu_torch.ops import fused_encode_cuda, transform, transform_cuda
+    from dct_tpu_torch.ops import entropy_decode as ed
+    from dct_tpu_torch.ops import entropy_decode_cuda, fused_encode_cuda
+    from dct_tpu_torch.ops import transform, transform_cuda
     from dct_tpu_torch.utils import image_io
 
     # The plain versions run on the card here, as the kernels' references:
@@ -229,18 +288,12 @@ def main() -> int:
     s_all = FRAMES * n_stripes
     for name, cfg in (("static", static), ("dynamic", dynamic),
                       ("adaptive+dc+coded_runs", rich)):
-        ops = tables.build(cfg, device=dev)
         _, scale = codec._adaptive(px, cfg)
+        ops, _, _ = batch_tables(cfg, px, scale, s_all,
+                                 tables.build(cfg, device=dev))
         zz = transform_cuda.encode_blocks_kernel(px, cfg, ops, scale)
         if cfg.dc_prediction:
             zz = codec.dc_predict(zz, s_all)
-        if not cfg.static_tables:  # tables from the batch's histograms
-            sym = rle.rle_encode_positional(zz)
-            ops = ops.with_tables(
-                codec._build_table(cfg, codec.hf.category_histogram_masked(
-                    sym.values, sym.is_sym).cpu().numpy()),
-                codec._build_run_table(cfg, codec.hf.run_histogram_masked(
-                    sym.runs, sym.is_sym).cpu().numpy()))
         got, got_bb = fused_encode_cuda.encode_stripes_fused(
             px, cfg, s_all, ops, scale)
         ref, ref_bb = codec.encode_pack(rle.rle_encode_positional(zz), cfg,
@@ -313,6 +366,148 @@ def main() -> int:
     log("1080p stages: " + ", ".join(f"{k} {v:.4f} ms"
                                      for k, v in stages.items()))
 
+    # ---- 6. the indexed decode's main path, counted -------------------
+    q90 = CodecConfig(quality=90)
+    gpu90 = codec.ImageCodec(q90, device=dev)
+    _build.reset_launch_counts()
+    data90 = gpu90.encode(frame)
+    rec90 = gpu90.decode(data90)
+    rec90_d = gpu90.decode_to_device(data90)
+    torch.cuda.synchronize()
+    launches90 = dict(_build.LAUNCHES)
+    log(f"main path q90 launches {launches90}")
+    check(data90[4] == 2, f"the q90 1080p container is v{data90[4]}, not v2")
+    for k in launches90:
+        check(launches90[k] > 0, f"{k} not launched on the q90 main path")
+    cpu_data90 = codec.ImageCodec(q90, device="cpu").encode(frame)
+    log(f"e2e q90: {len(data90)} B, container v{data90[4]}, equal to CPU "
+        f"path: {data90 == cpu_data90}")
+    if data90 != cpu_data90:  # every differing coefficient must be a tie
+        zz = [coefficients(c, q90) for c in (data90, cpu_data90)]
+        px90 = blocks.image_to_blocks(codec.pad_plane_for_encode(
+            torch.from_numpy(frame), q90), 8).numpy()
+        tie_check("e2e q90 coefficients", torch.from_numpy(zz[0]),
+                  torch.from_numpy(zz[1]),
+                  lambda b: testing.encode_values_f64(px90[b], q90),
+                  testing.ENCODE_TIE_TOL)
+
+    def host_route(data):
+        """The same container through the host decoder, then kernel C."""
+        c = cont.deserialize(data)
+        return codec.decode_plane_device(
+            dataclasses.replace(c.planes[0], block_bits=None), c.config, dev)
+
+    host90 = host_route(data90).cpu().numpy()
+    check(np.array_equal(rec90, rec90_d.cpu().numpy()),
+          "q90 decode and decode_to_device disagree")
+    check(np.array_equal(rec90, host90),
+          "q90 indexed decode differs from the host route")
+    err = int(np.abs(rec90.astype(int)
+                     - codec.ImageCodec(q90, device="cpu").decode(data90)).max())
+    mse = float(np.mean((rec90.astype(np.float64) - frame) ** 2))
+    log(f"e2e q90: pixels equal to the host route's: True; max |diff| vs "
+        f"CPU {err}, PSNR {10 * np.log10(255.0 ** 2 / mse):.2f} dB")
+    check(err <= 1, f"e2e q90: decoded pixels differ by {err}")
+
+    # ---- 7. kernel D against its plain version and the host decoder ----
+    def check_d(name, stripes, bits, table, run_table, mode, n2):
+        operands = codec.indexed_operands(stripes, bits, table, run_table,
+                                            mode, n2, dev)
+        got = entropy_decode_cuda.decode_blocks_kernel(**operands)
+        want = ed.decode_blocks_plain(**operands)
+        host = native.unpack_stripes(stripes, len(bits) // len(stripes), n2,
+                                     mode, table, codec.DIRECT_VMIN,
+                                     run_table=run_table)
+        err = int((got.to(torch.int32) - want.to(torch.int32)).abs().max())
+        same = torch.equal(got, want)
+        same_host = np.array_equal(got.cpu().numpy(), host)
+        log(f"D {name}: {len(bits)} blocks, {len(stripes)} stripes, "
+            f"{sum(map(len, stripes))} B; equal to plain: {same}, to the "
+            f"host decoder: {same_host}")
+        check(same and same_host, f"D {name} differs")
+        return operands, err
+
+    d_operands = {}
+    for name, cfg in (
+            ("static q90", CodecConfig(quality=90, static_tables=True,
+                                       decode_index=True)),
+            ("adaptive+dc+coded_runs", rich.replace(decode_index=True))):
+        _, scale = codec._adaptive(px, cfg)
+        ops, table, run_table = batch_tables(cfg, px, scale, s_all,
+                                             tables.build(cfg, device=dev))
+        packed, bb = fused_encode_cuda.encode_stripes_fused(
+            px, cfg, s_all, ops, scale)
+        d_operands[name] = check_d(
+            f"batch {name}", bs.stripes_to_bytes(bs.fetch_packed(packed)),
+            bb.cpu().numpy().reshape(-1).astype(np.uint16), table, run_table,
+            "category", 64)
+    results["entropy_decode"] = (0, d_operands["static q90"][1])
+    data_none = codec.ImageCodec(CodecConfig(use_huffman=False,
+                                             decode_index=True),
+                                 device="cpu").encode(frame)
+    p_none = cont.deserialize(data_none).planes[0]
+    check_d("1080p none", p_none.stripes, p_none.block_bits, None, None,
+            "none", 64)
+    direct = CodecConfig(quality=90, huffman_mode="direct", decode_index=True)
+    px1 = blocks.image_to_blocks(codec.pad_plane_for_encode(
+        torch.from_numpy(frame).to(dev), direct), 8)
+    zz_direct = transform_cuda.encode_blocks_kernel(
+        px1, direct, tables.build(direct, device=dev))
+    check_d("1080p direct", *testing.indexed_stream(
+        zz_direct, direct, -(-frame.shape[0] // 8)),
+            "direct", 64)
+
+    # ---- 8. times of the indexed decode ---------------------------------
+    ops_d = d_operands["static q90"][0]
+    times["entropy_decode"] = (
+        cuda_ms(lambda: entropy_decode_cuda.decode_blocks_kernel(**ops_d),
+                20),
+        cuda_ms(lambda: ed.decode_blocks_plain(**ops_d), 3))
+    log(f"time entropy_decode: kernel {times['entropy_decode'][0]:.4f} ms, "
+        f"plain {times['entropy_decode'][1]:.4f} ms (8 x {H}x{W}, static "
+        f"q90, {ops_d['block_start'].numel()} blocks)")
+    routes = {
+        "decode": host_ms(lambda: gpu90.decode(data90), 10),
+        "decode_to_device": host_ms(lambda: (gpu90.decode_to_device(data90),
+                                             torch.cuda.synchronize()), 10),
+        "host route decode": host_ms(lambda: host_route(data90).cpu(), 10),
+        "host route decode_to_device": host_ms(
+            lambda: (host_route(data90), torch.cuda.synchronize()), 10),
+    }
+    log("ImageCodec 1080p q90 (v2): " + ", ".join(
+        f"{k} {v:.3f} ms ({mpx / v:.1f} Mpix/s)" for k, v in routes.items()))
+    c90 = cont.deserialize(data90)
+    p90 = c90.planes[0]
+    table90 = codec.hf.CanonicalTable(p90.table_lengths)
+    host_in = [np.frombuffer(b"".join(p90.stripes), np.uint8),
+               np.asarray(p90.block_bits, np.uint16),
+               ed.table_inputs(table90, None, "category", codec.DIRECT_VMIN)]
+    ops90 = codec.indexed_operands(p90.stripes, p90.block_bits, table90,
+                                     None, "category", 64, dev)
+    zz90 = entropy_decode_cuda.decode_blocks_kernel(**ops90)
+    zz90_h = coefficients(data90, q90)
+    ops_q90 = tables.build(q90, device=dev)
+    stages90 = {
+        "parse": host_ms(lambda: cont.deserialize(data90), 10),
+        "upload payload+index+tables": host_ms(
+            lambda: (codec._upload(host_in, dev), torch.cuda.synchronize()),
+            10),
+        "block starts": cuda_ms(lambda: ed.block_starts(
+            ops90["block_bits"].reshape(len(p90.stripes), -1)), 20),
+        "kernel D": cuda_ms(lambda: entropy_decode_cuda.decode_blocks_kernel(
+            **ops90), 20),
+        "kernel C": cuda_ms(lambda: transform_cuda.decode_blocks_kernel(
+            zz90, q90, ops_q90), 20),
+        "download pixels": host_ms(lambda: rec90_d.cpu(), 10),
+        "host route: parse+entropy decode": host_ms(
+            lambda: coefficients(data90, q90), 10),
+        "host route: upload coefficients": host_ms(
+            lambda: (torch.from_numpy(zz90_h).to(dev),
+                     torch.cuda.synchronize()), 10),
+    }
+    log("1080p q90 stages: " + ", ".join(f"{k} {v:.4f} ms"
+                                         for k, v in stages90.items()))
+
     sources = {
         "encode_blocks": ("dct_tpu_torch/csrc/transform.cu",
                           "dct_tpu/ops/transform_pallas.py:106"),
@@ -320,13 +515,39 @@ def main() -> int:
                            "dct_tpu/ops/fused_encode_pallas.py:218"),
         "decode_blocks": ("dct_tpu_torch/csrc/transform.cu",
                           "dct_tpu/ops/transform_pallas.py:126"),
+        "entropy_decode": ("dct_tpu_torch/csrc/entropy_decode.cu",
+                           "dct_tpu/ops/entropy_decode_pallas.py:124"),
     }
+    # bounds at the shapes timed above: 8 x 1088x1920, static q50 for A,
+    # B, C and static q90 for D; operators and tables count as inputs
+    nb = px.shape[0]
+    op_bytes = 4 * 128 * 128
+    mm_flops = 2 * nb * 64 * 64  # one (NB, 64) x (64, 64) product
+    bounds = {
+        "encode_blocks": bound_ms(nb * 64 + nb * 64 * 4 + 3 * op_bytes,
+                                  3 * mm_flops, BF16_FLOPS),
+        "encode_stripes": bound_ms(
+            nb * 64 + 3 * op_bytes + batch_bits / 8 + 4 * s_all + 4 * nb,
+            3 * mm_flops, BF16_FLOPS),
+        "decode_blocks": bound_ms(nb * 64 * 2 + nb * 64 + op_bytes,
+                                  mm_flops, F32_FLOPS),
+        "entropy_decode": bound_ms(
+            sum(t.numel() * t.element_size() for t in ops_d.values()
+                if isinstance(t, torch.Tensor))
+            + ops_d["block_start"].numel() * 64 * 2),
+    }
+    for k, (b_ms, by) in bounds.items():
+        log(f"bound {k}: {b_ms:.5f} ms ({by}); kernel at "
+            f"{100 * b_ms / times[k][0]:.1f} % of it")
     table = [
         {"name": k, "route": "cuda", "source": sources[k][0],
-         "replaces": sources[k][1], "launches": launches[k],
+         "replaces": sources[k][1],
+         "launches": launches[k] + launches90[k],
          "max_abs_err": results[k][1], "ms": round(times[k][0], 4),
-         "plain_ms": round(times[k][1], 4)}
-        for k in ("encode_blocks", "encode_stripes", "decode_blocks")
+         "plain_ms": round(times[k][1], 4),
+         "bound_ms": round(bounds[k][0], 5), "bound_by": bounds[k][1],
+         "library_ms": None}
+        for k in sources
     ]
     print(json.dumps({"kernels": table}))
     print(smi)

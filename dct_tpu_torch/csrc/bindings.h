@@ -50,5 +50,20 @@ DCT_EXPORT int dct_encode_stripes(const void* px, const void* m0,
                                   int n_words, void* stripe_bits,
                                   void* block_bits, void* stream);
 
+// Kernel D: entropy decode of indexed (v2) stripes, one thread per block.
+// payload: (payload_bytes,) u8, the stripes concatenated (bytes past the
+// end read as zero). block_start: (n_blocks,) int64 first bit of each
+// block; block_bits: (n_blocks,) u16 bit lengths. tabs: int32 packed
+// tables (TABLE_FIELDS of ops/entropy_decode.py) followed by n_vtab direct
+// values. out: (n_blocks, n2) int16 zigzag coefficients. mode: 0 category,
+// 1 direct, 2 none; run_bits: the fixed run field's width, 0 for coded
+// runs.
+DCT_EXPORT int dct_entropy_decode(const void* payload, long long payload_bytes,
+                                  const void* block_start,
+                                  const void* block_bits, const void* tabs,
+                                  int n_vtab, void* out, long long n_blocks,
+                                  int n2, int mode, int run_bits,
+                                  void* stream);
+
 // cudaGetErrorString of a code returned above.
 DCT_EXPORT const char* dct_error_string(int code);

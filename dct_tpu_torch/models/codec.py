@@ -2,9 +2,11 @@
 (port of ``dct_tpu.models.codec``, gray planes).
 
   encode:  pad -> [device] transform + entropy stage -> packed stripe units
-           -> [host] stripe bytes + container (dct_tpu.container)
-  decode:  [host] parse container + entropy decode (dct_tpu.native, or the
-           Python decoder) -> [device] dequant + IDCT -> crop
+           -> [host] stripe bytes + container (dct_tpu_torch.container)
+  decode:  [host] parse container -> [device] entropy decode of indexed
+           (v2) containers (kernel D) -> DC un-prediction -> dequant + IDCT
+           (kernel C) -> crop; v1 containers are entropy-decoded on the
+           host (dct_tpu_torch.native, or the Python decoder) and uploaded
 
 Static tables (cfg.static_tables) encode in one kernel (ops/
 fused_encode_cuda.py, kernel B). Dynamic tables first run the analyze pass
@@ -12,9 +14,10 @@ fused_encode_cuda.py, kernel B). Dynamic tables first run the analyze pass
 canonical table on the host, then run kernel B with it. On the CPU the same
 functions run the plain versions, through the staged pipeline.
 
-The device is explicit: ``ImageCodec(config, device=...)`` and the tensors
-handed to the step functions decide where the work runs. Color and video
-are not ported yet.
+The entry points run on the card: with no ``device`` they take ``cuda``,
+and raise where there is none; ``device="cpu"`` runs the plain versions.
+The tensors handed to the step functions decide where the work runs.
+Color and video are not ported yet.
 """
 
 from __future__ import annotations
@@ -22,13 +25,15 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from dct_tpu import container as cont
-from dct_tpu.config import CodecConfig
-from dct_tpu_torch import tables
+from dct_tpu_torch import container as cont
+from dct_tpu_torch import native, tables
+from dct_tpu_torch.config import CodecConfig
 from dct_tpu_torch.ops import bitstream as bs
 from dct_tpu_torch.ops import blocks as blk
-from dct_tpu_torch.ops import fused_encode_cuda, quant, rle, transform
+from dct_tpu_torch.ops import entropy_decode as ed
+from dct_tpu_torch.ops import entropy_decode_cuda, fused_encode_cuda
 from dct_tpu_torch.ops import huffman as hf
+from dct_tpu_torch.ops import quant, rle, transform
 from dct_tpu_torch.ops.transform_cuda import (
     decode_blocks_kernel, encode_blocks_kernel,
 )
@@ -46,7 +51,11 @@ def _padded_grid(h: int, w: int, cfg: CodecConfig) -> tuple[int, int, int]:
 
 
 def _default_device() -> torch.device:
-    return torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    """The entry points' device when the caller names none: the card."""
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device; pass device='cpu' to run the plain versions")
+    return torch.device("cuda")
 
 
 def dc_predict(zz: torch.Tensor, n_stripes: int) -> torch.Tensor:
@@ -61,12 +70,14 @@ def dc_predict(zz: torch.Tensor, n_stripes: int) -> torch.Tensor:
     return out
 
 
-def dc_reconstruct(zz: np.ndarray, n_stripes: int) -> np.ndarray:
-    """Inverse of dc_predict on host-decoded (NB, n2) coefficients."""
+def dc_reconstruct(zz: torch.Tensor, n_stripes: int) -> torch.Tensor:
+    """Inverse of dc_predict on decoded (NB, n2) coefficients, on their
+    device: each stripe's DC deltas become a running sum. Returns a new
+    tensor of zz's dtype."""
     nb = zz.shape[0]
     dc = zz[:, 0].reshape(n_stripes, nb // n_stripes)
-    out = zz.copy()
-    out[:, 0] = np.cumsum(dc, axis=1).reshape(-1)
+    out = zz.clone()
+    out[:, 0] = torch.cumsum(dc, dim=1).reshape(-1).to(zz.dtype)
     return out
 
 
@@ -264,10 +275,8 @@ def encode_plane(
 
 
 def host_decoder() -> str:
-    """Which host entropy decoder decode runs: "native" (the C++ decoder
-    of dct_tpu.native, when it builds) or "python"."""
-    from dct_tpu import native
-
+    """Which host entropy decoder decodes v1 containers: "native" (the C++
+    decoder of dct_tpu_torch.native, when it builds) or "python"."""
     return "native" if native.available() else "python"
 
 
@@ -278,8 +287,6 @@ def _decode_stripes(
     """Entropy-decode all stripes on the host to (NB, n2) int16 zigzag
     coefficients: the native C++ decoder when it builds, else the Python
     decoder."""
-    from dct_tpu import native
-
     if host_decoder() == "native":
         return native.unpack_stripes(
             p.stripes, bps, cfg.n2, mode, table, DIRECT_VMIN,
@@ -296,13 +303,64 @@ def _decode_stripes(
     ], axis=0)
 
 
+def _upload(arrays: list[np.ndarray], device) -> list[torch.Tensor]:
+    """Copy host arrays to ``device`` in one transfer: packed at 8-byte
+    aligned offsets into one byte buffer, returned as views of their own
+    dtype and shape (uint16 arrives as int16 bit patterns)."""
+    offsets, total = [], 0
+    for a in arrays:
+        offsets.append(total)
+        total += -(-a.nbytes // 8) * 8
+    buf = np.zeros(max(total, 8), np.uint8)
+    for a, o in zip(arrays, offsets):
+        buf[o:o + a.nbytes] = np.ascontiguousarray(a).reshape(-1).view(np.uint8)
+    dev = torch.from_numpy(buf).to(device)
+    out = []
+    for a, o in zip(arrays, offsets):
+        dt = np.int16 if a.dtype == np.uint16 else a.dtype
+        view = dev[o:o + a.nbytes].view(torch.from_numpy(np.zeros(0, dt)).dtype)
+        out.append(view.reshape(a.shape))
+    return out
+
+
+def indexed_decode_ok(p: cont.PlaneData, cfg: CodecConfig, table,
+                      run_table) -> bool:
+    """Whether the entropy decode runs on the device: the container
+    carries the per-block decode index (v2), kernel D takes the block
+    size, and its tables fit (codes <= 16 bits, direct values in int16)."""
+    return (p.block_bits is not None
+            and cfg.n2 in entropy_decode_cuda.KERNEL_N2
+            and ed.tables_supported(table, run_table, DIRECT_VMIN))
+
+
+def indexed_operands(stripes: list[bytes], block_bits: np.ndarray, table,
+                     run_table, mode: str, n2: int, device) -> dict:
+    """Kernel D's operands for an indexed stream, on ``device``: one
+    upload of the payload (the stripes concatenated), the index and the
+    packed tables, then the block starts by cumsum on the device. ->
+    keyword arguments of entropy_decode_cuda.decode_blocks_kernel (and of
+    its plain version)."""
+    payload, bits, tabs = _upload(
+        [np.frombuffer(b"".join(stripes), np.uint8),
+         np.asarray(block_bits, np.uint16),
+         ed.table_inputs(table, run_table, mode, DIRECT_VMIN)], device)
+    return dict(
+        payload=payload,
+        block_start=ed.block_starts(bits.reshape(len(stripes), -1)),
+        block_bits=bits, n2=n2, mode=mode, tabs=tabs,
+        run_bits=0 if run_table is not None else bs.run_field_bits(n2))
+
+
 def decode_plane_device(
     p: cont.PlaneData, cfg: CodecConfig,
     device: str | torch.device | None = None,
 ) -> torch.Tensor:
     """PlaneData -> reconstructed (H, W) u8 plane as a tensor on
-    ``device``: host entropy decode, then dequant + IDCT (kernel C on
-    CUDA) on the device."""
+    ``device``. Indexed (v2) planes are entropy-decoded on the device
+    (kernel D), so only the payload, the index and the tables cross to it;
+    others on the host, and their coefficients are uploaded. Then DC
+    un-prediction, dequant + IDCT (kernel C on CUDA) and the crop run on
+    the device."""
     device = torch.device(device) if device is not None else _default_device()
     n = cfg.block_size
     bh, bw, n_stripes = _padded_grid(p.height, p.width, cfg)
@@ -313,7 +371,12 @@ def decode_plane_device(
     run_table = (
         hf.CanonicalTable(p.run_table_lengths) if cfg.coded_runs else None
     )
-    zz = _decode_stripes(p, cfg, table, mode, n_stripes, bps, run_table)
+    if indexed_decode_ok(p, cfg, table, run_table):
+        zz = entropy_decode_cuda.decode_blocks_kernel(**indexed_operands(
+            p.stripes, p.block_bits, table, run_table, mode, cfg.n2, device))
+    else:
+        zz = torch.from_numpy(_decode_stripes(
+            p, cfg, table, mode, n_stripes, bps, run_table)).to(device)
     if cfg.dc_prediction:
         zz = dc_reconstruct(zz, n_stripes)
 
@@ -323,8 +386,7 @@ def decode_plane_device(
             torch.from_numpy(np.array(p.variance_codes, np.uint8)).to(device)
         )
     ops = tables.build(cfg, device=device)
-    pixels = decode_blocks_kernel(torch.from_numpy(zz).to(device), cfg, ops,
-                                  scale)
+    pixels = decode_blocks_kernel(zz, cfg, ops, scale)
     # rebuild on the (stripe-padded) encoder grid, then crop to true dims
     return blk.blocks_to_image(pixels, bh * n, bw * n, n)[: p.height, : p.width]
 

@@ -1,0 +1,147 @@
+"""ctypes binding of the port's host entropy decoder
+(csrc/host/bitpack.cpp).
+
+The decode of a stripe is serial; stripes are independent, so the C++
+decoder runs them on a thread pool. The library is compiled with the host
+C++ compiler on first use into ``build/torch_kernels/`` (listed in
+.gitignore), named by a digest of the source and flags, and installed with
+an atomic rename, so concurrent processes agree. Where no compiler is
+found, or the build fails, ``available()`` is False and the codec decodes
+with the Python decoder (ops/bitstream.unpack_stripe_host), which the
+tests hold equal.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+
+import numpy as np
+
+from dct_tpu_torch.ops._build import BUILD_DIR
+
+SOURCE = pathlib.Path(__file__).resolve().parent / "csrc" / "host" / "bitpack.cpp"
+CXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC", "-pthread")
+
+_MODE_IDS = {"category": 0, "direct": 1, "none": 2}
+
+# Must equal bitpack.cpp's dctbits_abi_version(): v2 writes int16
+# coefficients, and a library of another version would be called through
+# a mismatched signature.
+_ABI_VERSION = 2
+
+_lib: ctypes.CDLL | None = None
+_build_failed = False
+
+
+def library_path() -> pathlib.Path:
+    h = hashlib.sha256(" ".join(CXX_FLAGS).encode())
+    h.update(SOURCE.read_bytes())
+    return BUILD_DIR / f"bitpack-{h.hexdigest()[:16]}.so"
+
+
+def _build(out: pathlib.Path) -> bool:
+    cxx = os.environ.get("CXX") or shutil.which("g++") or shutil.which("c++")
+    if cxx is None:
+        return False
+    out.parent.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".tmp{os.getpid()}.so")
+    try:
+        subprocess.run([cxx, *CXX_FLAGS, "-o", str(tmp), str(SOURCE)],
+                       check=True, capture_output=True, timeout=300)
+    except (subprocess.CalledProcessError, subprocess.TimeoutExpired, OSError):
+        tmp.unlink(missing_ok=True)
+        return False
+    os.replace(tmp, out)  # atomic: concurrent builds agree
+    return True
+
+
+def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    # ABI handshake before any signature is bound
+    lib.dctbits_abi_version.restype = ctypes.c_int
+    ver = lib.dctbits_abi_version()
+    if ver != _ABI_VERSION:
+        raise OSError(f"bitpack ABI {ver} != expected {_ABI_VERSION}")
+    p = ctypes.c_void_p
+    i = ctypes.c_int
+    lib.dctbits_unpack_stripes.argtypes = [
+        p,  # concatenated stripe bytes
+        p,  # per-stripe byte offsets, uint64 (n_stripes + 1)
+        i,  # n_stripes
+        i,  # blocks per stripe
+        i,  # n2
+        i,  # mode id
+        p,  # table lengths, uint8
+        i,  # table size
+        p,  # run-table lengths, uint8 (coded runs)
+        i,  # run-table size (0: the fixed run field)
+        i,  # vmin
+        p,  # out, int16 (n_stripes * bps * n2)
+        i,  # n_threads
+    ]
+    lib.dctbits_unpack_stripes.restype = i
+    return lib
+
+
+def _load() -> ctypes.CDLL | None:
+    global _lib, _build_failed
+    if _lib is not None or _build_failed:
+        return _lib
+    path = library_path()
+    try:
+        if not path.exists() and not _build(path):
+            raise OSError("bitpack.cpp did not build")
+        _lib = _bind(ctypes.CDLL(str(path)))
+    except (OSError, AttributeError):
+        _build_failed = True
+    return _lib
+
+
+def available() -> bool:
+    return _load() is not None
+
+
+def unpack_stripes(
+    stripes: list[bytes],
+    blocks_per_stripe: int,
+    n2: int,
+    mode: str,
+    table,
+    vmin: int,
+    run_table=None,
+    n_threads: int | None = None,
+) -> np.ndarray:
+    """Decode stripe substreams -> (n_stripes * bps, n2) int16 zigzag
+    coefficients (the wire's coefficient type, and kernel C's input).
+    table/run_table: CanonicalTable or None. n_threads defaults to the
+    host's core count. Raises ValueError on a corrupt stream."""
+    lib = _load()
+    if lib is None:
+        raise RuntimeError("the native decoder did not build")
+    if n_threads is None:
+        n_threads = os.cpu_count() or 1
+    n_stripes = len(stripes)
+    blob = b"".join(stripes)
+    buf = np.frombuffer(blob, np.uint8) if blob else np.zeros(1, np.uint8)
+    offsets = np.zeros(n_stripes + 1, np.uint64)
+    np.cumsum([len(s) for s in stripes], out=offsets[1:])
+    lengths = (np.ascontiguousarray(table.lengths, np.uint8)
+               if table is not None else np.zeros(1, np.uint8))
+    if run_table is not None:
+        run_lengths = np.ascontiguousarray(run_table.lengths, np.uint8)
+        run_size = len(run_lengths)
+    else:
+        run_lengths, run_size = np.zeros(1, np.uint8), 0
+    out = np.empty((n_stripes * blocks_per_stripe, n2), np.int16)
+    rc = lib.dctbits_unpack_stripes(
+        buf.ctypes.data, offsets.ctypes.data, n_stripes, blocks_per_stripe,
+        n2, _MODE_IDS[mode], lengths.ctypes.data, len(lengths),
+        run_lengths.ctypes.data, run_size, vmin, out.ctypes.data, n_threads,
+    )
+    if rc != 0:
+        raise ValueError(f"native stripe decode failed with code {rc}")
+    return out

@@ -23,7 +23,7 @@ import subprocess
 
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
-SOURCES = ("transform", "fused_encode")
+SOURCES = ("transform", "fused_encode", "entropy_decode")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -39,11 +39,16 @@ _SIGNATURES = {
         "dct_encode_stripes": [_p, _p, _p, _p, _p, _i, _p, _p, _p, _p, _p,
                                _i, _i, _i, _i, _p, _i, _p, _p, _p],
     },
+    "entropy_decode": {
+        "dct_entropy_decode": [_p, _ll, _p, _p, _p, _i, _p, _ll, _i, _i, _i,
+                               _p],
+    },
 }
 
 # Launches per kernel, counted by the wrappers where they launch (and
 # nowhere else), so a run can show which kernels the path went through.
-LAUNCHES = {"encode_blocks": 0, "encode_stripes": 0, "decode_blocks": 0}
+LAUNCHES = {"encode_blocks": 0, "encode_stripes": 0, "decode_blocks": 0,
+            "entropy_decode": 0}
 
 _libs: dict[str, ctypes.CDLL] = {}
 

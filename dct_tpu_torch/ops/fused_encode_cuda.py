@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import torch
 
-from dct_tpu.config import CodecConfig
+from dct_tpu_torch.config import CodecConfig
 from dct_tpu_torch.ops import _build, rle, transform
 from dct_tpu_torch.ops import bitstream as bs
 from dct_tpu_torch.tables import CodecOperators

@@ -26,7 +26,7 @@ from __future__ import annotations
 
 import torch
 
-from dct_tpu.config import CodecConfig
+from dct_tpu_torch.config import CodecConfig
 from dct_tpu_torch.tables import PACKED_N2, CodecOperators
 
 

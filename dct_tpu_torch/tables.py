@@ -1,16 +1,24 @@
-"""The codec's constant operators and Huffman tables as torch tensors.
+"""The codec's constant operators and Huffman tables.
 
-The float64 operators come from ``dct_tpu.tables`` (numpy only). What this
-module adds is the part of the reference that needs ``ml_dtypes``: the
-three-way bf16 split of the f32 encode operator
-(``dct_tpu.tables.fused_encode_operator_split``), done here with
-``torch.bfloat16`` — round to nearest even, the same conversion, so the
-parts are bit-identical — and the packed block-diagonal forms that
-``dct_tpu.ops.transform`` builds for the Pallas kernels.
+The float64 builders — DCT basis, quality-scaled quant matrix, zigzag
+permutation, the fused encode and decode operators — are the port's copy
+of ``dct_tpu.tables`` (numpy; the tests hold the two equal). Three things
+are the port's own: the three-way bf16 split of the f32 encode operator,
+done with ``torch.bfloat16`` (round to nearest even, the same conversion
+as the reference's ``ml_dtypes`` one, so the parts are bit-identical); the
+packed block-diagonal forms the reference's kernels take; and the torch
+tensors on a device.
 
 All of it is gathered in one :class:`CodecOperators` bundle per (config,
 chroma, device): the codec's "parameters". The codec has no weights and no
 randomness; the bundle is a pure function of the config and the tables.
+
+Fused operators: for a block X (N x N) the 2D DCT is vec(D X D^T) =
+(D (x) D) vec(X), so a batch of blocks is one (B, N^2) @ (N^2, N^2)
+product. Folded into that one matrix, column by column: the zigzag
+permutation, the quantization divide, and the -128 level shift as a bias.
+Encode is ``round(x @ M_enc + b_enc)``; decode folds the dequantization
+and the inverse zigzag into a second matrix with a +128 bias.
 """
 
 from __future__ import annotations
@@ -21,9 +29,151 @@ import functools
 import numpy as np
 import torch
 
-from dct_tpu import tables as _ref
-from dct_tpu.config import CodecConfig
+from dct_tpu_torch.config import CodecConfig
 from dct_tpu_torch.ops import huffman as hf
+
+# Standard JPEG luminance and chrominance quantization tables (ITU-T T.81
+# Annex K.1, K.2).
+JPEG_LUMA_QUANT = np.array(
+    [
+        [16, 11, 10, 16, 24, 40, 51, 61],
+        [12, 12, 14, 19, 26, 58, 60, 55],
+        [14, 13, 16, 24, 40, 57, 69, 56],
+        [14, 17, 22, 29, 51, 87, 80, 62],
+        [18, 22, 37, 56, 68, 109, 103, 77],
+        [24, 35, 55, 64, 81, 104, 113, 92],
+        [49, 64, 78, 87, 103, 121, 120, 101],
+        [72, 92, 95, 98, 112, 100, 103, 99],
+    ],
+    dtype=np.float64,
+)
+JPEG_CHROMA_QUANT = np.array(
+    [
+        [17, 18, 24, 47, 99, 99, 99, 99],
+        [18, 21, 26, 66, 99, 99, 99, 99],
+        [24, 26, 56, 99, 99, 99, 99, 99],
+        [47, 66, 99, 99, 99, 99, 99, 99],
+        [99, 99, 99, 99, 99, 99, 99, 99],
+        [99, 99, 99, 99, 99, 99, 99, 99],
+        [99, 99, 99, 99, 99, 99, 99, 99],
+        [99, 99, 99, 99, 99, 99, 99, 99],
+    ],
+    dtype=np.float64,
+)
+
+
+@functools.lru_cache(maxsize=None)
+def dct_basis(n: int) -> np.ndarray:
+    """Orthonormal DCT-II basis D (n x n), float64: D[i, j] = alpha(i) *
+    cos(pi (2j + 1) i / 2n), alpha(0) = 1/sqrt(n), alpha(i > 0) =
+    sqrt(2/n)."""
+    i = np.arange(n)[:, None].astype(np.float64)
+    j = np.arange(n)[None, :].astype(np.float64)
+    alpha = np.where(i == 0, 1.0 / np.sqrt(n), np.sqrt(2.0 / n))
+    return alpha * np.cos(np.pi * (2.0 * j + 1.0) * i / (2.0 * n))
+
+
+def quality_scale_factor(quality: int) -> float:
+    """JPEG quality -> quant-table scale: 5000/q / 100 below 50, (200 -
+    2q) / 100 from 50 (0 at q100, where every entry clamps to 1)."""
+    q = min(100, max(1, int(quality)))
+    scale = 5000.0 / q if q < 50 else 200.0 - 2.0 * q
+    return scale / 100.0
+
+
+@functools.lru_cache(maxsize=None)
+def quant_matrix(block_size: int, quality: int, chroma: bool = False) -> np.ndarray:
+    """Quality-scaled quantization matrix, float64, clamped to [1, 255]:
+    the JPEG table for 8x8 blocks, ``(1 + sqrt(i^2 + j^2)) * scale * 8``
+    for other sizes."""
+    scale = quality_scale_factor(quality)
+    if block_size == 8:
+        base = JPEG_CHROMA_QUANT if chroma else JPEG_LUMA_QUANT
+        m = base * scale
+    else:
+        i = np.arange(block_size)[:, None].astype(np.float64)
+        j = np.arange(block_size)[None, :].astype(np.float64)
+        m = (1.0 + np.sqrt(i * i + j * j)) * scale * 8.0
+    return np.clip(m, 1.0, 255.0)
+
+
+@functools.lru_cache(maxsize=None)
+def zigzag_permutation(n: int) -> np.ndarray:
+    """Flat (row-major) indices in zigzag order, int32 (n*n,):
+    ``zigzag[k] = block.ravel()[perm[k]]``. Even anti-diagonals walk
+    up-right, odd ones down-left."""
+    order = []
+    for s in range(2 * (n - 1) + 1):
+        if s % 2 == 0:
+            i = min(s, n - 1)
+            while i >= 0 and (s - i) < n:
+                order.append(i * n + (s - i))
+                i -= 1
+        else:
+            i = max(0, s - n + 1)
+            while i < n and (s - i) >= 0:
+                order.append(i * n + (s - i))
+                i += 1
+    return np.asarray(order, dtype=np.int32)
+
+
+@functools.lru_cache(maxsize=None)
+def inverse_zigzag_permutation(n: int) -> np.ndarray:
+    """Inverse permutation: ``block.ravel()[i] = zigzag[inv_perm[i]]``."""
+    perm = zigzag_permutation(n)
+    inv = np.empty_like(perm)
+    inv[perm] = np.arange(perm.size, dtype=np.int32)
+    return inv
+
+
+def _kron_dct(n: int) -> np.ndarray:
+    """(D (x) D), float64 (n^2, n^2): the row-major-flattened 2D DCT."""
+    d = dct_basis(n)
+    return np.kron(d, d)
+
+
+def _zigzag_quant(cfg: CodecConfig, chroma: bool = False) -> np.ndarray:
+    """Quant table in zigzag order, float64 (n^2,)."""
+    q = quant_matrix(cfg.block_size, cfg.quality, chroma=chroma).ravel()
+    return q[zigzag_permutation(cfg.block_size)]
+
+
+@functools.lru_cache(maxsize=None)
+def fused_encode_operator(cfg: CodecConfig, chroma: bool = False):
+    """(M_enc, b_enc), quantized zigzag coefficients = round(x @ M_enc +
+    b_enc) for (B, n^2) raw u8 blocks: M_enc[:, k] = (D (x) D)[perm[k], :]
+    / q_zz[k], b_enc[k] = -128 * sum_j (D (x) D)[perm[k], j] / q_zz[k].
+    Built in float64, returned as cfg.dtype."""
+    kp = _kron_dct(cfg.block_size)[zigzag_permutation(cfg.block_size), :]
+    kp = kp / _zigzag_quant(cfg, chroma=chroma)[:, None]
+    bias = -128.0 * kp.sum(axis=1)
+    dtype = np.dtype(cfg.dtype)
+    return kp.T.astype(dtype), bias.astype(dtype)
+
+
+@functools.lru_cache(maxsize=None)
+def fused_decode_operator(cfg: CodecConfig, chroma: bool = False):
+    """(M_dec, b_dec), pixels = clip(round(z @ M_dec + b_dec), 0, 255) for
+    (B, n^2) zigzag coefficients: M_dec[k, :] = dq[k] * (D (x) D)[perm[k],
+    :], b_dec = 128. dq is q_zz, or 1/q_zz under cfg.compat_b1 without
+    adaptive quantization (the C reference's bug B1 afflicts only its
+    non-adaptive path)."""
+    n = cfg.block_size
+    qz = _zigzag_quant(cfg, chroma=chroma)
+    dq = (1.0 / qz) if (cfg.compat_b1 and not cfg.adaptive) else qz
+    m = dq[:, None] * _kron_dct(n)[zigzag_permutation(n), :]
+    dtype = np.dtype(cfg.dtype)
+    return m.astype(dtype), np.asarray(128.0, dtype=dtype)
+
+
+@functools.lru_cache(maxsize=None)
+def adaptive_scale_mask(cfg: CodecConfig) -> np.ndarray:
+    """Per-zigzag-coefficient mask of the adaptive scale: 0 at DC, 1 on
+    AC."""
+    m = np.ones(cfg.n2, dtype=np.dtype(cfg.dtype))
+    m[0] = 0.0
+    return m
+
 
 PACKED_N2 = (4, 16, 64)  # block sizes whose n2 divides the 128-lane row
 
@@ -93,9 +243,9 @@ def encode_operator_split(cfg: CodecConfig, chroma: bool = False):
     """(m0, m1, m2, b): float32 numpy arrays, m0 + m1 + m2 ~ M_enc.
 
     Each part is the bf16 rounding of what the earlier parts left over,
-    computed with torch.bfloat16 — bit-identical to
-    dct_tpu.tables.fused_encode_operator_split, without ml_dtypes."""
-    m, b = _ref.fused_encode_operator(cfg, chroma=chroma)
+    computed with torch.bfloat16 — bit-identical to the reference's
+    ml_dtypes split (``fused_encode_operator_split``)."""
+    m, b = fused_encode_operator(cfg, chroma=chroma)
     rem = torch.from_numpy(np.asarray(m, np.float32))
     parts = []
     for _ in range(3):
@@ -115,9 +265,9 @@ def _block_diag(m: np.ndarray, copies: int) -> np.ndarray:
 
 
 def packed_encode_operator_split(cfg: CodecConfig, chroma: bool = False):
-    """Block-diagonal parts (three (P, P)) + (1, P) bias, as
-    dct_tpu.ops.transform.packed_encode_operator_split gives them for
-    n2 in PACKED_N2; the unpacked (n2, n2) parts otherwise."""
+    """Block-diagonal parts (three (P, P)) + (1, P) bias, as the
+    reference's ``packed_encode_operator_split`` gives them for n2 in
+    PACKED_N2; the unpacked (n2, n2) parts otherwise."""
     m0, m1, m2, b = encode_operator_split(cfg, chroma=chroma)
     n2 = cfg.n2
     if n2 not in PACKED_N2:
@@ -130,7 +280,7 @@ def packed_encode_operator_split(cfg: CodecConfig, chroma: bool = False):
 def packed_decode_operator(cfg: CodecConfig, chroma: bool = False):
     """(P, P) float32 decode operator (+128 bias scalar), block-diagonal
     for n2 in PACKED_N2."""
-    m, b = _ref.fused_decode_operator(cfg, chroma=chroma)
+    m, b = fused_decode_operator(cfg, chroma=chroma)
     m = np.asarray(m, np.float32)
     if cfg.n2 in PACKED_N2:
         m = _block_diag(m, 128 // cfg.n2)
@@ -148,12 +298,10 @@ def from_numpy(
     m0, m1, m2, bias, m_dec, cat_lengths, cat_codes,
     run_lengths=None, run_codes=None, *, n2: int, device="cpu",
 ) -> CodecOperators:
-    """Bundle numpy operators and tables — for example the reference's
-    ``dct_tpu.ops.transform.packed_encode_operator_split(cfg)`` (bf16
-    parts), ``packed_decode_operator(cfg)[0]`` and
-    ``dct_tpu.ops.huffman.default_category_table(q)`` lengths/codes — as
-    tensors on ``device``. n2: the block size (cfg.n2) the operators are
-    for."""
+    """Bundle numpy operators and tables — for example the reference
+    package's packed bf16 parts, packed decode operator and default
+    category table — as tensors on ``device``. n2: the block size (cfg.n2)
+    the operators are for."""
     def f32(a):
         return torch.as_tensor(np.asarray(a, np.float32), device=device)
 

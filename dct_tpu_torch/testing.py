@@ -1,6 +1,7 @@
 """Checking helpers shared by the tests and chip_smoke.py: the float64
-values the codec rounds from, and the tie criterion that decides whether
-two roundings of them may differ. No codec path uses this module.
+values the codec rounds from, the tie criterion that decides whether two
+roundings of them may differ, and indexed streams in every mode for kernel
+D. No codec path uses this module.
 
 Two float32 paths that sum the same exact products in different orders may
 round a value that lies within a few ulp of a .5 boundary to neighbouring
@@ -12,9 +13,15 @@ criterion of tests/test_parity.py), decode to DECODE_TIE_TOL.
 from __future__ import annotations
 
 import numpy as np
+import torch
 
-from dct_tpu import tables as dct_tables
-from dct_tpu.config import CodecConfig
+from dct_tpu_torch import container as cont
+from dct_tpu_torch import tables as dct_tables
+from dct_tpu_torch.config import CodecConfig
+from dct_tpu_torch.models import codec
+from dct_tpu_torch.ops import bitstream as bs
+from dct_tpu_torch.ops import huffman as hf
+from dct_tpu_torch.ops import rle
 
 ENCODE_TIE_TOL = 1e-6
 DECODE_TIE_TOL = 1e-3
@@ -63,3 +70,58 @@ def tie_mismatches(got, want, values: np.ndarray, tol: float):
     frac = np.abs(np.abs(np.asarray(values)[diff]) % 1.0 - 0.5)
     bad = (np.abs(got[diff] - want[diff]) > 1) | (frac >= tol)
     return int(diff.sum()), int(bad.sum())
+
+
+def decode_mismatches(got, want, data: bytes):
+    """(mismatches, non-ties) between two decodes of a gray container's
+    pixels, judged against the float64 values of its coefficients (host
+    decoder, any mode) at DECODE_TIE_TOL."""
+    c = cont.deserialize(data)
+    p, cfg = c.planes[0], c.config
+    n = cfg.block_size
+    bh, bw, n_stripes = codec._padded_grid(p.height, p.width, cfg)
+    mode = cfg.huffman_mode if cfg.use_huffman else "none"
+    table = hf.CanonicalTable(p.table_lengths) if mode != "none" else None
+    run_table = (hf.CanonicalTable(p.run_table_lengths) if cfg.coded_runs
+                 else None)
+    zz = torch.from_numpy(codec._decode_stripes(
+        p, cfg, table, mode, n_stripes, bh // n_stripes * bw, run_table))
+    if cfg.dc_prediction:
+        zz = codec.dc_reconstruct(zz, n_stripes)
+    scale = None
+    if cfg.adaptive:
+        scale = codec.quant.scale_from_variance_code(
+            torch.from_numpy(p.variance_codes)).numpy()
+    vals = codec.blk.blocks_to_image(
+        torch.from_numpy(decode_values_f64(zz.numpy(), cfg, scale)),
+        bh * n, bw * n, n)[: p.height, : p.width].numpy()
+    return tie_mismatches(got, want, vals, DECODE_TIE_TOL)
+
+
+def indexed_stream(zz: torch.Tensor, cfg: CodecConfig, n_stripes: int):
+    """Pack (NB, n2) zigzag coefficients into an indexed stream with the
+    plain staged packer, in cfg's mode (category, direct or none, fixed or
+    coded runs), with canonical tables built from the coefficients'
+    histograms: -> (stripe bytes, (NB,) uint16 block bits, table,
+    run_table). Covers the modes the card's encode path does not."""
+    sym = rle.rle_encode_positional(zz)
+    mode = cfg.huffman_mode if cfg.use_huffman else "none"
+    table = None
+    if mode == "category":
+        table = hf.CanonicalTable.from_frequencies(
+            hf.category_histogram_masked(sym.values, sym.is_sym).cpu().numpy())
+    elif mode == "direct":  # alphabet [vmin, -vmin] + ESC
+        n_alpha = 1 - 2 * codec.DIRECT_VMIN
+        v = sym.values.to(torch.int64) - codec.DIRECT_VMIN
+        idx = torch.where((v >= 0) & (v < n_alpha), v, n_alpha)
+        idx = torch.where(sym.is_sym, idx, n_alpha + 1).reshape(-1)
+        hist = torch.bincount(idx, minlength=n_alpha + 2)[:n_alpha + 1]
+        table = hf.CanonicalTable.from_frequencies(hist.cpu().numpy())
+    run_table = codec._build_run_table(
+        cfg, hf.run_histogram_masked(sym.runs, sym.is_sym).cpu().numpy())
+    ops = dct_tables.build(cfg, device=zz.device).with_tables(table, run_table)
+    packed, block_bits = codec.encode_pack(sym, cfg, n_stripes, ops)
+    stripes = bs.stripes_to_bytes(bs.fetch_packed(packed))
+    return (stripes, block_bits.cpu().numpy().reshape(-1).astype(np.uint16),
+            table, run_table)
+

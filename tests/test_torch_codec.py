@@ -12,11 +12,10 @@ import torch
 
 import jax.numpy as jnp
 
-from dct_tpu import container as cont
-from dct_tpu.config import CodecConfig
+from dct_tpu.config import CodecConfig as RefConfig
 from dct_tpu.models import codec as ref_codec
 from dct_tpu.utils import image_io
-from dct_tpu_torch import testing
+from dct_tpu_torch import CodecConfig, testing
 from dct_tpu_torch.models import codec
 from dct_tpu_torch.ops import bitstream as bs
 
@@ -42,30 +41,9 @@ def images():
             for k, (h, w) in SIZES.items()}
 
 
-def _decoded_close(got, want, data, cfg):
+def _decoded_close(got, want, data):
     """got/want pixels agree, or differ by at most 1 at decode ties."""
-    if np.array_equal(got, want):
-        return
-    c = cont.deserialize(data)
-    p = c.planes[0]
-    bh, bw, n_stripes = codec._padded_grid(p.height, p.width, c.config)
-    n = c.config.block_size
-    zz = codec._decode_stripes(
-        p, c.config, codec.hf.CanonicalTable(p.table_lengths), "category",
-        n_stripes, bh // n_stripes * bw,
-        codec.hf.CanonicalTable(p.run_table_lengths)
-        if c.config.coded_runs else None)
-    if c.config.dc_prediction:
-        zz = codec.dc_reconstruct(zz, n_stripes)
-    scale = None
-    if c.config.adaptive:
-        scale = codec.quant.scale_from_variance_code(
-            torch.from_numpy(p.variance_codes)).numpy()
-    vals = codec.blk.blocks_to_image(
-        torch.from_numpy(testing.decode_values_f64(zz, c.config, scale)),
-        bh * n, bw * n, n)[: p.height, : p.width].numpy()
-    n_mis, n_bad = testing.tie_mismatches(got, want, vals,
-                                          testing.DECODE_TIE_TOL)
+    n_mis, n_bad = testing.decode_mismatches(got, want, data)
     assert n_bad == 0, f"{n_bad} non-tie pixel differences"
 
 
@@ -74,12 +52,12 @@ def _decoded_close(got, want, data, cfg):
 def test_containers_byte_identical_and_cross_decode(images, size, case):
     cfg = CodecConfig(**CONFIGS[case])
     img = images[size]
-    want = ref_codec.encode(img, cfg)
+    want = ref_codec.encode(img, RefConfig(**CONFIGS[case]))
     got = codec.encode(img, cfg, device="cpu")
     assert got == want
     ref_pixels = ref_codec.decode(want)
     ours = codec.ImageCodec(cfg, device="cpu")
-    _decoded_close(ours.decode(want), ref_pixels, want, cfg)
+    _decoded_close(ours.decode(want), ref_pixels, want)
     on_dev = ours.decode_to_device(want)
     assert on_dev.device.type == "cpu" and on_dev.dtype == torch.uint8
     np.testing.assert_array_equal(on_dev.numpy(), ours.decode(want))
@@ -94,16 +72,17 @@ def test_both_container_versions_are_covered(images):
 
 def test_pallas_reference_path_decodes_to_the_same_pixels(images):
     """The JAX side through kernels A and C in interpret mode."""
-    cfg = CodecConfig(quality=50, use_pallas=True)
+    kw = dict(quality=50, use_pallas=True)
     img = images["odd"]
-    want = ref_codec.ImageCodec(cfg).encode(img)
-    assert codec.encode(img, cfg, device="cpu") == want
-    ref_pixels = ref_codec.ImageCodec(cfg).decode(want)
-    _decoded_close(codec.decode(want, device="cpu"), ref_pixels, want, cfg)
+    want = ref_codec.ImageCodec(RefConfig(**kw)).encode(img)
+    assert codec.encode(img, CodecConfig(**kw), device="cpu") == want
+    ref_pixels = ref_codec.ImageCodec(RefConfig(**kw)).decode(want)
+    _decoded_close(codec.decode(want, device="cpu"), ref_pixels, want)
 
 
 def test_encode_step_frames_equal_single_frames():
-    cfg = CodecConfig(quality=50, static_tables=True, adaptive=True)
+    kw = dict(quality=50, static_tables=True, adaptive=True)
+    cfg = CodecConfig(**kw)
     frames = np.stack([image_io.synthetic_image(64, 120, "photo", seed=s)
                        for s in range(3)])
     n_stripes = 8
@@ -119,8 +98,8 @@ def test_encode_step_frames_equal_single_frames():
         np.testing.assert_array_equal(a.units, b.units[:, :a.units.shape[1]])
         torch.testing.assert_close(vc1, var_codes[f], rtol=0, atol=0)
         torch.testing.assert_close(bb1, bb[f], rtol=0, atol=0)
-        ref, _, ref_bb = ref_codec.encode_step(jnp.asarray(frames[f]), cfg,
-                                               n_stripes)
+        ref, _, ref_bb = ref_codec.encode_step(jnp.asarray(frames[f]),
+                                               RefConfig(**kw), n_stripes)
         r = bs.fetch_packed(bs.PackedStripes(torch.from_numpy(np.array(
             ref.units).astype(np.int32)), torch.from_numpy(np.array(
                 ref.bit_lengths))))
@@ -134,6 +113,23 @@ def test_color_is_not_ported_yet(images):
         codec.encode(rgb, device="cpu")
     with pytest.raises(NotImplementedError):
         codec.ImageCodec(CodecConfig(chroma="420"), device="cpu")
-    color = ref_codec.encode(rgb, CodecConfig(quality=50))
+    color = ref_codec.encode(rgb, RefConfig(quality=50))
     with pytest.raises(NotImplementedError):
         codec.decode(color, device="cpu")
+
+
+def test_entry_points_without_a_card_raise(images, monkeypatch):
+    """With no device named the entry points take the card, and raise
+    where there is none; only device="cpu" runs the plain versions."""
+    data = codec.encode(images["odd"], CodecConfig(quality=90), device="cpu")
+    p = codec.cont.deserialize(data).planes[0]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for call in (lambda: codec.ImageCodec(),
+                 lambda: codec.ImageCodec(CodecConfig(quality=90)),
+                 lambda: codec.encode(images["odd"]),
+                 lambda: codec.decode(data),
+                 lambda: codec.encode_plane(images["odd"], CodecConfig()),
+                 lambda: codec.decode_plane_device(p, CodecConfig())):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    assert codec.ImageCodec(device="cpu").decode(data).shape == (61, 97)

@@ -11,7 +11,7 @@ import torch
 import jax.numpy as jnp
 
 from dct_tpu import native
-from dct_tpu.config import CodecConfig
+from dct_tpu.config import CodecConfig as RefConfig
 from dct_tpu.models import codec as ref_codec
 from dct_tpu.ops import bitstream as ref_bs
 from dct_tpu.ops import blocks as ref_blocks
@@ -19,7 +19,7 @@ from dct_tpu.ops import huffman as ref_hf
 from dct_tpu.ops import rle as ref_rle
 from dct_tpu.ops import transform as ref_tf
 from dct_tpu.utils import image_io
-from dct_tpu_torch import tables
+from dct_tpu_torch import CodecConfig, tables
 from dct_tpu_torch.models import codec
 from dct_tpu_torch.ops import bitstream as bs
 from dct_tpu_torch.ops import fused_encode_cuda, rle
@@ -34,7 +34,7 @@ def image():
 
 
 def _coefficients(image, n, quality, dc_prediction=False):
-    cfg = CodecConfig(block_size=n, quality=quality)
+    cfg = RefConfig(block_size=n, quality=quality)
     px = ref_blocks.image_to_blocks(jnp.asarray(image), n)
     zz = ref_tf.encode_blocks(px, cfg)
     if dc_prediction:
@@ -181,18 +181,19 @@ PLAIN_B_CASES = {
 @pytest.mark.parametrize("case", sorted(PLAIN_B_CASES))
 def test_plain_stripe_encode_matches_reference_encode_pack(image, case):
     cfg = CodecConfig(**PLAIN_B_CASES[case])
+    ref_cfg = RefConfig(**PLAIN_B_CASES[case])
     n = cfg.block_size
     img = jnp.asarray(image)
     n_stripes = image.shape[0] // n
-    symbols, var_codes, hist, run_hist = ref_codec.encode_analyze(img, cfg)
-    table = ref_codec._build_table(cfg, np.asarray(hist))
+    symbols, var_codes, hist, run_hist = ref_codec.encode_analyze(img, ref_cfg)
+    table = ref_codec._build_table(ref_cfg, np.asarray(hist))
     run_table = ref_codec._build_run_table(
-        cfg, None if cfg.static_tables else np.asarray(run_hist))
+        ref_cfg, None if cfg.static_tables else np.asarray(run_hist))
     lengths, codes = ref_codec._table_arrays(table)
     rl, rc = (ref_codec._table_arrays(run_table) if cfg.coded_runs
               else (None, None))
     ref_packed, ref_bb = ref_codec.encode_pack(
-        symbols, cfg, n_stripes, lengths, codes, rl, rc,
+        symbols, ref_cfg, n_stripes, lengths, codes, rl, rc,
         return_block_bits=True)
 
     ops = tables.build(cfg).with_tables(

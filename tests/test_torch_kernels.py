@@ -1,5 +1,6 @@
 """The port's CUDA kernels (A: encode transform, B: fused stripe encode,
-C: decode transform) against their plain PyTorch versions.
+C: decode transform, D: entropy decode of indexed containers) against their
+plain PyTorch versions.
 
 These need an NVIDIA GPU and skip without one; run them on the card with
 ``python -m pytest --noconftest tests/test_torch_kernels.py -q`` (the
@@ -12,20 +13,30 @@ their float32 products in another order than the plain version's matrix
 product, so their integers may differ at ties only: at most 1 apart, where
 the float64 value lies within 1e-6 (encode, tests/test_parity.py's
 criterion) or 1e-3 (decode) of a .5 boundary. The plain versions run on the
-card here with TF32 off, so their float32 products stay float32.
+card here with TF32 off, so their float32 products stay float32. Kernel D
+is held bit-exact against its plain version and the host decoder in every
+mode, and against its plain version on random bits under a random index;
+the codec's indexed decode on the card gives exactly the pixels of the host
+route on the same container.
+
+This file imports only the port: the machine with the card has no jax.
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
 import torch
 
-from dct_tpu import container as cont
-from dct_tpu.config import CodecConfig
-from dct_tpu.utils import image_io
-from dct_tpu_torch import tables, testing
+from dct_tpu_torch import CodecConfig, native, tables, testing
+from dct_tpu_torch import container as cont
 from dct_tpu_torch.models import codec
 from dct_tpu_torch.ops import _build, blocks, bitstream as bs, rle
-from dct_tpu_torch.ops import fused_encode_cuda, transform, transform_cuda
+from dct_tpu_torch.ops import entropy_decode as ed
+from dct_tpu_torch.ops import entropy_decode_cuda, fused_encode_cuda
+from dct_tpu_torch.ops import huffman as hf
+from dct_tpu_torch.ops import transform, transform_cuda
+from dct_tpu_torch.utils import image_io
 
 
 @pytest.fixture(scope="module")
@@ -168,3 +179,113 @@ def test_stripe_wider_than_shared_memory_is_refused(cuda):
     with pytest.raises(RuntimeError, match="1200 blocks per stripe"):
         fused_encode_cuda.encode_stripes_fused(
             px, cfg, 1, tables.build(cfg, device=cuda))
+
+
+DECODE_CASES = {
+    "category_n8": dict(),
+    "category_runs_n8": dict(coded_runs=True),
+    "direct_n8": dict(huffman_mode="direct"),
+    "direct_runs_n8": dict(huffman_mode="direct", coded_runs=True),
+    "none_n8": dict(use_huffman=False),
+    "none_runs_n8": dict(use_huffman=False, coded_runs=True),
+    "category_runs_n4": dict(block_size=4, coded_runs=True),
+    "direct_n4": dict(block_size=4, huffman_mode="direct"),
+    "none_runs_n4": dict(block_size=4, use_huffman=False, coded_runs=True),
+    "category_n2": dict(block_size=2),
+    "direct_n16": dict(block_size=16, huffman_mode="direct"),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(DECODE_CASES))
+def test_entropy_decode_kernel_matches_plain(cuda, image, case):
+    cfg = CodecConfig(quality=40, decode_index=True, **DECODE_CASES[case])
+    px, _ = _blocks_and_scale(image, cfg, "cpu")
+    zz = transform.encode_blocks(px, cfg, tables.build(cfg))
+    n_stripes = -(-image.shape[0] // cfg.block_size)
+    stripes, bits, table, run_table = testing.indexed_stream(zz, cfg,
+                                                             n_stripes)
+    mode = cfg.huffman_mode if cfg.use_huffman else "none"
+    args = (stripes, bits, table, run_table, mode, cfg.n2)
+    before = _build.LAUNCHES["entropy_decode"]
+    got = entropy_decode_cuda.decode_blocks_kernel(
+        **codec.indexed_operands(*args, cuda))
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["entropy_decode"] == before + 1
+    assert got.device.type == "cuda" and got.dtype == torch.int16
+    want = ed.decode_blocks_plain(**codec.indexed_operands(*args, "cpu"))
+    np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
+    np.testing.assert_array_equal(want.numpy(), zz.numpy())
+    np.testing.assert_array_equal(
+        got.cpu().numpy(),
+        native.unpack_stripes(stripes, len(bits) // n_stripes, cfg.n2, mode,
+                              table, codec.DIRECT_VMIN, run_table=run_table))
+
+
+# mode, alphabet size, coded runs, n2 of a random stream
+RANDOM_STREAMS = {
+    "category_runs_n64": ("category", 16, True, 64),
+    "category_n16": ("category", 16, False, 16),
+    "direct_n64": ("direct", 512, False, 64),
+    # longer than the kernel's shared-memory copy of the direct table
+    "direct_long_runs_n256": ("direct", 3000, True, 256),
+    "none_runs_n64": ("none", 0, True, 64),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(RANDOM_STREAMS))
+def test_entropy_decode_kernel_matches_plain_on_random_bits(cuda, case):
+    """Random payload bytes under a random index, the last stripe cut
+    short: the kernel decodes whatever it is given exactly as the plain
+    version does, and reads nothing past the payload."""
+    mode, n_alpha, coded_runs, n2 = RANDOM_STREAMS[case]
+    rng = np.random.default_rng(5)
+    table = (hf.CanonicalTable.from_frequencies(rng.integers(1, 1000, n_alpha))
+             if n_alpha else None)
+    short_runs = 1000 >> np.minimum(np.arange(hf.RUN_ALPHABET), 9)
+    run_table = (hf.CanonicalTable.from_frequencies(
+        short_runs + rng.integers(1, 4, hf.RUN_ALPHABET),
+        max_len=hf.RUN_MAX_CODE_LEN) if coded_runs else None)
+    bits = rng.integers(0, 600, (8, 40)).astype(np.uint16)
+    stripes = [rng.bytes(-(-int(b) // 8)) for b in bits.sum(axis=1)]
+    stripes[-1] = stripes[-1][: len(stripes[-1]) // 2]
+    args = (stripes, bits.reshape(-1), table, run_table, mode, n2)
+    got = entropy_decode_cuda.decode_blocks_kernel(
+        **codec.indexed_operands(*args, cuda))
+    want = ed.decode_blocks_plain(**codec.indexed_operands(*args, "cpu"))
+    np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(STRIPE_CASES))
+def test_indexed_decode_on_cuda_equals_the_host_route(cuda, image, case):
+    cfg = CodecConfig(decode_index=True, **STRIPE_CASES[case])
+    data = codec.ImageCodec(cfg, device=cuda).encode(image)
+    assert data[4] == 2
+    _build.reset_launch_counts()
+    rec = codec.ImageCodec(cfg, device=cuda).decode_to_device(data)
+    assert rec.device.type == "cuda"
+    assert _build.LAUNCHES["entropy_decode"] == 1
+    assert _build.LAUNCHES["decode_blocks"] == 1
+    c = cont.deserialize(data)
+    host = codec.decode_plane_device(
+        dataclasses.replace(c.planes[0], block_bits=None), c.config, cuda)
+    assert _build.LAUNCHES["entropy_decode"] == 1
+    np.testing.assert_array_equal(rec.cpu().numpy(), host.cpu().numpy())
+
+
+@pytest.mark.cuda
+def test_entropy_decode_kernel_refuses_what_it_does_not_take(cuda):
+    cfg = CodecConfig(decode_index=True)
+    zz = torch.zeros(16, 64, dtype=torch.int32)
+    ops = codec.indexed_operands(*testing.indexed_stream(zz, cfg, 2),
+                                   "category", 64, cuda)
+    with pytest.raises(NotImplementedError):
+        entropy_decode_cuda.decode_blocks_kernel(**dict(ops, n2=9))
+    with pytest.raises(TypeError):
+        entropy_decode_cuda.decode_blocks_kernel(
+            **dict(ops, block_bits=ops["block_bits"].to(torch.int32)))
+    with pytest.raises(ValueError):
+        entropy_decode_cuda.decode_blocks_kernel(
+            **dict(ops, block_start=ops["block_start"].cpu()))

@@ -13,12 +13,12 @@ import torch
 
 import jax.numpy as jnp
 
-from dct_tpu.config import CodecConfig
+from dct_tpu.config import CodecConfig as RefConfig
 from dct_tpu.ops import blocks as ref_blocks
 from dct_tpu.ops import quant as ref_quant
 from dct_tpu.ops import transform as ref_tf
 from dct_tpu.utils import image_io
-from dct_tpu_torch import tables, testing
+from dct_tpu_torch import CodecConfig, tables, testing
 from dct_tpu_torch.ops import blocks, quant, transform
 
 
@@ -65,7 +65,8 @@ def test_round_half_away_matches_reference():
 @pytest.mark.parametrize("adaptive", (False, True))
 @pytest.mark.parametrize("quality", (10, 50, 90))
 def test_plain_transform_matches_reference(image, n, adaptive, quality):
-    cfg = CodecConfig(block_size=n, quality=quality, adaptive=adaptive)
+    kw = dict(block_size=n, quality=quality, adaptive=adaptive)
+    cfg, ref_cfg = CodecConfig(**kw), RefConfig(**kw)
     px = np.array(ref_blocks.image_to_blocks(jnp.asarray(image), n))
     scale = scale_t = None
     if adaptive:
@@ -74,7 +75,7 @@ def test_plain_transform_matches_reference(image, n, adaptive, quality):
         scale_t = torch.from_numpy(np.array(scale))
     ops = tables.build(cfg)
 
-    want = np.array(ref_tf.encode_blocks(jnp.asarray(px), cfg,
+    want = np.array(ref_tf.encode_blocks(jnp.asarray(px), ref_cfg,
                                            adaptive_scale=scale))
     got = transform.encode_blocks(torch.from_numpy(px), cfg, ops, scale_t)
     assert got.dtype == torch.int32
@@ -84,7 +85,7 @@ def test_plain_transform_matches_reference(image, n, adaptive, quality):
         testing.ENCODE_TIE_TOL)
     assert n_bad == 0 and n_mis <= want.size // 1000
 
-    dwant = np.array(ref_tf.decode_blocks(jnp.asarray(want), cfg,
+    dwant = np.array(ref_tf.decode_blocks(jnp.asarray(want), ref_cfg,
                                             adaptive_scale=scale))
     dgot = transform.decode_blocks(torch.from_numpy(want), cfg, ops, scale_t)
     assert dgot.dtype == torch.uint8
@@ -114,12 +115,12 @@ def test_float64_values_round_to_the_reference_integers(image):
     their rounding is the codec's integer."""
     cfg = CodecConfig(quality=50)
     px = np.array(ref_blocks.image_to_blocks(jnp.asarray(image), 8))
-    zz = np.array(ref_tf.encode_blocks(jnp.asarray(px), cfg))
+    zz = np.array(ref_tf.encode_blocks(jnp.asarray(px), RefConfig(quality=50)))
     vals = testing.encode_values_f64(px, cfg)
     far = np.abs(np.abs(vals) % 1.0 - 0.5) > 1e-3
     np.testing.assert_array_equal(
         (np.sign(vals) * np.floor(np.abs(vals) + 0.5))[far], zz[far])
-    dec = np.array(ref_tf.decode_blocks(jnp.asarray(zz), cfg))
+    dec = np.array(ref_tf.decode_blocks(jnp.asarray(zz), RefConfig(quality=50)))
     dvals = np.clip(testing.decode_values_f64(zz, cfg), 0, 255)
     dfar = np.abs(dvals % 1.0 - 0.5) > 1e-3
     np.testing.assert_array_equal(np.floor(dvals + 0.5)[dfar], dec[dfar])
