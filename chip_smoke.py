@@ -10,10 +10,10 @@ then:
      1088 x 1920, adaptive quantization off and on;
   2. kernel C (decode transform) against its plain version on those
      coefficients;
-  3. kernel B (fused stripe encode) against the plain staged pipeline fed
-     kernel A's integers — exactly equal units, stripe bits and block bits
-     — at static q50, dynamic-table q50, and adaptive + DC prediction +
-     coded runs;
+  3. kernel B (fused stripe encode) against the plain staged pipeline
+     (codec.encode_pack_plain) fed kernel A's integers — exactly equal
+     units, stripe bits and block bits — at static q50, dynamic-table q50,
+     and adaptive + DC prediction + coded runs;
   4. the main path: ImageCodec(cfg, device="cuda") encodes a 1080p frame
      at static and at dynamic tables, decodes it (decode and
      decode_to_device), and encode_step encodes the 8-frame batch, with
@@ -31,23 +31,45 @@ then:
   7. kernel D against its plain version and the host decoder, bit-exact,
      on the 8-frame batch (1,088 stripes, 261,120 blocks in one launch)
      encoded by kernel B at static q90 and at adaptive + DC prediction +
-     coded runs, and on 1080p streams in the modes the card cannot encode
-     yet ("none" from the CPU encoder, "direct" packed from kernel A's
-     coefficients by the plain packer);
+     coded runs, and on 1080p "none" and "direct" streams from the card's
+     staged encoder (kernels A and E);
   8. times of D and its plain version at the batch, its bound, and the
-     1080p q90 decode on both routes, stage by stage.
+     1080p q90 decode on both routes, stage by stage;
+  9. kernel E (chunk packer) against its plain version, bit-exact (units
+     and stripe bits), on the chunks of the 8-frame batch (1,088 stripes,
+     50 M chunks) from kernel A's coefficients at static q50 and at
+     adaptive + DC prediction + coded runs, and on random chunks (many
+     dead, stripes of uneven length, one filled to the capacity and one
+     past it); E's and its plain version's times;
+ 10. the staged image path, counted: ImageCodec(cfg, device="cuda")
+     encodes the 1080p frame at block_size 4 (category, dynamic tables),
+     in "none" mode and in direct mode at q90, then decodes it (decode and
+     decode_to_device); kernel E must run and kernel B must not, the
+     containers must equal the CPU path's (ties excepted) and the pixels
+     agree with it within 1;
+ 11. video at full width: VideoCodec(cfg, device="cuda") encodes 32 frames
+     of 1080p (one chunk: one A and one E launch, no B) at q50 and q90,
+     and decodes them (the q90 stack of v2 containers in one D and one C
+     launch), counted; the streams must equal those of chunk_frames=8
+     (whose pass 2 runs kernel B), the decoded stack per-frame
+     ImageCodec decode and the host route exactly, and a 2-frame stack the
+     CPU path's (ties excepted; pixels within 1). Times of encode, decode
+     and decode_to_device, and peak device memory.
 
-A and C may differ from their plain versions only at ties: at most 1
-apart, where the float64 value lies within 1e-6 (encode) or 1e-3 (decode)
-of a .5 boundary (the two sum float32 products in different orders;
-dct_tpu_torch.testing). B and D are held bit-exact. Any failed check
-raises. Each kernel's bound is the larger of the bytes it must move (each
-input read once, each output written once) over 3.35 TB/s and its
-operations over the H100's peak for their type (989 TFLOP/s bf16 for A
-and B, whose u8 x bf16 products are exact there; 67 TFLOP/s float32 for
-C, whose coefficients need float32), computed from this run's inputs.
-The last line is the JSON status; the line before it the card's name and
-power limit, and the one before that the kernel table.
+Phases 4, 6, 10 and 11 are the main paths: each zeroes the kernels' launch
+counters just before it and reads them just after, and the kernel table's
+launch counts are their sums. A and C may differ from their plain versions
+only at ties: at most 1 apart, where the float64 value lies within 1e-6
+(encode) or 1e-3 (decode) of a .5 boundary (the two sum float32 products
+in different orders; dct_tpu_torch.testing). B, D and E are held
+bit-exact. Any failed check raises. Each kernel's bound is the larger of
+the bytes it must move (each input read once, each output written once)
+over 3.35 TB/s and its operations over the H100's peak for their type
+(989 TFLOP/s bf16 for A and B, whose u8 x bf16 products are exact there;
+67 TFLOP/s float32 for C, whose coefficients need float32; D and E do no
+arithmetic worth a bound), computed from this run's inputs. The last line
+is the JSON status; the line before it the card's name and power limit,
+and the one before that the kernel table.
 """
 
 from __future__ import annotations
@@ -61,6 +83,7 @@ import time
 import numpy as np
 
 FRAMES, H, W = 8, 1088, 1920  # 1080p on the 8-px grid: 136 x 240 blocks
+VIDEO_FRAMES, VH, VW = 32, 1080, 1920  # the video phase: 66 Mpix, one chunk
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 BF16_FLOPS = 989e12
 F32_FLOPS = 67e12
@@ -151,18 +174,43 @@ def batch_tables(cfg, px, scale, n_stripes, ops):
 
 
 def coefficients(data: bytes, cfg):
-    """Entropy-decoded (NB, 64) zigzag coefficients of a gray container."""
+    """Entropy-decoded (NB, n2) zigzag coefficients of a gray container
+    (host decoder, any mode), DC prediction undone."""
     import torch
     from dct_tpu_torch.models import codec
 
     p = codec.cont.deserialize(data).planes[0]
     bh, bw, n_stripes = codec._padded_grid(p.height, p.width, cfg)
-    zz = codec._decode_stripes(
-        p, cfg, codec.hf.CanonicalTable(p.table_lengths), "category",
-        n_stripes, bh // n_stripes * bw)
+    mode = cfg.huffman_mode if cfg.use_huffman else "none"
+    table = codec.hf.CanonicalTable(p.table_lengths) if mode != "none" else None
+    run_table = (codec.hf.CanonicalTable(p.run_table_lengths)
+                 if cfg.coded_runs else None)
+    zz = codec._decode_stripes(p, cfg, table, mode, n_stripes,
+                               bh // n_stripes * bw, run_table)
     if cfg.dc_prediction:
         zz = codec.dc_reconstruct(torch.from_numpy(zz), n_stripes).numpy()
     return zz
+
+
+def same_or_ties(name: str, data: bytes, cpu_data: bytes, cfg, image) -> None:
+    """A card container against the CPU path's for the same (non-adaptive)
+    image: equal, or every differing coefficient is an encode tie."""
+    import torch
+    from dct_tpu_torch import testing
+    from dct_tpu_torch.models import codec
+    from dct_tpu_torch.ops import blocks
+
+    same = data == cpu_data
+    log(f"{name}: {len(data)} B, container v{data[4]}, equal to CPU path: "
+        f"{same}")
+    if not same:
+        zz = [coefficients(c, cfg) for c in (data, cpu_data)]
+        px = blocks.image_to_blocks(codec.pad_plane_for_encode(
+            torch.from_numpy(image), cfg), cfg.block_size).numpy()
+        tie_check(f"{name} coefficients", torch.from_numpy(zz[0]),
+                  torch.from_numpy(zz[1]),
+                  lambda b: testing.encode_values_f64(px[b], cfg),
+                  testing.ENCODE_TIE_TOL)
 
 
 def main() -> int:
@@ -176,11 +224,11 @@ def main() -> int:
 
     from dct_tpu_torch import CodecConfig, native, tables, testing
     from dct_tpu_torch import container as cont
-    from dct_tpu_torch.models import codec
+    from dct_tpu_torch.models import codec, video
     from dct_tpu_torch.ops import _build, blocks, bitstream as bs, rle
     from dct_tpu_torch.ops import entropy_decode as ed
     from dct_tpu_torch.ops import entropy_decode_cuda, fused_encode_cuda
-    from dct_tpu_torch.ops import transform, transform_cuda
+    from dct_tpu_torch.ops import pack_cuda, transform, transform_cuda
     from dct_tpu_torch.utils import image_io
 
     # The plain versions run on the card here, as the kernels' references:
@@ -226,6 +274,7 @@ def main() -> int:
     packed, _, _ = codec.encode_step(frames_d, static, n_stripes)
     batch_bits = packed.bit_lengths.sum().item()  # waits for the batch
     launches = dict(_build.LAUNCHES)
+    main_runs = [launches]  # the launch counts of every main-path run
     log(f"main path launches {launches}; batch payload {batch_bits} bits")
     for k in ("encode_blocks", "encode_stripes", "decode_blocks"):
         check(launches[k] > 0, f"{k} not launched on the main path")
@@ -233,18 +282,9 @@ def main() -> int:
     log(f"host entropy decoder: {codec.host_decoder()}")
     for name, cfg in (("static", static), ("dynamic", dynamic)):
         data = containers[name]
-        cpu_data = codec.ImageCodec(cfg, device="cpu").encode(frame)
-        same = data == cpu_data
-        log(f"e2e {name}: {len(data)} B, container v"
-            f"{data[4]}, equal to CPU path: {same}")
-        if not same:  # every differing coefficient must be a tie
-            zz = [coefficients(c, cfg) for c in (data, cpu_data)]
-            px = blocks.image_to_blocks(codec.pad_plane_for_encode(
-                torch.from_numpy(frame), cfg), 8).numpy()
-            tie_check(f"e2e {name} coefficients", torch.from_numpy(zz[0]),
-                      torch.from_numpy(zz[1]),
-                      lambda b: testing.encode_values_f64(px[b], cfg),
-                      testing.ENCODE_TIE_TOL)
+        same_or_ties(f"e2e {name}", data,
+                     codec.ImageCodec(cfg, device="cpu").encode(frame), cfg,
+                     frame)
         ref = codec.ImageCodec(cfg, device="cpu").decode(data)
         rec, rec_d = recs[name]
         check(rec_d.device.type == "cuda", "decode_to_device left the card")
@@ -296,8 +336,8 @@ def main() -> int:
             zz = codec.dc_predict(zz, s_all)
         got, got_bb = fused_encode_cuda.encode_stripes_fused(
             px, cfg, s_all, ops, scale)
-        ref, ref_bb = codec.encode_pack(rle.rle_encode_positional(zz), cfg,
-                                        s_all, ops)
+        ref, ref_bb = codec.encode_pack_plain(rle.rle_encode_positional(zz),
+                                              cfg, s_all, ops)
         g, r = bs.fetch_packed(got), bs.fetch_packed(ref)
         same = (np.array_equal(g.bit_lengths, r.bit_lengths)
                 and np.array_equal(g.units, r.units)
@@ -375,21 +415,14 @@ def main() -> int:
     rec90_d = gpu90.decode_to_device(data90)
     torch.cuda.synchronize()
     launches90 = dict(_build.LAUNCHES)
+    main_runs.append(launches90)
     log(f"main path q90 launches {launches90}")
     check(data90[4] == 2, f"the q90 1080p container is v{data90[4]}, not v2")
-    for k in launches90:
+    for k in ("encode_blocks", "encode_stripes", "decode_blocks",
+              "entropy_decode"):
         check(launches90[k] > 0, f"{k} not launched on the q90 main path")
-    cpu_data90 = codec.ImageCodec(q90, device="cpu").encode(frame)
-    log(f"e2e q90: {len(data90)} B, container v{data90[4]}, equal to CPU "
-        f"path: {data90 == cpu_data90}")
-    if data90 != cpu_data90:  # every differing coefficient must be a tie
-        zz = [coefficients(c, q90) for c in (data90, cpu_data90)]
-        px90 = blocks.image_to_blocks(codec.pad_plane_for_encode(
-            torch.from_numpy(frame), q90), 8).numpy()
-        tie_check("e2e q90 coefficients", torch.from_numpy(zz[0]),
-                  torch.from_numpy(zz[1]),
-                  lambda b: testing.encode_values_f64(px90[b], q90),
-                  testing.ENCODE_TIE_TOL)
+    same_or_ties("e2e q90", data90,
+                 codec.ImageCodec(q90, device="cpu").encode(frame), q90, frame)
 
     def host_route(data):
         """The same container through the host decoder, then kernel C."""
@@ -442,20 +475,16 @@ def main() -> int:
             bb.cpu().numpy().reshape(-1).astype(np.uint16), table, run_table,
             "category", 64)
     results["entropy_decode"] = (0, d_operands["static q90"][1])
-    data_none = codec.ImageCodec(CodecConfig(use_huffman=False,
-                                             decode_index=True),
-                                 device="cpu").encode(frame)
-    p_none = cont.deserialize(data_none).planes[0]
-    check_d("1080p none", p_none.stripes, p_none.block_bits, None, None,
-            "none", 64)
-    direct = CodecConfig(quality=90, huffman_mode="direct", decode_index=True)
-    px1 = blocks.image_to_blocks(codec.pad_plane_for_encode(
-        torch.from_numpy(frame).to(dev), direct), 8)
-    zz_direct = transform_cuda.encode_blocks_kernel(
-        px1, direct, tables.build(direct, device=dev))
-    check_d("1080p direct", *testing.indexed_stream(
-        zz_direct, direct, -(-frame.shape[0] // 8)),
-            "direct", 64)
+    # streams in the staged modes, from the card encoder (kernels A, E)
+    for mode, cfg in (("none", CodecConfig(use_huffman=False,
+                                           decode_index=True)),
+                      ("direct", CodecConfig(quality=90, huffman_mode="direct",
+                                             decode_index=True))):
+        p_s = cont.deserialize(codec.ImageCodec(cfg, device=dev).encode(
+            frame)).planes[0]
+        check_d(f"1080p {mode}", p_s.stripes, p_s.block_bits,
+                None if mode == "none" else codec.hf.CanonicalTable(
+                    p_s.table_lengths), None, mode, 64)
 
     # ---- 8. times of the indexed decode ---------------------------------
     ops_d = d_operands["static q90"][0]
@@ -508,6 +537,234 @@ def main() -> int:
     log("1080p q90 stages: " + ", ".join(f"{k} {v:.4f} ms"
                                          for k, v in stages90.items()))
 
+    # ---- 9. kernel E against its plain version -----------------------
+    def check_e(name, cv, cl, capacity):
+        got = pack_cuda.pack_chunks_kernel(cv, cl, capacity)
+        want = bs.pack_chunks(cv, cl, capacity)
+        diff = (got.units.to(torch.int32) & 0xFFFF) - want.units
+        err = int(diff.abs().max()) if diff.numel() else 0
+        same = err == 0 and torch.equal(got.bit_lengths, want.bit_lengths)
+        log(f"E {name}: {cv.shape[0]} stripes x {cv.shape[1] * 3} chunks "
+            f"{cv.dtype}, {int(want.bit_lengths.sum())} bits, capacity "
+            f"{capacity} units; units and stripe bits equal to plain: {same}")
+        check(same, f"E {name} differs from its plain version")
+        return err
+
+    e_inputs = None
+    for name, cfg in (("static q50", static), ("adaptive+dc+coded_runs", rich)):
+        _, scale = codec._adaptive(px, cfg)
+        ops, _, _ = batch_tables(cfg, px, scale, s_all,
+                                 tables.build(cfg, device=dev))
+        zz = transform_cuda.encode_blocks_kernel(px, cfg, ops, scale)
+        if cfg.dc_prediction:
+            zz = codec.dc_predict(zz, s_all)
+        cv, cl, capacity, _ = codec._stripe_chunks(
+            rle.rle_encode_positional(zz), cfg, s_all, ops)
+        err = check_e(f"batch {name}", cv, cl, capacity)
+        if cfg is static:
+            e_inputs, results["pack_chunks"] = (cv, cl, capacity), (0, err)
+        del zz, cv, cl
+    # random chunks: 60 % dead (with junk values), stripes live over
+    # uneven lengths, an all-dead stripe, one filled exactly to the (odd)
+    # capacity and one past it
+    rng = np.random.default_rng(9)
+    rs, rc = 64, 1500
+    cl_r = rng.integers(1, 17, (rs, rc, 3))
+    cl_r[rng.random((rs, rc, 3)) < 0.6] = 0
+    for st in range(rs):
+        cl_r[st, rc * (st + 1) // rs:] = 0
+    cap_r = rc * 3 - 7
+    cl_r[0] = 0
+    cl_r[1] = 16
+    cl_r[2] = 0
+    cl_r[2].reshape(-1)[:cap_r] = 16
+    cv_r = rng.integers(0, 1 << 16, (rs, rc, 3))
+    cv_r = np.where(cl_r > 0, cv_r & ((1 << cl_r) - 1), cv_r)
+    cv_r, cl_r = (torch.from_numpy(a.astype(np.int32)).to(dev)
+                  for a in (cv_r, cl_r))
+    check_e("random", cv_r, cl_r, cap_r)
+    times["pack_chunks"] = (
+        cuda_ms(lambda: pack_cuda.pack_chunks_kernel(*e_inputs), 20),
+        cuda_ms(lambda: bs.pack_chunks(*e_inputs), 5))
+    log(f"time pack_chunks: kernel {times['pack_chunks'][0]:.4f} ms, plain "
+        f"{times['pack_chunks'][1]:.4f} ms (8 x {H}x{W}, static q50, "
+        f"{e_inputs[0].numel()} chunks)")
+
+    # ---- 10. the staged image path, counted -----------------------------
+    staged = {"n4 category dynamic": CodecConfig(block_size=4),
+              "none": CodecConfig(use_huffman=False),
+              "direct q90": CodecConfig(quality=90, huffman_mode="direct")}
+    for name, cfg in staged.items():
+        gpu_s = codec.ImageCodec(cfg, device=dev)
+        _build.reset_launch_counts()
+        data = gpu_s.encode(frame)
+        rec = gpu_s.decode(data)
+        rec_d = gpu_s.decode_to_device(data)
+        torch.cuda.synchronize()
+        counted = dict(_build.LAUNCHES)
+        main_runs.append(counted)
+        log(f"main path {name} launches {counted}")
+        check(counted["pack_chunks"] > 0 and counted["encode_stripes"] == 0,
+              f"{name}: the staged path did not run kernel E alone")
+        same_or_ties(f"e2e {name}", data,
+                     codec.ImageCodec(cfg, device="cpu").encode(frame), cfg,
+                     frame)
+        check(rec_d.device.type == "cuda", "decode_to_device left the card")
+        check(np.array_equal(rec, rec_d.cpu().numpy()),
+              f"{name}: decode and decode_to_device disagree")
+        err = int(np.abs(rec.astype(int) - codec.ImageCodec(
+            cfg, device="cpu").decode(data)).max())
+        log(f"e2e {name}: decode max |diff| vs CPU {err}")
+        check(err <= 1, f"e2e {name}: decoded pixels differ by {err}")
+        s_ms = {"encode": host_ms(lambda: gpu_s.encode(frame), 10),
+                "decode": host_ms(lambda: gpu_s.decode(data), 10),
+                "decode_to_device": host_ms(
+                    lambda: (gpu_s.decode_to_device(data),
+                             torch.cuda.synchronize()), 10)}
+        log(f"ImageCodec 1080p {name} (v{data[4]}): " + ", ".join(
+            f"{k} {v:.3f} ms ({mpx / v:.1f} Mpix/s)" for k, v in s_ms.items()))
+
+    # ---- 11. video at full width -----------------------------------------
+    vframes = np.stack([image_io.synthetic_image(VH, VW, "photo", seed=s)
+                        for s in range(VIDEO_FRAMES)])
+    vmpx = VIDEO_FRAMES * VH * VW / 1e3
+    for name, cfg in (("q50", CodecConfig()), ("q90", CodecConfig(quality=90))):
+        vc = video.VideoCodec(cfg, device=dev)
+        torch.cuda.reset_peak_memory_stats()
+        _build.reset_launch_counts()
+        streams = vc.encode(vframes)
+        torch.cuda.synchronize()
+        enc_counts = dict(_build.LAUNCHES)
+        enc_peak = torch.cuda.max_memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        _build.reset_launch_counts()
+        rec_d = vc.decode_to_device(streams)
+        torch.cuda.synchronize()
+        dec_counts = dict(_build.LAUNCHES)
+        dec_peak = torch.cuda.max_memory_allocated()
+        main_runs += [enc_counts, dec_counts]
+        versions = sorted({d[4] for d in streams})
+        log(f"video {name}: {VIDEO_FRAMES} x {VH}x{VW}, "
+            f"{sum(map(len, streams))} B, container versions {versions}; "
+            f"encode launches "
+            f"{enc_counts}, peak {enc_peak / 2**30:.3f} GiB; decode_to_device "
+            f"launches {dec_counts}, peak {dec_peak / 2**30:.3f} GiB")
+        check(enc_counts["encode_blocks"] == 1
+              and enc_counts["pack_chunks"] == 1
+              and enc_counts["encode_stripes"] == 0,
+              f"video {name}: encode did not run one A and one E launch")
+        check(dec_counts["decode_blocks"] == 1,
+              f"video {name}: decode ran {dec_counts['decode_blocks']} C "
+              "launches")
+        if cfg.quality == 90:
+            check(versions == [2] and dec_counts["entropy_decode"] == 1,
+                  f"video {name}: the v2 stack did not decode in one D launch")
+        _build.reset_launch_counts()
+        chunked = video.VideoCodec(cfg, chunk_frames=8, device=dev).encode(
+            vframes)
+        log(f"video {name}: chunk_frames=8 launches {dict(_build.LAUNCHES)}; "
+            f"streams equal to one chunk's: {chunked == streams}")
+        check(_build.LAUNCHES["encode_stripes"] == VIDEO_FRAMES // 8,
+              f"video {name}: chunked pass 2 did not run kernel B")
+        check(chunked == streams, f"video {name}: bytes depend on chunking")
+        rec = vc.decode(streams)
+        check(np.array_equal(rec, rec_d.cpu().numpy()),
+              f"video {name}: decode and decode_to_device disagree")
+        gpu_f = codec.ImageCodec(cfg, device=dev)
+        check(all(np.array_equal(rec[i], gpu_f.decode(streams[i]))
+                  for i in range(VIDEO_FRAMES)),
+              f"video {name}: the stack differs from per-frame decode")
+        host = codec.decode_planes_device(
+            [dataclasses.replace(cont.deserialize(d).planes[0],
+                                 block_bits=None) for d in streams], cfg, dev)
+        check(torch.equal(host, rec_d),
+              f"video {name}: the stack differs from the host route")
+        two = video.VideoCodec(cfg, device=dev).encode(vframes[:2])
+        two_cpu = video.VideoCodec(cfg, device="cpu").encode(vframes[:2])
+        for i in range(2):
+            same_or_ties(f"video {name} 2-frame stack, frame {i}", two[i],
+                         two_cpu[i], cfg, vframes[i])
+        rec_cpu = video.VideoCodec(cfg, device="cpu").decode(two)
+        err = int(np.abs(rec_cpu.astype(int) - video.VideoCodec(
+            cfg, device=dev).decode(two)).max())
+        check(err <= 1, f"video {name}: decoded pixels differ by {err}")
+        v_ms = {
+            "encode": host_ms(lambda: vc.encode(vframes), 3),
+            "decode": host_ms(lambda: vc.decode(streams), 3),
+            "decode_to_device": host_ms(lambda: (vc.decode_to_device(streams),
+                                                 torch.cuda.synchronize()), 3),
+        }
+        log(f"video {name} {VIDEO_FRAMES} x {VH}x{VW}: " + ", ".join(
+            f"{k} {v:.3f} ms ({vmpx / v:.1f} Mpix/s)" for k, v in v_ms.items())
+            + f"; CPU vs card 2-frame decode max |diff| {err}")
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            t_prof = time.perf_counter()
+            vc.encode(vframes)
+            torch.cuda.synchronize()
+            t_prof = (time.perf_counter() - t_prof) * 1e3
+        busy = sum(e.self_device_time_total for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+        log(f"video {name} encode under torch.profiler: {t_prof:.3f} ms, "
+            f"device busy {busy:.3f} ms ({100 * busy / t_prof:.1f} %)")
+        del rec_d, host
+    # where the q50 video encode goes, stage by stage (host clock,
+    # synchronised; kernel E by CUDA events)
+    cfg = CodecConfig()
+    ns_v = codec._padded_grid(VH, VW, cfg)[2]
+    ops_v = tables.build(cfg, device=dev)
+
+    def upload():
+        out = codec.pad_plane_for_encode(torch.from_numpy(vframes).to(dev), cfg)
+        torch.cuda.synchronize()
+        return out
+
+    def analyze():
+        out = codec.encode_analyze(img_v, cfg, ops_v)
+        torch.cuda.synchronize()
+        return out
+
+    img_v = upload()
+    sym_v, _, hist_v, _ = analyze()
+    ops_v = ops_v.with_tables(codec._build_table(cfg, hist_v.cpu().numpy()))
+    packed_v, _ = codec.pack_frames(sym_v, cfg, (VIDEO_FRAMES,), ns_v, ops_v)
+    fetched_v = bs.fetch_packed(packed_v)
+    conts_v = [cont.deserialize(d) for d in video.VideoCodec(
+        cfg, device=dev).encode(vframes)]
+    e_args = codec._stripe_chunks(sym_v, cfg, VIDEO_FRAMES * ns_v, ops_v)[:3]
+    v_stages = {
+        "upload + pad": host_ms(upload, 3),
+        "analyze (A, RLE, histogram)": host_ms(analyze, 3),
+        "table (host)": host_ms(lambda: codec._build_table(
+            cfg, hist_v.cpu().numpy()), 3),
+        "symbol chunks + E": host_ms(lambda: (codec.pack_frames(
+            sym_v, cfg, (VIDEO_FRAMES,), ns_v, ops_v),
+            torch.cuda.synchronize()), 3),
+        "kernel E": cuda_ms(lambda: pack_cuda.pack_chunks_kernel(*e_args), 5),
+        "fetch units": host_ms(lambda: bs.fetch_packed(packed_v), 3),
+        "stripe bytes": host_ms(lambda: [bs.stripes_to_bytes(bs.PackedStripes(
+            fetched_v.units[i], fetched_v.bit_lengths[i]))
+            for i in range(VIDEO_FRAMES)], 3),
+        "serialize": host_ms(lambda: [cont.serialize(c) for c in conts_v], 3),
+    }
+    log(f"video q50 {VIDEO_FRAMES} x {VH}x{VW} encode stages: " + ", ".join(
+        f"{k} {v:.3f} ms" for k, v in v_stages.items()))
+    del img_v, sym_v, packed_v, e_args
+    # the largest chunk CHUNK_PIXEL_BUDGET allows at 1080p, in one dispatch
+    big = np.concatenate([vframes, vframes])[:video.CHUNK_PIXEL_BUDGET
+                                              // (VH * VW)]
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    video.VideoCodec(cfg, device=dev).encode(big)
+    torch.cuda.synchronize()
+    log(f"video q50 {big.shape[0]} x {VH}x{VW} (one chunk at the budget): "
+        f"launches {dict(_build.LAUNCHES)}, peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB of "
+        f"{torch.cuda.get_device_properties(0).total_memory / 2**30:.1f}")
+    check(_build.LAUNCHES["pack_chunks"] == 1,
+          "the budget-size stack did not encode in one chunk")
+
     sources = {
         "encode_blocks": ("dct_tpu_torch/csrc/transform.cu",
                           "dct_tpu/ops/transform_pallas.py:106"),
@@ -517,6 +774,8 @@ def main() -> int:
                           "dct_tpu/ops/transform_pallas.py:126"),
         "entropy_decode": ("dct_tpu_torch/csrc/entropy_decode.cu",
                            "dct_tpu/ops/entropy_decode_pallas.py:124"),
+        "pack_chunks": ("dct_tpu_torch/csrc/pack.cu",
+                        "dct_tpu/ops/pack_pallas.py:46"),
     }
     # bounds at the shapes timed above: 8 x 1088x1920, static q50 for A,
     # B, C and static q90 for D; operators and tables count as inputs
@@ -535,6 +794,10 @@ def main() -> int:
             sum(t.numel() * t.element_size() for t in ops_d.values()
                 if isinstance(t, torch.Tensor))
             + ops_d["block_start"].numel() * 64 * 2),
+        # the int32 chunks as E reads them, the units and bits it writes
+        "pack_chunks": bound_ms(
+            2 * e_inputs[0].numel() * e_inputs[0].element_size()
+            + s_all * (e_inputs[2] * 2 + 4)),
     }
     for k, (b_ms, by) in bounds.items():
         log(f"bound {k}: {b_ms:.5f} ms ({by}); kernel at "
@@ -542,7 +805,7 @@ def main() -> int:
     table = [
         {"name": k, "route": "cuda", "source": sources[k][0],
          "replaces": sources[k][1],
-         "launches": launches[k] + launches90[k],
+         "launches": sum(run[k] for run in main_runs),
          "max_abs_err": results[k][1], "ms": round(times[k][0], 4),
          "plain_ms": round(times[k][1], 4),
          "bound_ms": round(bounds[k][0], 5), "bound_by": bounds[k][1],

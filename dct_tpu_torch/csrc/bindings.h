@@ -65,5 +65,15 @@ DCT_EXPORT int dct_entropy_decode(const void* payload, long long payload_bytes,
                                   int n2, int mode, int run_bits,
                                   void* stream);
 
+// Kernel E: chunk packing, one CTA per stripe. cv/cl: (n_stripes,
+// n_chunks) int32 chunk values and bit lengths (0..16; a value holds no bit
+// above its length). words: (n_stripes, n_words) int32 output in kernel
+// B's layout (halves swapped); units at or past `capacity` are dropped.
+// stripe_bits: (n_stripes,) int32 sums of the lengths.
+DCT_EXPORT int dct_pack_chunks(const void* cv, const void* cl, int n_stripes,
+                               long long n_chunks, long long capacity,
+                               void* words, long long n_words,
+                               void* stripe_bits, void* stream);
+
 // cudaGetErrorString of a code returned above.
 DCT_EXPORT const char* dct_error_string(int code);

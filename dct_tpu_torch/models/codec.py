@@ -8,16 +8,21 @@
            (kernel C) -> crop; v1 containers are entropy-decoded on the
            host (dct_tpu_torch.native, or the Python decoder) and uploaded
 
-Static tables (cfg.static_tables) encode in one kernel (ops/
-fused_encode_cuda.py, kernel B). Dynamic tables first run the analyze pass
-— transform (kernel A), RLE, category histogram — build the per-image
-canonical table on the host, then run kernel B with it. On the CPU the same
-functions run the plain versions, through the staged pipeline.
+Two encode paths, as in the reference. Configs that kernel B takes (8x8
+blocks, category mode: ``fused_kernel_ok``) encode static tables in one
+kernel (ops/fused_encode_cuda.py); with dynamic tables the analyze pass —
+transform (kernel A), RLE, histogram — gives the per-image canonical
+table, then kernel B encodes with it. Every other config (4x4 and 2x2
+blocks, direct and "none" modes) runs the staged path: the analyze pass,
+then symbol chunks packed by kernel E (ops/pack_cuda.py). On the CPU the
+same functions run the plain versions. 16x16 blocks raise on the card
+(kernels A and C do not take them yet).
 
 The entry points run on the card: with no ``device`` they take ``cuda``,
 and raise where there is none; ``device="cpu"`` runs the plain versions.
-The tensors handed to the step functions decide where the work runs.
-Color and video are not ported yet.
+The tensors handed to the step functions decide where the work runs. The
+gray video codec batching these functions over frame stacks is
+models/video.py; color is not ported yet.
 """
 
 from __future__ import annotations
@@ -32,6 +37,7 @@ from dct_tpu_torch.ops import bitstream as bs
 from dct_tpu_torch.ops import blocks as blk
 from dct_tpu_torch.ops import entropy_decode as ed
 from dct_tpu_torch.ops import entropy_decode_cuda, fused_encode_cuda
+from dct_tpu_torch.ops import pack_cuda
 from dct_tpu_torch.ops import huffman as hf
 from dct_tpu_torch.ops import quant, rle, transform
 from dct_tpu_torch.ops.transform_cuda import (
@@ -104,27 +110,39 @@ def pad_plane_for_encode(plane: torch.Tensor, cfg: CodecConfig) -> torch.Tensor:
 def encode_analyze(
     image: torch.Tensor, cfg: CodecConfig, ops: tables.CodecOperators
 ):
-    """Stage 1: padded plane (Hp, Wp) -> (symbols, var_codes, histogram,
-    run_histogram). run_histogram is the (65,) run histogram under
-    cfg.coded_runs, else a zero stub. Category and "none" modes."""
+    """Stage 1: padded plane(s) (..., Hp, Wp) -> (symbols, var_codes,
+    histogram, run_histogram). Every frame's blocks are stacked: symbols
+    cover (frames * NB, n2) blocks, DC prediction is stripe-local over
+    frames x stripes, and the histograms sum over the stack. var_codes keep
+    the leading axes, (..., NB). histogram: the (16,) category histogram,
+    in direct mode the (512,) histogram of [-255, 255] + ESC, in "none" mode
+    a zero stub; run_histogram: the (65,) run histogram under
+    cfg.coded_runs, else a zero stub."""
     n = cfg.block_size
-    pixels = blk.image_to_blocks(image, n)  # (NB, n2)
+    lead = image.shape[:-2]
+    pixels = blk.image_to_blocks(image, n).reshape(-1, cfg.n2)
     var_codes, scale = _adaptive(pixels, cfg)
     zz = encode_blocks_kernel(pixels, cfg, ops, scale)
     if cfg.dc_prediction:
-        zz = dc_predict(zz, (image.shape[0] // n) // cfg.stripe_rows)
-    mode = cfg.huffman_mode if cfg.use_huffman else "none"
-    if mode == "direct":
-        raise NotImplementedError("direct-mode tables: not ported yet")
+        frames = int(np.prod(lead, dtype=np.int64))
+        zz = dc_predict(zz, frames * (image.shape[-2] // n) // cfg.stripe_rows)
     symbols = rle.rle_encode_positional(zz)
+    mode = cfg.huffman_mode if cfg.use_huffman else "none"
     if mode == "category":
         hist = hf.category_histogram_masked(symbols.values, symbols.is_sym)
+    elif mode == "direct":
+        # positional symbols pack to the same bytes as the reference's
+        # compacted ones, so direct mode histograms them as they are
+        hist = hf.value_histogram_masked(symbols.values, symbols.is_sym,
+                                         DIRECT_VMIN, -DIRECT_VMIN)
     else:
         hist = torch.zeros(1, dtype=torch.int32, device=zz.device)
     if cfg.coded_runs:
         run_hist = hf.run_histogram_masked(symbols.runs, symbols.is_sym)
     else:
         run_hist = torch.zeros(1, dtype=torch.int32, device=zz.device)
+    if var_codes is not None:
+        var_codes = var_codes.reshape(*lead, -1)
     return symbols, var_codes, hist, run_hist
 
 
@@ -147,21 +165,29 @@ def symbol_chunks_for(symbols: rle.RLEPositional, cfg: CodecConfig,
     return bs.symbol_chunks(symbols, mode, **rkw)
 
 
-def encode_pack(
-    symbols: rle.RLEPositional, cfg: CodecConfig, n_stripes: int,
-    ops: tables.CodecOperators,
-):
-    """Stage 2, staged: symbols + tables -> (PackedStripes, (n_stripes,
-    bps) int32 per-block bit lengths)."""
+def _stripe_chunks(symbols: rle.RLEPositional, cfg: CodecConfig,
+                   n_stripes: int, ops: tables.CodecOperators):
+    """Symbols -> ((n_stripes, C, 3) chunk values, lengths, the stripes'
+    units capacity, (n_stripes, bps) int32 per-block bit lengths)."""
     if cfg.coded_runs and ops.run_lengths is None:
         raise ValueError("coded_runs requires a run table")
     cv, cl = symbol_chunks_for(symbols, cfg, ops)
-    nb = symbols.values.shape[0]
-    bps = nb // n_stripes
+    bps = symbols.values.shape[0] // n_stripes
     block_bits = cl.sum(dim=(1, 2)).reshape(n_stripes, bps).to(torch.int32)
-    cv = cv.reshape(n_stripes, -1, 3)
-    cl = cl.reshape(n_stripes, -1, 3)
     capacity = bps * bs.units_per_block_worst(cfg.n2, cfg.coded_runs)
+    return (cv.reshape(n_stripes, -1, 3), cl.reshape(n_stripes, -1, 3),
+            capacity, block_bits)
+
+
+def encode_pack_plain(
+    symbols: rle.RLEPositional, cfg: CodecConfig, n_stripes: int,
+    ops: tables.CodecOperators,
+):
+    """The staged pack of n_stripes stripes (every frame's, stacked)
+    through the plain packer (bs.pack_chunks) on any device ->
+    (PackedStripes, (n_stripes, bps) int32 per-block bit lengths): the
+    staged pipeline the kernels are held against."""
+    cv, cl, capacity, block_bits = _stripe_chunks(symbols, cfg, n_stripes, ops)
     return bs.pack_chunks(cv, cl, capacity), block_bits
 
 
@@ -186,6 +212,30 @@ def _build_run_table(cfg: CodecConfig, run_hist: np.ndarray | None):
     )
 
 
+def fused_kernel_ok(cfg: CodecConfig) -> bool:
+    """Whether kernel B (the fused stripe encode) takes cfg: 8x8 blocks in
+    category mode. Every other config encodes through the staged path
+    (kernel A, DC prediction, positional RLE, symbol chunks, kernel E)."""
+    mode = cfg.huffman_mode if cfg.use_huffman else "none"
+    return (cfg.n2 == fused_encode_cuda.KERNEL_N2
+            and mode == fused_encode_cuda.KERNEL_MODE)
+
+
+def _frames_out(packed: bs.PackedStripes, block_bits: torch.Tensor,
+                cfg: CodecConfig, lead, n_stripes: int):
+    """Stacked stripes -> (PackedStripes, block_bits-or-None) with the
+    leading frame axes: units (..., n_stripes, U), bit lengths (...,
+    n_stripes), block bits (..., n_stripes, bps) when cfg.decode_index is
+    truthy."""
+    packed = bs.PackedStripes(
+        units=packed.units.reshape(*lead, n_stripes, -1),
+        bit_lengths=packed.bit_lengths.reshape(*lead, n_stripes),
+    )
+    if not cfg.decode_index:
+        return packed, None
+    return packed, block_bits.reshape(*lead, n_stripes, -1)
+
+
 def encode_fused_step(
     image: torch.Tensor,
     cfg: CodecConfig,
@@ -193,8 +243,8 @@ def encode_fused_step(
     ops: tables.CodecOperators,
 ):
     """Padded plane(s) (..., Hp, Wp) + tables -> (PackedStripes, var_codes,
-    block_bits-or-None), one fused stripe encode over every stripe of
-    every frame. Outputs keep the leading frame axes: units (...,
+    block_bits-or-None), one fused stripe encode (kernel B) over every
+    stripe of every frame. Outputs keep the leading frame axes: units (...,
     n_stripes, U), bit lengths (..., n_stripes), var_codes (..., NB),
     block_bits (..., n_stripes, bps) when cfg.decode_index is truthy."""
     lead = image.shape[:-2]
@@ -204,21 +254,56 @@ def encode_fused_step(
     packed, block_bits = fused_encode_cuda.encode_stripes_fused(
         pixels.reshape(-1, cfg.n2), cfg, frames * n_stripes, ops, scale
     )
-    packed = bs.PackedStripes(
-        units=packed.units.reshape(*lead, n_stripes, -1),
-        bit_lengths=packed.bit_lengths.reshape(*lead, n_stripes),
-    )
-    block_bits = block_bits.reshape(*lead, n_stripes, -1)
-    return packed, var_codes, (block_bits if cfg.decode_index else None)
+    packed, block_bits = _frames_out(packed, block_bits, cfg, lead, n_stripes)
+    return packed, var_codes, block_bits
+
+
+def pack_frames(
+    symbols: rle.RLEPositional,
+    cfg: CodecConfig,
+    lead,
+    n_stripes: int,
+    ops: tables.CodecOperators,
+):
+    """Stage 2, staged: encode_analyze's symbols of frames with leading
+    axes ``lead`` (``()`` for one plane) + tables -> (PackedStripes,
+    block_bits-or-None) with those axes. The chunks of every stripe of
+    every frame are packed in one launch of kernel E on CUDA
+    (ops/pack_cuda.py), by its plain version on the CPU."""
+    frames = int(np.prod(lead, dtype=np.int64))
+    cv, cl, capacity, block_bits = _stripe_chunks(symbols, cfg,
+                                                  frames * n_stripes, ops)
+    packed = pack_cuda.pack_chunks_kernel(cv, cl, capacity)
+    return _frames_out(packed, block_bits, cfg, lead, n_stripes)
+
+
+def encode_staged_step(
+    image: torch.Tensor,
+    cfg: CodecConfig,
+    n_stripes: int,
+    ops: tables.CodecOperators,
+):
+    """Padded plane(s) (..., Hp, Wp) + tables -> (PackedStripes, var_codes,
+    block_bits-or-None) through the staged path: the analyze pass (kernel
+    A, DC prediction, positional RLE), then one kernel E launch over every
+    stripe of every frame. Outputs keep the leading axes, as
+    encode_fused_step's do."""
+    symbols, var_codes, _, _ = encode_analyze(image, cfg, ops)
+    packed, block_bits = pack_frames(symbols, cfg, image.shape[:-2],
+                                     n_stripes, ops)
+    return packed, var_codes, block_bits
 
 
 def encode_step(image: torch.Tensor, cfg: CodecConfig, n_stripes: int):
     """Full static-table encode of padded plane(s) (..., Hp, Wp) on the
-    tensor's device: -> (PackedStripes, var_codes, block_bits-or-None)."""
+    tensor's device: -> (PackedStripes, var_codes, block_bits-or-None), with
+    the leading axes. Kernel B where fused_kernel_ok(cfg), else the staged
+    path (kernel A, then kernel E)."""
     if not cfg.static_tables:
         raise ValueError("encode_step requires cfg.static_tables")
     ops = tables.build(cfg, device=image.device)
-    return encode_fused_step(image, cfg, n_stripes, ops)
+    step = encode_fused_step if fused_kernel_ok(cfg) else encode_staged_step
+    return step(image, cfg, n_stripes, ops)
 
 
 def encode_plane(
@@ -233,28 +318,24 @@ def encode_plane(
     img = pad_plane_for_encode(
         torch.from_numpy(np.array(plane, np.uint8)).to(device), cfg
     )
-    ops = tables.build(cfg, device=device)
 
     if cfg.static_tables:
         table = _build_table(cfg, None)
         run_table = _build_run_table(cfg, None)
-        packed, var_codes, block_bits = encode_fused_step(
-            img, cfg, n_stripes, ops
-        )
+        packed, var_codes, block_bits = encode_step(img, cfg, n_stripes)
     else:
+        ops = tables.build(cfg, device=device)
         symbols, var_codes, hist, run_hist = encode_analyze(img, cfg, ops)
         table = _build_table(cfg, hist.cpu().numpy())
         run_table = _build_run_table(cfg, run_hist.cpu().numpy())
         ops = ops.with_tables(table, run_table)
-        if device.type == "cuda":
+        if device.type == "cuda" and fused_kernel_ok(cfg):
             # the fused kernel re-runs the transform with the real tables
             packed, var_codes, block_bits = encode_fused_step(
                 img, cfg, n_stripes, ops
             )
         else:
-            packed, block_bits = encode_pack(symbols, cfg, n_stripes, ops)
-            if not cfg.decode_index:
-                block_bits = None
+            packed, block_bits = pack_frames(symbols, cfg, (), n_stripes, ops)
     packed = bs.fetch_packed(packed)  # trim worst-case slack before D2H
     return cont.PlaneData(
         width=w,
@@ -351,44 +432,62 @@ def indexed_operands(stripes: list[bytes], block_bits: np.ndarray, table,
         run_bits=0 if run_table is not None else bs.run_field_bits(n2))
 
 
+def decode_planes_device(
+    planes: list[cont.PlaneData], cfg: CodecConfig,
+    device: str | torch.device | None = None,
+) -> torch.Tensor:
+    """PlaneData of F frames that share their size and tables ->
+    reconstructed (F, H, W) u8 planes as a tensor on ``device``, one launch
+    of each kernel for the stack. When every plane is indexed (v2) and
+    kernel D takes it, the stack is entropy-decoded on the device in one D
+    launch over every frame's stripes (payload and index concatenated), so
+    only those and the tables cross to it; otherwise each plane is decoded
+    on the host and the coefficients are uploaded at once. Then DC
+    un-prediction over frames x stripes, dequant + IDCT (kernel C on CUDA)
+    and the crop run on the device."""
+    device = torch.device(device) if device is not None else _default_device()
+    p0 = planes[0]
+    n = cfg.block_size
+    bh, bw, n_stripes = _padded_grid(p0.height, p0.width, cfg)
+    bps = (bh // n_stripes) * bw  # blocks per stripe
+
+    mode = cfg.huffman_mode if cfg.use_huffman else "none"
+    table = hf.CanonicalTable(p0.table_lengths) if mode != "none" else None
+    run_table = (
+        hf.CanonicalTable(p0.run_table_lengths) if cfg.coded_runs else None
+    )
+    if all(indexed_decode_ok(p, cfg, table, run_table) for p in planes):
+        zz = entropy_decode_cuda.decode_blocks_kernel(**indexed_operands(
+            [s for p in planes for s in p.stripes],
+            np.concatenate([p.block_bits for p in planes]), table, run_table,
+            mode, cfg.n2, device))
+    else:
+        zz = torch.from_numpy(np.concatenate([
+            _decode_stripes(p, cfg, table, mode, n_stripes, bps, run_table)
+            for p in planes])).to(device)
+    if cfg.dc_prediction:
+        zz = dc_reconstruct(zz, len(planes) * n_stripes)
+
+    scale = None
+    if cfg.adaptive:
+        scale = quant.scale_from_variance_code(torch.from_numpy(np.concatenate(
+            [np.asarray(p.variance_codes, np.uint8) for p in planes])
+        ).to(device))
+    ops = tables.build(cfg, device=device)
+    pixels = decode_blocks_kernel(zz, cfg, ops, scale)
+    # rebuild on the (stripe-padded) encoder grid, then crop to true dims
+    return blk.blocks_to_image(pixels.reshape(len(planes), -1, cfg.n2),
+                               bh * n, bw * n, n)[:, : p0.height, : p0.width]
+
+
 def decode_plane_device(
     p: cont.PlaneData, cfg: CodecConfig,
     device: str | torch.device | None = None,
 ) -> torch.Tensor:
     """PlaneData -> reconstructed (H, W) u8 plane as a tensor on
-    ``device``. Indexed (v2) planes are entropy-decoded on the device
-    (kernel D), so only the payload, the index and the tables cross to it;
-    others on the host, and their coefficients are uploaded. Then DC
-    un-prediction, dequant + IDCT (kernel C on CUDA) and the crop run on
-    the device."""
-    device = torch.device(device) if device is not None else _default_device()
-    n = cfg.block_size
-    bh, bw, n_stripes = _padded_grid(p.height, p.width, cfg)
-    bps = (bh // n_stripes) * bw  # blocks per stripe
-
-    mode = cfg.huffman_mode if cfg.use_huffman else "none"
-    table = hf.CanonicalTable(p.table_lengths) if mode != "none" else None
-    run_table = (
-        hf.CanonicalTable(p.run_table_lengths) if cfg.coded_runs else None
-    )
-    if indexed_decode_ok(p, cfg, table, run_table):
-        zz = entropy_decode_cuda.decode_blocks_kernel(**indexed_operands(
-            p.stripes, p.block_bits, table, run_table, mode, cfg.n2, device))
-    else:
-        zz = torch.from_numpy(_decode_stripes(
-            p, cfg, table, mode, n_stripes, bps, run_table)).to(device)
-    if cfg.dc_prediction:
-        zz = dc_reconstruct(zz, n_stripes)
-
-    scale = None
-    if cfg.adaptive:
-        scale = quant.scale_from_variance_code(
-            torch.from_numpy(np.array(p.variance_codes, np.uint8)).to(device)
-        )
-    ops = tables.build(cfg, device=device)
-    pixels = decode_blocks_kernel(zz, cfg, ops, scale)
-    # rebuild on the (stripe-padded) encoder grid, then crop to true dims
-    return blk.blocks_to_image(pixels, bh * n, bw * n, n)[: p.height, : p.width]
+    ``device`` (decode_planes_device of one plane: kernel D for an indexed
+    plane, else the host decoder, then kernel C)."""
+    return decode_planes_device([p], cfg, device)[0]
 
 
 def decode_plane(

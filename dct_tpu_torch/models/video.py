@@ -1,0 +1,190 @@
+"""Batched-frame gray codec (the "video" model family; port of
+``dct_tpu.models.video``): encode a stack of frames with one launch per
+stage, decode a stack of containers likewise.
+
+All-intra: every frame is coded independently, but the stack shares one
+canonical table (and run table) built from the stack's summed histograms,
+and each frame's container stays individually decodable
+(models/codec.py). The bytes do not depend on how the stack is cut into
+chunks: dynamic tables come from histograms summed over every chunk (pass
+1), and pass 2 encodes each chunk against the final tables.
+
+Per chunk of frames, on the card: static tables run kernel B over every
+stripe of every frame (or the staged path where kernel B does not take
+the config); a stack that fits one chunk runs the analyze pass once
+(kernel A) and packs those same symbols with one kernel E launch; with
+several chunks, pass 1 runs the analyze pass chunk by chunk for the
+histograms, and pass 2 encodes each chunk with kernel B where
+codec.fused_kernel_ok, else analyze + kernel E. Decode runs one kernel D
+launch over an all-indexed (v2) stack and one kernel C launch.
+
+Only gray stacks are ported: RGB stacks raise NotImplementedError, and
+the reference's ``mesh`` argument (the sharded encode) is not taken.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from dct_tpu_torch import container as cont
+from dct_tpu_torch import tables
+from dct_tpu_torch.config import CodecConfig
+from dct_tpu_torch.models import codec
+from dct_tpu_torch.ops import bitstream as bs
+
+# Pixels per encode (and decode) dispatch. The staged path's peak device
+# memory grows with it, mostly the int32 symbol chunks (24 B a pixel) and
+# their temporaries; the largest 1080p chunk it allows, 61 frames, fits an
+# 80 GB H100 with room to spare (PERF.md).
+CHUNK_PIXEL_BUDGET = 128_000_000
+
+
+def _encode_plane_batch(
+    planes: np.ndarray,
+    cfg: CodecConfig,
+    chunk_frames: int | None,
+    device: torch.device,
+) -> list[cont.PlaneData]:
+    """(F, h, w) u8 plane stack -> one PlaneData per frame, sharing one
+    table (and run table) for the whole stack, the same for every
+    chunking."""
+    f, h, w = (int(x) for x in planes.shape)
+    _, _, n_stripes = codec._padded_grid(h, w, cfg)
+    if chunk_frames is None:
+        chunk_frames = max(1, CHUNK_PIXEL_BUDGET // (h * w))
+    chunk = max(1, min(int(chunk_frames), f))
+
+    def prep(i0: int) -> torch.Tensor:
+        sub = np.ascontiguousarray(planes[i0:i0 + chunk], np.uint8)
+        return codec.pad_plane_for_encode(torch.from_numpy(sub).to(device),
+                                          cfg)
+
+    ops = tables.build(cfg, device=device)
+    symbols_once = var_once = None
+    if cfg.static_tables:
+        table = codec._build_table(cfg, None)
+        run_table = codec._build_run_table(cfg, None)
+    else:
+        if f <= chunk:
+            # one chunk: analyze once and pack the same symbols
+            symbols_once, var_once, hist, run_hist = codec.encode_analyze(
+                prep(0), cfg, ops)
+            hist, run_hist = hist.cpu().numpy(), run_hist.cpu().numpy()
+        else:
+            # pass 1: the stack's histograms, chunk by chunk, summed in
+            # int64 on the host (a bin can pass 2^31 over a long stack)
+            hist = run_hist = 0
+            for i0 in range(0, f, chunk):
+                _, _, h_, rh_ = codec.encode_analyze(prep(i0), cfg, ops)
+                hist = hist + h_.cpu().numpy().astype(np.int64)
+                run_hist = run_hist + rh_.cpu().numpy().astype(np.int64)
+        table = codec._build_table(cfg, hist)
+        run_table = codec._build_run_table(cfg, run_hist)
+        ops = ops.with_tables(table, run_table)
+
+    out: list[cont.PlaneData] = []
+    for i0 in range(0, f, chunk):
+        if cfg.static_tables:
+            packed, var_codes, block_bits = codec.encode_step(
+                prep(i0), cfg, n_stripes)
+        elif symbols_once is not None:
+            packed, block_bits = codec.pack_frames(symbols_once, cfg, (f,),
+                                                   n_stripes, ops)
+            var_codes = var_once
+        elif codec.fused_kernel_ok(cfg):
+            packed, var_codes, block_bits = codec.encode_fused_step(
+                prep(i0), cfg, n_stripes, ops)
+        else:
+            packed, var_codes, block_bits = codec.encode_staged_step(
+                prep(i0), cfg, n_stripes, ops)
+
+        packed = bs.fetch_packed(packed)  # trim worst-case slack before D2H
+        units, bits = packed.units, packed.bit_lengths
+        var_np = var_codes.cpu().numpy() if cfg.adaptive else None
+        bb_np = block_bits.cpu().numpy() if block_bits is not None else None
+        for i in range(units.shape[0]):
+            out.append(cont.PlaneData(
+                width=w,
+                height=h,
+                table_lengths=table.lengths if table is not None else None,
+                vmin=codec.DIRECT_VMIN,
+                variance_codes=var_np[i] if cfg.adaptive else None,
+                stripe_bits=bits[i].astype(np.uint32),
+                stripes=bs.stripes_to_bytes(bs.PackedStripes(units[i],
+                                                             bits[i])),
+                run_table_lengths=(
+                    run_table.lengths if run_table is not None else None
+                ),
+                block_bits=(
+                    bb_np[i].reshape(-1).astype(np.uint16)
+                    if bb_np is not None else None
+                ),
+            ))
+    return out
+
+
+def _batch_key(c: cont.Container):
+    """What frames decoded as one batch must share: the config, the size
+    and the tables."""
+    p = c.planes[0]
+    return (c.config, p.height, p.width,
+            None if p.table_lengths is None else p.table_lengths.tobytes(),
+            None if p.run_table_lengths is None
+            else p.run_table_lengths.tobytes())
+
+
+class VideoCodec:
+    """Encode (F, H, W) grayscale u8 frame stacks to one container per
+    frame (each decodable with models.codec.decode), and decode such
+    stacks, on one device."""
+
+    def __init__(self, config: CodecConfig | None = None,
+                 chunk_frames: int | None = None,
+                 device: str | torch.device | None = None):
+        """chunk_frames caps the frames per dispatch (None: from
+        CHUNK_PIXEL_BUDGET); the output bytes do not depend on it."""
+        self.config = config or CodecConfig()
+        self.chunk_frames = chunk_frames
+        self.device = (torch.device(device) if device is not None
+                       else codec._default_device())
+        if self.config.chroma != "gray":
+            raise NotImplementedError("color video: not ported yet")
+
+    def encode(self, frames: np.ndarray) -> list[bytes]:
+        if frames.ndim == 4 and frames.shape[-1] == 3:
+            raise NotImplementedError("RGB frame stacks: not ported yet")
+        if frames.ndim != 3:
+            raise ValueError(f"expected (F, H, W), got {frames.shape}")
+        _, h, w = (int(x) for x in frames.shape)
+        planes = _encode_plane_batch(frames, self.config, self.chunk_frames,
+                                     self.device)
+        return [cont.serialize(cont.Container(config=self.config, width=w,
+                                              height=h, planes=[p]))
+                for p in planes]
+
+    def decode(self, streams: list[bytes]) -> np.ndarray:
+        return self.decode_to_device(streams).cpu().numpy()
+
+    def decode_to_device(self, streams: list[bytes]) -> torch.Tensor:
+        """(F, H, W) u8 frames left on this codec's device. Frames that
+        share config, size and tables decode as one batch per chunk of
+        frames (models.codec.decode_planes_device); a mixed batch decodes
+        frame by frame."""
+        if not streams:
+            raise ValueError("decode requires at least one stream")
+        conts = [cont.deserialize(s) for s in streams]
+        if any(c.config.chroma != "gray" for c in conts):
+            raise NotImplementedError("color containers: not ported yet")
+        c0 = conts[0]
+        if any(_batch_key(c) != _batch_key(c0) for c in conts[1:]):
+            return torch.stack([
+                codec.decode_plane_device(c.planes[0], c.config, self.device)
+                for c in conts])
+        # symmetric with encode: long stacks decode in chunks of frames
+        ck = max(1, self.chunk_frames
+                 or CHUNK_PIXEL_BUDGET // (c0.height * c0.width))
+        parts = [codec.decode_planes_device(
+            [c.planes[0] for c in conts[i0:i0 + ck]], c0.config, self.device)
+            for i0 in range(0, len(conts), ck)]
+        return parts[0] if len(parts) == 1 else torch.cat(parts)

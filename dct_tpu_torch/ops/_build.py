@@ -23,7 +23,7 @@ import subprocess
 
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
-SOURCES = ("transform", "fused_encode", "entropy_decode")
+SOURCES = ("transform", "fused_encode", "entropy_decode", "pack")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -43,12 +43,15 @@ _SIGNATURES = {
         "dct_entropy_decode": [_p, _ll, _p, _p, _p, _i, _p, _ll, _i, _i, _i,
                                _p],
     },
+    "pack": {
+        "dct_pack_chunks": [_p, _p, _i, _ll, _ll, _p, _ll, _p, _p],
+    },
 }
 
 # Launches per kernel, counted by the wrappers where they launch (and
 # nowhere else), so a run can show which kernels the path went through.
 LAUNCHES = {"encode_blocks": 0, "encode_stripes": 0, "decode_blocks": 0,
-            "entropy_decode": 0}
+            "entropy_decode": 0, "pack_chunks": 0}
 
 _libs: dict[str, ctypes.CDLL] = {}
 

@@ -16,11 +16,12 @@ Symbol wire format (MSB-first), per RLE symbol:
 The run field is run_field_bits(n2) wide, or a canonical run code under
 cfg.coded_runs. Stripes are byte-aligned independent substreams.
 
-Integer widths: torch's uint16/uint32 have too few ops, so chunk values,
-offsets and the 32-bit windows are int64 here, and stream units are held
-in any integer tensor whose low 16 bits are the unit (int32 from this
-packer, int16 bit patterns from the fused kernel) until fetch_packed
-narrows them to numpy uint16.
+Integer widths: torch's uint16/uint32 have too few ops. Chunk values
+(at most 16 bits) and lengths (at most 16) are int32, the one chunk dtype
+kernel E takes; this packer widens them to int64 for the bit offsets and
+the 32-bit windows. Stream units are held in any integer tensor whose low
+16 bits are the unit (int32 from this packer, int16 bit patterns from the
+kernels) until fetch_packed narrows them to numpy uint16.
 """
 
 from __future__ import annotations
@@ -86,36 +87,37 @@ def symbol_chunks(
     run_codes: torch.Tensor | None = None,
     run_bits: int = 8,
 ):
-    """Per-symbol (chunk_values (B, S, 3) int64, chunk_lens (B, S, 3)
-    int64): code, payload and run field. Dead slots get zero lengths.
+    """Per-symbol (chunk_values (B, S, 3) int32, chunk_lens (B, S, 3)
+    int32): code, payload and run field. Dead slots get zero lengths.
 
     run_lengths/run_codes: canonical run table (cfg.coded_runs); None =
     the fixed run_bits-wide run field."""
-    values, runs, live = symbols.values, symbols.runs, symbols.is_sym
-    values = values.to(torch.int64)
-    runs = runs.to(torch.int64)
+    i32 = torch.int32
+    values = symbols.values.to(i32)
+    runs = symbols.runs.to(i32)
+    live = symbols.is_sym
     zero = torch.zeros_like(values)
 
     if run_lengths is not None:
-        run_v = run_codes.to(torch.int64)[runs]
-        run_l = torch.where(live, run_lengths.to(torch.int64)[runs], 0)
+        run_v = run_codes.to(i32)[runs]
+        run_l = torch.where(live, run_lengths.to(i32)[runs], 0)
     else:
         run_v = runs
         run_l = torch.where(live, run_bits, zero)
 
     if mode == "category":
-        cats = hf.category_of(values).to(torch.int64)
-        a_v = cat_codes.to(torch.int64)[cats]
-        a_l = cat_lengths.to(torch.int64)[cats]
-        b_v = hf.category_extra_bits(values, cats)
+        cats = hf.category_of(values)
+        a_v = cat_codes.to(i32)[cats]
+        a_l = cat_lengths.to(i32)[cats]
+        b_v = hf.category_extra_bits(values, cats).to(i32)
         b_l = cats
     elif mode == "direct":
         n_alpha = val_lengths.shape[0] - 1  # last entry is ESC
         shifted = values - vmin
         in_range = (shifted >= 0) & (shifted < n_alpha)
         idx = torch.where(in_range, shifted, n_alpha)
-        a_v = val_codes.to(torch.int64)[idx]
-        a_l = val_lengths.to(torch.int64)[idx]
+        a_v = val_codes.to(i32)[idx]
+        a_l = val_lengths.to(i32)[idx]
         b_v = values & 0xFFFF
         b_l = torch.where(in_range, 0, 16 + zero)
     elif mode == "none":

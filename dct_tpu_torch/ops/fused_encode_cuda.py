@@ -4,9 +4,11 @@ counterpart of ``dct_tpu.ops.fused_encode_pallas.encode_stripes_fused``.
 Pixels go in, packed stripe units, stripe bit lengths and per-block bit
 lengths come out. The plain version is the staged composition the
 reference's staged path runs — transform, DC prediction, positional RLE,
-symbol chunks, chunk packing (models/codec.py encode_pack) — and it covers
-every entropy mode; the kernel takes 8x8 blocks in category mode, with
-fixed or coded runs, adaptive quantization and DC prediction on or off.
+symbol chunks, the plain chunk packer (models/codec.py encode_pack_plain)
+— and it covers every entropy mode. The kernel takes 8x8 blocks in
+category mode, with fixed or coded runs, adaptive quantization and DC
+prediction on or off; the codec sends every other config on the card
+through the staged path with kernel E (models/codec.py fused_kernel_ok).
 """
 
 from __future__ import annotations
@@ -36,8 +38,8 @@ def encode_stripes_plain(
     zz = transform.encode_blocks(pixels, cfg, ops, adaptive_scale)
     if cfg.dc_prediction:
         zz = codec.dc_predict(zz, n_stripes)
-    return codec.encode_pack(rle.rle_encode_positional(zz), cfg, n_stripes,
-                             ops)
+    return codec.encode_pack_plain(rle.rle_encode_positional(zz), cfg,
+                                   n_stripes, ops)
 
 
 def encode_stripes_fused(

@@ -81,6 +81,17 @@ def run_histogram_masked(runs: torch.Tensor, live: torch.Tensor) -> torch.Tensor
     return _masked_bincount(runs, live, RUN_ALPHABET)
 
 
+def value_histogram_masked(values: torch.Tensor, live: torch.Tensor,
+                           vmin: int, vmax: int) -> torch.Tensor:
+    """(vmax - vmin + 2,) int32 histogram of live symbol values over the
+    alphabet [vmin, vmax] (direct mode); out-of-range values land in the
+    final bin (the ESC symbol)."""
+    n_bins = vmax - vmin + 1
+    shifted = values.to(torch.int64) - vmin
+    idx = torch.where((shifted >= 0) & (shifted < n_bins), shifted, n_bins)
+    return _masked_bincount(idx, live, n_bins + 1)
+
+
 # ---------------------------------------------------------------------------
 # Host-side table construction (tiny + serial; deterministic)
 # ---------------------------------------------------------------------------

@@ -100,27 +100,25 @@ def decode_mismatches(got, want, data: bytes):
 
 def indexed_stream(zz: torch.Tensor, cfg: CodecConfig, n_stripes: int):
     """Pack (NB, n2) zigzag coefficients into an indexed stream with the
-    plain staged packer, in cfg's mode (category, direct or none, fixed or
-    coded runs), with canonical tables built from the coefficients'
-    histograms: -> (stripe bytes, (NB,) uint16 block bits, table,
-    run_table). Covers the modes the card's encode path does not."""
+    plain staged packer (codec.encode_pack_plain), in cfg's mode
+    (category, direct or none, fixed or coded runs), with canonical tables
+    built from the coefficients' histograms: -> (stripe bytes, (NB,)
+    uint16 block bits, table, run_table). A stream from plain code only,
+    for holding kernel D to it."""
     sym = rle.rle_encode_positional(zz)
     mode = cfg.huffman_mode if cfg.use_huffman else "none"
     table = None
     if mode == "category":
         table = hf.CanonicalTable.from_frequencies(
             hf.category_histogram_masked(sym.values, sym.is_sym).cpu().numpy())
-    elif mode == "direct":  # alphabet [vmin, -vmin] + ESC
-        n_alpha = 1 - 2 * codec.DIRECT_VMIN
-        v = sym.values.to(torch.int64) - codec.DIRECT_VMIN
-        idx = torch.where((v >= 0) & (v < n_alpha), v, n_alpha)
-        idx = torch.where(sym.is_sym, idx, n_alpha + 1).reshape(-1)
-        hist = torch.bincount(idx, minlength=n_alpha + 2)[:n_alpha + 1]
-        table = hf.CanonicalTable.from_frequencies(hist.cpu().numpy())
+    elif mode == "direct":
+        table = hf.CanonicalTable.from_frequencies(hf.value_histogram_masked(
+            sym.values, sym.is_sym, codec.DIRECT_VMIN,
+            -codec.DIRECT_VMIN).cpu().numpy())
     run_table = codec._build_run_table(
         cfg, hf.run_histogram_masked(sym.runs, sym.is_sym).cpu().numpy())
     ops = dct_tables.build(cfg, device=zz.device).with_tables(table, run_table)
-    packed, block_bits = codec.encode_pack(sym, cfg, n_stripes, ops)
+    packed, block_bits = codec.encode_pack_plain(sym, cfg, n_stripes, ops)
     stripes = bs.stripes_to_bytes(bs.fetch_packed(packed))
     return (stripes, block_bits.cpu().numpy().reshape(-1).astype(np.uint16),
             table, run_table)

@@ -32,8 +32,10 @@ PORT_MODULES = (
     "dct_tpu_torch.ops.fused_encode_cuda",
     "dct_tpu_torch.ops.entropy_decode",
     "dct_tpu_torch.ops.entropy_decode_cuda",
+    "dct_tpu_torch.ops.pack_cuda",
     "dct_tpu_torch.ops._build",
     "dct_tpu_torch.models.codec",
+    "dct_tpu_torch.models.video",
     "dct_tpu_torch.utils.image_io",
     "dct_tpu_torch.testing",
 )

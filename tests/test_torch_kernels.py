@@ -1,6 +1,7 @@
 """The port's CUDA kernels (A: encode transform, B: fused stripe encode,
-C: decode transform, D: entropy decode of indexed containers) against their
-plain PyTorch versions.
+C: decode transform, D: entropy decode of indexed containers, E: chunk
+packer) against their plain PyTorch versions, and the codecs on the card
+against the CPU path.
 
 These need an NVIDIA GPU and skip without one; run them on the card with
 ``python -m pytest --noconftest tests/test_torch_kernels.py -q`` (the
@@ -17,7 +18,9 @@ card here with TF32 off, so their float32 products stay float32. Kernel D
 is held bit-exact against its plain version and the host decoder in every
 mode, and against its plain version on random bits under a random index;
 the codec's indexed decode on the card gives exactly the pixels of the host
-route on the same container.
+route on the same container. Kernel E is held bit-exact (units and stripe
+bits) against its plain version, and the staged encode path and the video
+codec on the card give the CPU path's bytes.
 
 This file imports only the port: the machine with the card has no jax.
 """
@@ -33,7 +36,8 @@ from dct_tpu_torch import container as cont
 from dct_tpu_torch.models import codec
 from dct_tpu_torch.ops import _build, blocks, bitstream as bs, rle
 from dct_tpu_torch.ops import entropy_decode as ed
-from dct_tpu_torch.ops import entropy_decode_cuda, fused_encode_cuda
+from dct_tpu_torch.models import video
+from dct_tpu_torch.ops import entropy_decode_cuda, fused_encode_cuda, pack_cuda
 from dct_tpu_torch.ops import huffman as hf
 from dct_tpu_torch.ops import transform, transform_cuda
 from dct_tpu_torch.utils import image_io
@@ -114,8 +118,8 @@ def test_stripe_kernel_matches_staged_pipeline(cuda, image, case):
     zz = transform_cuda.encode_blocks_kernel(px, cfg, ops, scale)
     if cfg.dc_prediction:
         zz = codec.dc_predict(zz, n_stripes)
-    ref, ref_bbits = codec.encode_pack(rle.rle_encode_positional(zz), cfg,
-                                       n_stripes, ops)
+    ref, ref_bbits = codec.encode_pack_plain(rle.rle_encode_positional(zz),
+                                             cfg, n_stripes, ops)
     got_h, ref_h = bs.fetch_packed(packed), bs.fetch_packed(ref)
     np.testing.assert_array_equal(got_h.bit_lengths, ref_h.bit_lengths)
     np.testing.assert_array_equal(got_h.units, ref_h.units)
@@ -289,3 +293,140 @@ def test_entropy_decode_kernel_refuses_what_it_does_not_take(cuda):
     with pytest.raises(ValueError):
         entropy_decode_cuda.decode_blocks_kernel(
             **dict(ops, block_start=ops["block_start"].cpu()))
+
+
+# capacity cut: None = the worst case (every chunk fits); an int gives an
+# odd capacity with one stripe filled exactly to it, one past it
+PACK_CASES = {"worst_capacity": None, "full_and_past_capacity": -7}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(PACK_CASES))
+def test_pack_kernel_matches_plain(cuda, case):
+    """Random chunks: 60 % dead (junk values), stripes live over uneven
+    lengths, an all-dead stripe."""
+    cut = PACK_CASES[case]
+    rng = np.random.default_rng(3)
+    s, c = 24, 700
+    cl = rng.integers(1, 17, (s, c, 3))
+    cl[rng.random(cl.shape) < 0.6] = 0
+    for st in range(s):
+        cl[st, c * (st + 1) // s:] = 0
+    cl[0] = 0
+    cap = c * 3 if cut is None else c * 3 + cut
+    if cut is not None:
+        cl[1] = 16
+        cl[2] = 0
+        cl[2].reshape(-1)[:cap] = 16
+    cv = rng.integers(0, 1 << 16, cl.shape)
+    cv = np.where(cl > 0, cv & ((1 << cl) - 1), cv)
+    cv_h, cl_h = (torch.from_numpy(a).to(torch.int32) for a in (cv, cl))
+    before = _build.LAUNCHES["pack_chunks"]
+    got = pack_cuda.pack_chunks_kernel(cv_h.to(cuda), cl_h.to(cuda), cap)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["pack_chunks"] == before + 1
+    assert got.units.shape == (s, cap) and got.bit_lengths.dtype == torch.int32
+    want = bs.pack_chunks(cv_h, cl_h, cap)
+    np.testing.assert_array_equal(got.bit_lengths.cpu(), want.bit_lengths)
+    np.testing.assert_array_equal(
+        got.units.cpu().to(torch.int32) & 0xFFFF, want.units)
+
+
+STAGED_CASES = {
+    "n4_category": dict(block_size=4, quality=50),
+    "n4_direct_runs": dict(block_size=4, huffman_mode="direct",
+                           coded_runs=True),
+    "n4_none": dict(block_size=4, use_huffman=False),
+    "n8_direct_q90": dict(quality=90, huffman_mode="direct"),
+    "n8_none_adaptive_dc": dict(use_huffman=False, adaptive=True,
+                                dc_prediction=True),
+    "n2_category_runs": dict(block_size=2, coded_runs=True),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(STAGED_CASES))
+def test_staged_pack_matches_plain_on_symbol_chunks(cuda, image, case):
+    """Kernel E on the int32 chunks symbol_chunks gives, against the plain
+    staged pipeline on the same card tensors."""
+    cfg = CodecConfig(**STAGED_CASES[case])
+    img = codec.pad_plane_for_encode(torch.from_numpy(image).to(cuda), cfg)
+    ops = tables.build(cfg, device=cuda)
+    sym, _, hist, run_hist = codec.encode_analyze(img, cfg, ops)
+    ops = ops.with_tables(codec._build_table(cfg, hist.cpu().numpy()),
+                          codec._build_run_table(cfg, run_hist.cpu().numpy()))
+    n_stripes = img.shape[0] // cfg.block_size
+    got, got_bb = codec.pack_frames(sym, cfg, (), n_stripes, ops)
+    want, want_bb = codec.encode_pack_plain(sym, cfg, n_stripes, ops)
+    g, w = bs.fetch_packed(got), bs.fetch_packed(want)
+    np.testing.assert_array_equal(g.bit_lengths, w.bit_lengths)
+    np.testing.assert_array_equal(g.units, w.units)
+    np.testing.assert_array_equal(got_bb.cpu(), want_bb.cpu())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(STAGED_CASES))
+def test_staged_codec_on_cuda_matches_cpu(cuda, image, case):
+    """Configs kernel B does not take encode through kernels A and E."""
+    cfg = CodecConfig(**STAGED_CASES[case])
+    assert not codec.fused_kernel_ok(cfg)
+    _build.reset_launch_counts()
+    data = codec.ImageCodec(cfg, device=cuda).encode(image)
+    assert _build.LAUNCHES["pack_chunks"] == 1
+    assert _build.LAUNCHES["encode_blocks"] == 1
+    assert _build.LAUNCHES["encode_stripes"] == 0
+    assert data == codec.ImageCodec(cfg, device="cpu").encode(image)
+    rec = codec.ImageCodec(cfg, device=cuda).decode_to_device(data)
+    assert rec.device.type == "cuda"
+    ref = codec.ImageCodec(cfg, device="cpu").decode(data)
+    assert np.abs(rec.cpu().numpy().astype(int) - ref).max() <= 1
+
+
+@pytest.mark.cuda
+def test_pack_kernel_refuses_what_it_does_not_take(cuda):
+    cv = torch.zeros(2, 8, 3, dtype=torch.int32, device=cuda)
+    with pytest.raises(TypeError):
+        pack_cuda.pack_chunks_kernel(cv.float(), cv, 64)
+    with pytest.raises(TypeError):
+        pack_cuda.pack_chunks_kernel(cv, cv.to(torch.int64), 64)
+    with pytest.raises(ValueError):
+        pack_cuda.pack_chunks_kernel(cv, cv.reshape(2, 24), 64)
+    with pytest.raises(ValueError):
+        pack_cuda.pack_chunks_kernel(cv, cv.transpose(0, 1), 64)
+    with pytest.raises(ValueError):
+        pack_cuda.pack_chunks_kernel(cv, cv.cpu(), 64)
+
+
+VIDEO_CASES = {
+    "dynamic_q50": dict(quality=50),
+    "direct_q90": dict(quality=90, huffman_mode="direct"),
+    "n4_adaptive_runs": dict(block_size=4, adaptive=True, coded_runs=True),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chunk_frames", (None, 2))
+@pytest.mark.parametrize("case", sorted(VIDEO_CASES))
+def test_video_on_cuda_matches_cpu(cuda, case, chunk_frames):
+    cfg = CodecConfig(**VIDEO_CASES[case])
+    frames = np.stack([image_io.synthetic_image(72, 136, "photo", seed=s)
+                       for s in range(5)])
+    vc = video.VideoCodec(cfg, chunk_frames=chunk_frames, device=cuda)
+    _build.reset_launch_counts()
+    streams = vc.encode(frames)
+    if chunk_frames is None:  # one chunk: one analyze, one pack
+        assert _build.LAUNCHES["encode_blocks"] == 1
+        assert _build.LAUNCHES["pack_chunks"] == 1
+        assert _build.LAUNCHES["encode_stripes"] == 0
+    assert streams == video.VideoCodec(cfg, chunk_frames=chunk_frames,
+                                       device="cpu").encode(frames)
+    _build.reset_launch_counts()
+    rec = vc.decode_to_device(streams)
+    assert rec.device.type == "cuda" and rec.shape == frames.shape
+    n_chunks = 1 if chunk_frames is None else 3
+    assert _build.LAUNCHES["decode_blocks"] == n_chunks
+    ref = video.VideoCodec(cfg, device="cpu").decode(streams)
+    assert np.abs(rec.cpu().numpy().astype(int) - ref).max() <= 1
+    one = codec.ImageCodec(cfg, device=cuda)
+    for f, data in enumerate(streams):
+        np.testing.assert_array_equal(rec[f].cpu().numpy(), one.decode(data))
