@@ -6,10 +6,13 @@ Run from the repository root on a machine with a CUDA card and the CUDA
 toolkit. It builds the port's kernels from csrc/ into build/torch_kernels/,
 then:
 
-  1. kernel A (encode transform) against its plain version on 8 frames of
-     1088 x 1920, adaptive quantization off and on;
-  2. kernel C (decode transform) against its plain version on those
-     coefficients;
+  1. kernel A (encode transform) on 8 frames of 1088 x 1920, adaptive
+     quantization off and on: bit-exact against the float32 chain it
+     promises (testing.encode_fma_chain), ties only against its plain
+     version;
+  2. kernel C (decode transform) on those coefficients: against
+     testing.decode_fma_chain (ties only, expected 0 mismatches) and its
+     plain version (ties only);
   3. kernel B (fused stripe encode) against the plain staged pipeline
      (codec.encode_pack_plain) fed kernel A's integers — exactly equal
      units, stripe bits and block bits — at static q50, dynamic-table q50,
@@ -46,7 +49,10 @@ then:
      in "none" mode and in direct mode at q90, then decodes it (decode and
      decode_to_device); kernel E must run and kernel B must not, the
      containers must equal the CPU path's (ties excepted) and the pixels
-     agree with it within 1;
+     agree with it within 1. Then 16x16 blocks at q90 with the decode
+     index (a v2 container): the transforms take the plain float32 route,
+     so one E launch encodes, one D launch decodes, and A, B and C do not
+     run;
  11. video at full width: VideoCodec(cfg, device="cuda") encodes 32 frames
      of 1080p (one chunk: one A and one E launch, no B) at q50 and q90,
      and decodes them (the q90 stack of v2 containers in one D and one C
@@ -67,9 +73,11 @@ the bytes it must move (each input read once, each output written once)
 over 3.35 TB/s and its operations over the H100's peak for their type
 (989 TFLOP/s bf16 for A and B, whose u8 x bf16 products are exact there;
 67 TFLOP/s float32 for C, whose coefficients need float32; D and E do no
-arithmetic worth a bound), computed from this run's inputs. The last line
-is the JSON status; the line before it the card's name and power limit,
-and the one before that the kernel table.
+arithmetic worth a bound), computed from this run's inputs; A's floor on
+the float32 CUDA cores, where it runs, is printed beside it, and so is
+each kernel's launches x (time - bound), the order of the redesign queue.
+The last line is the JSON status; the line before it the card's name and
+power limit, and the one before that the kernel table.
 """
 
 from __future__ import annotations
@@ -173,44 +181,18 @@ def batch_tables(cfg, px, scale, n_stripes, ops):
     return ops.with_tables(table, run_table), table, run_table
 
 
-def coefficients(data: bytes, cfg):
-    """Entropy-decoded (NB, n2) zigzag coefficients of a gray container
-    (host decoder, any mode), DC prediction undone."""
-    import torch
-    from dct_tpu_torch.models import codec
-
-    p = codec.cont.deserialize(data).planes[0]
-    bh, bw, n_stripes = codec._padded_grid(p.height, p.width, cfg)
-    mode = cfg.huffman_mode if cfg.use_huffman else "none"
-    table = codec.hf.CanonicalTable(p.table_lengths) if mode != "none" else None
-    run_table = (codec.hf.CanonicalTable(p.run_table_lengths)
-                 if cfg.coded_runs else None)
-    zz = codec._decode_stripes(p, cfg, table, mode, n_stripes,
-                               bh // n_stripes * bw, run_table)
-    if cfg.dc_prediction:
-        zz = codec.dc_reconstruct(torch.from_numpy(zz), n_stripes).numpy()
-    return zz
-
-
-def same_or_ties(name: str, data: bytes, cpu_data: bytes, cfg, image) -> None:
-    """A card container against the CPU path's for the same (non-adaptive)
-    image: equal, or every differing coefficient is an encode tie."""
-    import torch
+def same_or_ties(name: str, data: bytes, cpu_data: bytes, image) -> None:
+    """A card container against the CPU path's for the same image: equal,
+    or every differing coefficient is an encode tie."""
     from dct_tpu_torch import testing
-    from dct_tpu_torch.models import codec
-    from dct_tpu_torch.ops import blocks
 
     same = data == cpu_data
     log(f"{name}: {len(data)} B, container v{data[4]}, equal to CPU path: "
         f"{same}")
     if not same:
-        zz = [coefficients(c, cfg) for c in (data, cpu_data)]
-        px = blocks.image_to_blocks(codec.pad_plane_for_encode(
-            torch.from_numpy(image), cfg), cfg.block_size).numpy()
-        tie_check(f"{name} coefficients", torch.from_numpy(zz[0]),
-                  torch.from_numpy(zz[1]),
-                  lambda b: testing.encode_values_f64(px[b], cfg),
-                  testing.ENCODE_TIE_TOL)
+        n_mis, n_bad = testing.encode_mismatches(data, cpu_data, image)
+        log(f"{name} coefficients: {n_mis} mismatches ({n_bad} non-ties)")
+        check(n_bad == 0, f"{name}: non-tie mismatches")
 
 
 def main() -> int:
@@ -252,6 +234,13 @@ def main() -> int:
         spills = sum(int(w) for w in re.findall(r"(\d+) bytes spill", text))
         log(f"  {name}: {len(regs)} kernels, registers <= {max(regs)}, "
             f"spill bytes {spills}")
+        if name == "transform":  # kernels A and C, one line a template
+            for kind, n2, ad, spill, used in re.findall(
+                    r"entry function '\w*?(encode|decode)_blocks_kernelILi"
+                    r"(\d+)ELb(\d).*?(\d+) bytes spill stores.*?Used (\d+) "
+                    r"registers", text, re.S):
+                log(f"    {kind} n2={n2} adaptive={ad}: {used} registers, "
+                    f"{spill} bytes spill stores")
 
     static = CodecConfig(quality=50, static_tables=True, use_pallas=True)
     dynamic = CodecConfig(quality=50)
@@ -283,8 +272,7 @@ def main() -> int:
     for name, cfg in (("static", static), ("dynamic", dynamic)):
         data = containers[name]
         same_or_ties(f"e2e {name}", data,
-                     codec.ImageCodec(cfg, device="cpu").encode(frame), cfg,
-                     frame)
+                     codec.ImageCodec(cfg, device="cpu").encode(frame), frame)
         ref = codec.ImageCodec(cfg, device="cpu").decode(data)
         rec, rec_d = recs[name]
         check(rec_d.device.type == "cuda", "decode_to_device left the card")
@@ -307,6 +295,11 @@ def main() -> int:
         recip = None if scale is None else transform.reciprocal_scale(scale)
         recip_h = None if recip is None else recip.cpu().numpy()
         got = transform_cuda.encode_blocks_kernel(px, cfg, ops, scale)
+        n_chain = int((got != testing.encode_fma_chain(px, cfg, ops,
+                                                       recip)).sum())
+        log(f"A adaptive={cfg.adaptive}: {n_chain} mismatches of "
+            f"{got.numel()} against encode_fma_chain")
+        check(n_chain == 0, "A differs from the float32 chain it promises")
         want = transform.encode_blocks(px, cfg, ops, scale)
         res_a = tie_check(
             f"A adaptive={cfg.adaptive}", got, want,
@@ -317,11 +310,16 @@ def main() -> int:
         dref = transform.decode_blocks(got, cfg, ops, scale)
         zz_h = got.cpu().numpy()
         scale_h = None if scale is None else scale.cpu().numpy()
-        res_c = tie_check(
-            f"C adaptive={cfg.adaptive}", dec, dref,
-            lambda b: testing.decode_values_f64(
-                zz_h[b], cfg, None if scale_h is None else scale_h[b]),
-            testing.DECODE_TIE_TOL)
+
+        def dvals(b):
+            return testing.decode_values_f64(
+                zz_h[b], cfg, None if scale_h is None else scale_h[b])
+
+        tie_check(f"C adaptive={cfg.adaptive} vs decode_fma_chain", dec,
+                  testing.decode_fma_chain(got, cfg, ops, scale), dvals,
+                  testing.DECODE_TIE_TOL)
+        res_c = tie_check(f"C adaptive={cfg.adaptive}", dec, dref, dvals,
+                          testing.DECODE_TIE_TOL)
         if cfg is static:
             results["encode_blocks"], results["decode_blocks"] = res_a, res_c
             zz_main = got
@@ -351,6 +349,7 @@ def main() -> int:
 
     # ---- 5. times --------------------------------------------------------
     ops = tables.build(static, device=dev)
+    zz_main16 = zz_main.to(torch.int16)
     times = {
         "encode_blocks": (
             cuda_ms(lambda: transform_cuda.encode_blocks_kernel(
@@ -361,14 +360,21 @@ def main() -> int:
                 px, static, s_all, ops), 20),
             cuda_ms(lambda: fused_encode_cuda.encode_stripes_plain(
                 px, static, s_all, ops), 5)),
+        # int16, the coefficients' type on the decode path (kernel D and
+        # the host decoder give it)
         "decode_blocks": (
             cuda_ms(lambda: transform_cuda.decode_blocks_kernel(
-                zz_main, static, ops), 20),
-            cuda_ms(lambda: transform.decode_blocks(zz_main, static, ops), 20)),
+                zz_main16, static, ops), 20),
+            cuda_ms(lambda: transform.decode_blocks(zz_main16, static, ops),
+                    20)),
     }
     for k, (ms, plain) in times.items():
         log(f"time {k}: kernel {ms:.4f} ms, plain {plain:.4f} ms "
             f"(8 x {H}x{W})")
+    c32_ms = cuda_ms(lambda: transform_cuda.decode_blocks_kernel(
+        zz_main, static, ops), 20)
+    log(f"time decode_blocks on A's int32 coefficients (the wrapper narrows "
+        f"them to int16 first): {c32_ms:.4f} ms")
     step_ms = cuda_ms(lambda: codec.encode_step(frames_d, static, n_stripes),
                       20)
     log(f"encode_step 8 x {H}x{W} static q50: {step_ms:.4f} ms = "
@@ -384,7 +390,7 @@ def main() -> int:
         f"({mpx / dec_ms:.1f} Mpix/s), decode_to_device {dev_ms:.3f} ms "
         f"({mpx / dev_ms:.1f} Mpix/s)")
     # where one frame's decode and encode go (host clock, synchronised)
-    zz1 = coefficients(containers["static"], static)
+    zz1 = testing.coefficients(containers["static"])
     zz1_d = torch.from_numpy(zz1).to(dev)
     bh1, bw1, ns1 = codec._padded_grid(*frame.shape, static)
     rec_d = codec.blk.blocks_to_image(transform_cuda.decode_blocks_kernel(
@@ -393,7 +399,7 @@ def main() -> int:
         torch.from_numpy(frame).to(dev), static), 8)
     stages = {
         "parse+entropy decode": host_ms(
-            lambda: coefficients(containers["static"], static), 10),
+            lambda: testing.coefficients(containers["static"]), 10),
         "upload coefficients": host_ms(
             lambda: (zz1_d.copy_(torch.from_numpy(zz1)),
                      torch.cuda.synchronize()), 10),
@@ -422,7 +428,7 @@ def main() -> int:
               "entropy_decode"):
         check(launches90[k] > 0, f"{k} not launched on the q90 main path")
     same_or_ties("e2e q90", data90,
-                 codec.ImageCodec(q90, device="cpu").encode(frame), q90, frame)
+                 codec.ImageCodec(q90, device="cpu").encode(frame), frame)
 
     def host_route(data):
         """The same container through the host decoder, then kernel C."""
@@ -514,7 +520,7 @@ def main() -> int:
     ops90 = codec.indexed_operands(p90.stripes, p90.block_bits, table90,
                                      None, "category", 64, dev)
     zz90 = entropy_decode_cuda.decode_blocks_kernel(**ops90)
-    zz90_h = coefficients(data90, q90)
+    zz90_h = testing.coefficients(data90)
     ops_q90 = tables.build(q90, device=dev)
     stages90 = {
         "parse": host_ms(lambda: cont.deserialize(data90), 10),
@@ -529,7 +535,7 @@ def main() -> int:
             zz90, q90, ops_q90), 20),
         "download pixels": host_ms(lambda: rec90_d.cpu(), 10),
         "host route: parse+entropy decode": host_ms(
-            lambda: coefficients(data90, q90), 10),
+            lambda: testing.coefficients(data90), 10),
         "host route: upload coefficients": host_ms(
             lambda: (torch.from_numpy(zz90_h).to(dev),
                      torch.cuda.synchronize()), 10),
@@ -607,8 +613,7 @@ def main() -> int:
         check(counted["pack_chunks"] > 0 and counted["encode_stripes"] == 0,
               f"{name}: the staged path did not run kernel E alone")
         same_or_ties(f"e2e {name}", data,
-                     codec.ImageCodec(cfg, device="cpu").encode(frame), cfg,
-                     frame)
+                     codec.ImageCodec(cfg, device="cpu").encode(frame), frame)
         check(rec_d.device.type == "cuda", "decode_to_device left the card")
         check(np.array_equal(rec, rec_d.cpu().numpy()),
               f"{name}: decode and decode_to_device disagree")
@@ -623,6 +628,47 @@ def main() -> int:
                              torch.cuda.synchronize()), 10)}
         log(f"ImageCodec 1080p {name} (v{data[4]}): " + ", ".join(
             f"{k} {v:.3f} ms ({mpx / v:.1f} Mpix/s)" for k, v in s_ms.items()))
+    # 16x16 blocks: no kernel takes their transforms (codec.encode_transform
+    # and decode_transform run the float32 products), kernels E and D do
+    cfg16 = CodecConfig(block_size=16, quality=90, decode_index=True)
+    gpu16 = codec.ImageCodec(cfg16, device=dev)
+    _build.reset_launch_counts()
+    data16 = gpu16.encode(frame)
+    torch.cuda.synchronize()
+    enc16 = dict(_build.LAUNCHES)
+    _build.reset_launch_counts()
+    rec16_d = gpu16.decode_to_device(data16)
+    torch.cuda.synchronize()
+    dec16 = dict(_build.LAUNCHES)
+    main_runs += [enc16, dec16]
+    log(f"main path 16x16 q90 launches: encode {enc16}, decode_to_device "
+        f"{dec16}")
+    check(data16[4] == 2, f"the 16x16 q90 container is v{data16[4]}, not v2")
+    check(enc16["pack_chunks"] == 1 and dec16["entropy_decode"] == 1
+          and enc16["entropy_decode"] == dec16["pack_chunks"] == 0,
+          "16x16: not one E launch to encode and one D launch to decode")
+    check(all(enc16[k] == dec16[k] == 0 for k in
+              ("encode_blocks", "encode_stripes", "decode_blocks")),
+          "16x16: a transform kernel or kernel B ran")
+    same_or_ties("e2e 16x16 q90", data16,
+                 codec.ImageCodec(cfg16, device="cpu").encode(frame), frame)
+    rec16 = gpu16.decode(data16)
+    check(rec16_d.device.type == "cuda"
+          and np.array_equal(rec16, rec16_d.cpu().numpy()),
+          "16x16: decode and decode_to_device disagree")
+    err = int(np.abs(rec16.astype(int) - codec.ImageCodec(
+        cfg16, device="cpu").decode(data16)).max())
+    mse = float(np.mean((rec16.astype(np.float64) - frame) ** 2))
+    log(f"e2e 16x16 q90: decode max |diff| vs CPU {err}, PSNR "
+        f"{10 * np.log10(255.0 ** 2 / mse):.2f} dB")
+    check(err <= 1, f"e2e 16x16 q90: decoded pixels differ by {err}")
+    s_ms = {"encode": host_ms(lambda: gpu16.encode(frame), 10),
+            "decode": host_ms(lambda: gpu16.decode(data16), 10),
+            "decode_to_device": host_ms(
+                lambda: (gpu16.decode_to_device(data16),
+                         torch.cuda.synchronize()), 10)}
+    log(f"ImageCodec 1080p 16x16 q90 (v{data16[4]}): " + ", ".join(
+        f"{k} {v:.3f} ms ({mpx / v:.1f} Mpix/s)" for k, v in s_ms.items()))
 
     # ---- 11. video at full width -----------------------------------------
     vframes = np.stack([image_io.synthetic_image(VH, VW, "photo", seed=s)
@@ -683,7 +729,7 @@ def main() -> int:
         two_cpu = video.VideoCodec(cfg, device="cpu").encode(vframes[:2])
         for i in range(2):
             same_or_ties(f"video {name} 2-frame stack, frame {i}", two[i],
-                         two_cpu[i], cfg, vframes[i])
+                         two_cpu[i], vframes[i])
         rec_cpu = video.VideoCodec(cfg, device="cpu").decode(two)
         err = int(np.abs(rec_cpu.astype(int) - video.VideoCodec(
             cfg, device=dev).decode(two)).max())
@@ -799,13 +845,18 @@ def main() -> int:
             2 * e_inputs[0].numel() * e_inputs[0].element_size()
             + s_all * (e_inputs[2] * 2 + 4)),
     }
+    counts = {k: sum(run[k] for run in main_runs) for k in sources}
     for k, (b_ms, by) in bounds.items():
         log(f"bound {k}: {b_ms:.5f} ms ({by}); kernel at "
-            f"{100 * b_ms / times[k][0]:.1f} % of it")
+            f"{100 * b_ms / times[k][0]:.1f} % of it; launches x (time - "
+            f"bound) {counts[k] * (times[k][0] - b_ms):.3f} ms")
+    f32_floor = 3 * mm_flops / F32_FLOPS * 1e3  # A runs on the CUDA cores
+    log(f"A's float32 floor {f32_floor:.5f} ms; kernel at "
+        f"{100 * f32_floor / times['encode_blocks'][0]:.1f} % of it")
     table = [
         {"name": k, "route": "cuda", "source": sources[k][0],
          "replaces": sources[k][1],
-         "launches": sum(run[k] for run in main_runs),
+         "launches": counts[k],
          "max_abs_err": results[k][1], "ms": round(times[k][0], 4),
          "plain_ms": round(times[k][1], 4),
          "bound_ms": round(bounds[k][0], 5), "bound_by": bounds[k][1],

@@ -1,8 +1,9 @@
-// The encode transform of one coefficient, shared by kernel A
-// (transform.cu) and kernel B (fused_encode.cu), so that the two give
-// bit-identical integers by construction — the role
-// dct_tpu.ops.transform.split_operand_matmul plays for the reference's
-// Pallas kernels.
+// The encode transform shared by kernel A (transform.cu, a register
+// micro-tile: split_matmul_tile) and kernel B (fused_encode.cu, one
+// coefficient: split_matmul_coeff). Both run the same float32 chain for
+// every coefficient, so the two kernels give bit-identical integers by
+// construction — the role dct_tpu.ops.transform.split_operand_matmul plays
+// for the reference's Pallas kernels.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -32,6 +33,63 @@ __device__ __forceinline__ float split_matmul_coeff(
     a2 = __fmaf_rn(xv, m2[j * N2 + k], a2);
   }
   return __fadd_rn(__fadd_rn(__fadd_rn(a0, a1), a2), bias[k]);
+}
+
+// N consecutive floats from shared memory, four at a time (one LDS.128
+// each): src must be 16-byte aligned and N a multiple of 4.
+template <int N>
+__device__ __forceinline__ void load_f32x4(float (&dst)[N],
+                                           const float* __restrict__ src) {
+  static_assert(N % 4 == 0, "float4 loads");
+#pragma unroll
+  for (int i = 0; i < N; i += 4) {
+    const float4 v = *reinterpret_cast<const float4*>(src + i);
+    dst[i] = v.x;
+    dst[i + 1] = v.y;
+    dst[i + 2] = v.z;
+    dst[i + 3] = v.w;
+  }
+}
+
+// The same transform for an R-block x C-coefficient micro-tile held in
+// registers: y[r][c] is coefficient k0 + c of block r, each by exactly
+// split_matmul_coeff's chain (three accumulators summed in j order,
+// combined left to right, then the bias), so the two give the same bits.
+// xT holds the pixels as float, j-major: pixel j of block r at
+// xT[j * ldx + r]. Per j a thread loads R/4 + 3C/4 float4s for 3RC FMAs.
+// xT + j * ldx and the operator rows at k0 must be 16-byte aligned.
+template <int N2, int R, int C>
+__device__ __forceinline__ void split_matmul_tile(
+    const float* __restrict__ xT, int ldx, const float* __restrict__ m0,
+    const float* __restrict__ m1, const float* __restrict__ m2,
+    const float* __restrict__ bias, int k0, float (&y)[R][C]) {
+  float a0[R][C], a1[R][C], a2[R][C];
+#pragma unroll
+  for (int r = 0; r < R; ++r)
+#pragma unroll
+    for (int c = 0; c < C; ++c) a0[r][c] = a1[r][c] = a2[r][c] = 0.f;
+#pragma unroll 4
+  for (int j = 0; j < N2; ++j) {
+    float x[R], w0[C], w1[C], w2[C];
+    load_f32x4(x, xT + j * ldx);
+    load_f32x4(w0, m0 + j * N2 + k0);
+    load_f32x4(w1, m1 + j * N2 + k0);
+    load_f32x4(w2, m2 + j * N2 + k0);
+#pragma unroll
+    for (int r = 0; r < R; ++r)
+#pragma unroll
+      for (int c = 0; c < C; ++c) {
+        a0[r][c] = __fmaf_rn(x[r], w0[c], a0[r][c]);
+        a1[r][c] = __fmaf_rn(x[r], w1[c], a1[r][c]);
+        a2[r][c] = __fmaf_rn(x[r], w2[c], a2[r][c]);
+      }
+  }
+#pragma unroll
+  for (int r = 0; r < R; ++r)
+#pragma unroll
+    for (int c = 0; c < C; ++c)
+      y[r][c] = __fadd_rn(__fadd_rn(__fadd_rn(a0[r][c], a1[r][c]), a2[r][c]),
+                          bias[k0 + c]);
 }
 
 // C round(): half away from zero. Never rintf (half to even). The

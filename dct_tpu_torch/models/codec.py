@@ -15,8 +15,10 @@ transform (kernel A), RLE, histogram — gives the per-image canonical
 table, then kernel B encodes with it. Every other config (4x4 and 2x2
 blocks, direct and "none" modes) runs the staged path: the analyze pass,
 then symbol chunks packed by kernel E (ops/pack_cuda.py). On the CPU the
-same functions run the plain versions. 16x16 blocks raise on the card
-(kernels A and C do not take them yet).
+same functions run the plain versions. The block transforms go to kernels
+A and C for the block sizes they take; 16x16 blocks run the plain float32
+products on the card (encode_transform, decode_transform), as the
+reference runs them in XLA.
 
 The entry points run on the card: with no ``device`` they take ``cuda``,
 and raise where there is none; ``device="cpu"`` runs the plain versions.
@@ -39,10 +41,7 @@ from dct_tpu_torch.ops import entropy_decode as ed
 from dct_tpu_torch.ops import entropy_decode_cuda, fused_encode_cuda
 from dct_tpu_torch.ops import pack_cuda
 from dct_tpu_torch.ops import huffman as hf
-from dct_tpu_torch.ops import quant, rle, transform
-from dct_tpu_torch.ops.transform_cuda import (
-    decode_blocks_kernel, encode_blocks_kernel,
-)
+from dct_tpu_torch.ops import quant, rle, transform, transform_cuda
 
 DIRECT_VMIN = -255  # direct-mode alphabet [-255, 255] + ESC
 
@@ -98,6 +97,36 @@ def _adaptive(pixels: torch.Tensor, cfg: CodecConfig):
     return codes, quant.scale_from_variance_code(codes)
 
 
+def encode_transform(pixels: torch.Tensor, cfg: CodecConfig,
+                     ops: tables.CodecOperators,
+                     scale: torch.Tensor | None = None) -> torch.Tensor:
+    """(..., B, n2) u8 blocks -> int32 quantized zigzag coefficients on
+    their device: kernel A for the block sizes it takes
+    (transform_cuda.KERNEL_N2), else (16x16 blocks) transform.encode_blocks,
+    whose n2 = 256 branch keeps the reference's explicit K=128 halves.
+    That route is not a kernel and not a fallback: no TPU kernel takes n2 =
+    256, and the reference runs the same products in XLA outside any
+    Pallas kernel. On the card it is torch.matmul in full float32, whatever
+    the caller's TF32 switch; it launches and counts nothing."""
+    if cfg.n2 in transform_cuda.KERNEL_N2:
+        return transform_cuda.encode_blocks_kernel(pixels, cfg, ops, scale)
+    with transform.full_float32():
+        return transform.encode_blocks(pixels, cfg, ops, scale)
+
+
+def decode_transform(zz: torch.Tensor, cfg: CodecConfig,
+                     ops: tables.CodecOperators,
+                     scale: torch.Tensor | None = None) -> torch.Tensor:
+    """(..., B, n2) zigzag coefficients -> u8 pixel blocks on their device:
+    kernel C for the block sizes it takes, else (16x16 blocks)
+    transform.decode_blocks, the reference's float32 XLA product, in full
+    float32 whatever the caller's TF32 switch (see encode_transform)."""
+    if cfg.n2 in transform_cuda.KERNEL_N2:
+        return transform_cuda.decode_blocks_kernel(zz, cfg, ops, scale)
+    with transform.full_float32():
+        return transform.decode_blocks(zz, cfg, ops, scale)
+
+
 def pad_plane_for_encode(plane: torch.Tensor, cfg: CodecConfig) -> torch.Tensor:
     """The canonical encoder padding: (..., H, W) u8 -> (..., bh*n, bw*n),
     edge-replicated to the block grid and then the stripe grid."""
@@ -122,7 +151,7 @@ def encode_analyze(
     lead = image.shape[:-2]
     pixels = blk.image_to_blocks(image, n).reshape(-1, cfg.n2)
     var_codes, scale = _adaptive(pixels, cfg)
-    zz = encode_blocks_kernel(pixels, cfg, ops, scale)
+    zz = encode_transform(pixels, cfg, ops, scale)
     if cfg.dc_prediction:
         frames = int(np.prod(lead, dtype=np.int64))
         zz = dc_predict(zz, frames * (image.shape[-2] // n) // cfg.stripe_rows)
@@ -474,7 +503,7 @@ def decode_planes_device(
             [np.asarray(p.variance_codes, np.uint8) for p in planes])
         ).to(device))
     ops = tables.build(cfg, device=device)
-    pixels = decode_blocks_kernel(zz, cfg, ops, scale)
+    pixels = decode_transform(zz, cfg, ops, scale)
     # rebuild on the (stripe-padded) encoder grid, then crop to true dims
     return blk.blocks_to_image(pixels.reshape(len(planes), -1, cfg.n2),
                                bh * n, bw * n, n)[:, : p0.height, : p0.width]

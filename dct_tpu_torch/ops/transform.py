@@ -17,17 +17,32 @@ torch.round rounds half to even and is never used on coefficients.
 
 On a CUDA tensor the products must run in full float32: decode
 coefficients reach +-2047 (12 bits), which TF32's 10-bit mantissa cannot
-hold. This module sets no backend switch; a caller that runs these plain
-versions on the card turns TF32 off itself (chip_smoke.py and
-tests/test_torch_kernels.py do).
+hold. This module sets no backend switch at import; a caller that runs
+these plain versions on the card turns TF32 off itself (chip_smoke.py and
+tests/test_torch_kernels.py do), or runs them inside full_float32() as the
+codec's 16x16 route does.
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import torch
 
 from dct_tpu_torch.config import CodecConfig
 from dct_tpu_torch.tables import PACKED_N2, CodecOperators
+
+
+@contextlib.contextmanager
+def full_float32():
+    """Float32 matrix products on the card in full float32 (TF32 off) for
+    the block; the caller's switch is restored after it."""
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
 
 
 def round_half_away(x: torch.Tensor) -> torch.Tensor:

@@ -5,7 +5,11 @@
 ``decode_blocks_kernel`` replaces ``decode_blocks_pallas``. For a tensor on
 the CPU each wrapper runs the plain version (ops/transform.py); for a CUDA
 tensor it checks its operands, launches the kernel and counts the launch,
-and never falls back. The kernels take n2 in {4, 16, 64}.
+and never falls back. The kernels take n2 in {4, 16, 64} (KERNEL_N2) and
+raise NotImplementedError for any other: 16x16 blocks (n2 = 256) have no
+TPU kernel either, and the codec sends them to the plain float32 products
+(models/codec.py encode_transform / decode_transform), as the reference
+sends them to XLA.
 """
 
 from __future__ import annotations
@@ -23,8 +27,7 @@ def _check_launch(x: torch.Tensor, cfg: CodecConfig, ops: CodecOperators,
                   dtypes: tuple, what: str) -> None:
     if cfg.n2 not in KERNEL_N2:
         raise NotImplementedError(
-            f"{what} kernel takes n2 in {KERNEL_N2}, got {cfg.n2}: not "
-            "ported yet")
+            f"{what} kernel takes n2 in {KERNEL_N2}, got {cfg.n2}")
     if x.dtype not in dtypes:
         raise TypeError(f"{what}: expected {dtypes}, got {x.dtype}")
     if x.dim() < 2 or x.shape[-1] != cfg.n2:
@@ -40,6 +43,12 @@ def _check_launch(x: torch.Tensor, cfg: CodecConfig, ops: CodecOperators,
                          f"form of n2={cfg.n2}")
 
 
+def _aligned(x: torch.Tensor) -> torch.Tensor:
+    """x, or a copy of it where its data does not start on 16 bytes (the
+    kernels read their input with 16-byte copies)."""
+    return x if x.data_ptr() % 16 == 0 else x.clone()
+
+
 def encode_blocks_kernel(
     pixels: torch.Tensor,
     cfg: CodecConfig,
@@ -51,6 +60,7 @@ def encode_blocks_kernel(
     if pixels.device.type == "cpu":
         return transform.encode_blocks(pixels, cfg, ops, adaptive_scale)
     _check_launch(pixels, cfg, ops, (torch.uint8,), "encode_blocks")
+    pixels = _aligned(pixels)
     n_blocks = pixels.numel() // cfg.n2
     recip = None
     if cfg.adaptive:
@@ -87,7 +97,7 @@ def decode_blocks_kernel(
     if zz.device.type == "cpu":
         return transform.decode_blocks(zz, cfg, ops, adaptive_scale)
     _check_launch(zz, cfg, ops, (torch.int16, torch.int32), "decode_blocks")
-    zz = zz.to(torch.int16)
+    zz = _aligned(zz.to(torch.int16))
     n_blocks = zz.numel() // cfg.n2
     scale = None
     if cfg.adaptive:

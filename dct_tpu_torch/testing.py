@@ -8,6 +8,10 @@ round a value that lies within a few ulp of a .5 boundary to neighbouring
 integers. Such a mismatch is a tie: at most 1 apart, with the float64 value
 within ``tol`` of the boundary. Encode holds ties to ENCODE_TIE_TOL (the
 criterion of tests/test_parity.py), decode to DECODE_TIE_TOL.
+
+Kernels A and C also promise an exact float32 chain for every output
+value; encode_fma_chain and decode_fma_chain compute that chain with torch
+ops on any device, so a kernel can be held to it bit for bit.
 """
 
 from __future__ import annotations
@@ -21,7 +25,7 @@ from dct_tpu_torch.config import CodecConfig
 from dct_tpu_torch.models import codec
 from dct_tpu_torch.ops import bitstream as bs
 from dct_tpu_torch.ops import huffman as hf
-from dct_tpu_torch.ops import rle
+from dct_tpu_torch.ops import rle, transform
 
 ENCODE_TIE_TOL = 1e-6
 DECODE_TIE_TOL = 1e-3
@@ -72,13 +76,11 @@ def tie_mismatches(got, want, values: np.ndarray, tol: float):
     return int(diff.sum()), int(bad.sum())
 
 
-def decode_mismatches(got, want, data: bytes):
-    """(mismatches, non-ties) between two decodes of a gray container's
-    pixels, judged against the float64 values of its coefficients (host
-    decoder, any mode) at DECODE_TIE_TOL."""
+def coefficients(data: bytes) -> np.ndarray:
+    """A gray container's (NB, n2) zigzag coefficients, entropy-decoded on
+    the host (any mode), DC prediction undone."""
     c = cont.deserialize(data)
     p, cfg = c.planes[0], c.config
-    n = cfg.block_size
     bh, bw, n_stripes = codec._padded_grid(p.height, p.width, cfg)
     mode = cfg.huffman_mode if cfg.use_huffman else "none"
     table = hf.CanonicalTable(p.table_lengths) if mode != "none" else None
@@ -88,14 +90,93 @@ def decode_mismatches(got, want, data: bytes):
         p, cfg, table, mode, n_stripes, bh // n_stripes * bw, run_table))
     if cfg.dc_prediction:
         zz = codec.dc_reconstruct(zz, n_stripes)
-    scale = None
-    if cfg.adaptive:
-        scale = codec.quant.scale_from_variance_code(
-            torch.from_numpy(p.variance_codes)).numpy()
+    return zz.numpy()
+
+
+def _scale(p: cont.PlaneData) -> torch.Tensor:
+    return codec.quant.scale_from_variance_code(
+        torch.from_numpy(np.asarray(p.variance_codes, np.uint8)))
+
+
+def encode_mismatches(data: bytes, want: bytes, image: np.ndarray):
+    """(mismatches, non-ties) between the coefficients of two gray
+    containers of the same (H, W) u8 image and config, judged against the
+    float64 values they round from at ENCODE_TIE_TOL."""
+    c = cont.deserialize(want)
+    p, cfg = c.planes[0], c.config
+    px = codec.blk.image_to_blocks(codec.pad_plane_for_encode(
+        torch.from_numpy(np.asarray(image, np.uint8)), cfg),
+        cfg.block_size).reshape(-1, cfg.n2).numpy()
+    recip = (transform.reciprocal_scale(_scale(p)).numpy() if cfg.adaptive
+             else None)
+    return tie_mismatches(coefficients(data), coefficients(want),
+                          encode_values_f64(px, cfg, recip), ENCODE_TIE_TOL)
+
+
+def decode_mismatches(got, want, data: bytes):
+    """(mismatches, non-ties) between two decodes of a gray container's
+    pixels, judged against the float64 values of its coefficients (host
+    decoder, any mode) at DECODE_TIE_TOL."""
+    c = cont.deserialize(data)
+    p, cfg = c.planes[0], c.config
+    n = cfg.block_size
+    bh, bw, _ = codec._padded_grid(p.height, p.width, cfg)
+    scale = _scale(p).numpy() if cfg.adaptive else None
     vals = codec.blk.blocks_to_image(
-        torch.from_numpy(decode_values_f64(zz.numpy(), cfg, scale)),
+        torch.from_numpy(decode_values_f64(coefficients(data), cfg, scale)),
         bh * n, bw * n, n)[: p.height, : p.width].numpy()
     return tie_mismatches(got, want, vals, DECODE_TIE_TOL)
+
+
+def encode_fma_chain(pixels: torch.Tensor, cfg: CodecConfig,
+                     ops: dct_tables.CodecOperators,
+                     recip: torch.Tensor | None = None) -> torch.Tensor:
+    """Kernel A's arithmetic, value by value, on pixels' device: (B, n2) u8
+    blocks -> (B, n2) int32. Per coefficient three float32 accumulators,
+    one per bf16 operator part, each summed over j = 0 .. n2-1 in order,
+    then ((a0 + a1) + a2) + bias, times recip on AC under adaptive
+    quantization (one multiply), rounded half away from zero. The kernel
+    accumulates by FMA; here each step is a multiply and then an add: a u8
+    pixel times a bf16 value is exact in float32, so the two round alike
+    and the emulation is exact. recip: (B,) float32 reciprocal scales, or
+    None."""
+    n2 = cfg.n2
+    x = pixels.reshape(-1, n2).to(torch.float32)
+    parts = [m[:n2, :n2] for m in (ops.m0, ops.m1, ops.m2)]
+    acc = [x.new_zeros(x.shape) for _ in parts]
+    for j in range(n2):
+        xj = x[:, j:j + 1]
+        for a, m in zip(acc, parts):
+            a.add_(xj * m[j])
+    y = (acc[0] + acc[1]) + acc[2] + ops.bias[:, :n2]
+    if recip is not None:
+        y[:, 1:] = y[:, 1:] * recip.reshape(-1, 1).to(torch.float32)
+    return transform.round_half_away(y).to(torch.int32)
+
+
+def decode_fma_chain(zz: torch.Tensor, cfg: CodecConfig,
+                     ops: dct_tables.CodecOperators,
+                     scale: torch.Tensor | None = None) -> torch.Tensor:
+    """Kernel C's arithmetic, value by value, on zz's device: (B, n2)
+    zigzag coefficients -> (B, n2) u8 pixels. z_k is the coefficient as
+    float32 (times the block's scale on AC under adaptive quantization, one
+    multiply), y = fma(z_k, M[k, j], y) over k = 0 .. n2-1 from 0, then
+    y + 128 rounded half away from zero and clamped to [0, 255]. Each FMA
+    is taken as a float64 product and sum rounded to float32: that is the
+    FMA's single rounding wherever the float64 sum is exact, which is all
+    but pathological cases (a mismatch there is still a decode tie).
+    scale: (B,) adaptive scales, or None."""
+    n2 = cfg.n2
+    z = zz.reshape(-1, n2).to(torch.float32)
+    if scale is not None:
+        z[:, 1:] = z[:, 1:] * scale.reshape(-1, 1).to(torch.float32)
+    m = ops.m_dec[:n2, :n2].to(torch.float64)
+    z64 = z.to(torch.float64)
+    y = z.new_zeros(z.shape)
+    for k in range(n2):
+        y = (y.to(torch.float64) + z64[:, k:k + 1] * m[k]).to(torch.float32)
+    p = transform.round_half_away(y + 128.0)
+    return torch.clamp(p, 0.0, 255.0).to(torch.uint8)
 
 
 def indexed_stream(zz: torch.Tensor, cfg: CodecConfig, n_stripes: int):

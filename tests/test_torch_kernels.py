@@ -9,12 +9,16 @@ suite's conftest.py imports jax). Shapes are small; the full-size
 comparison at 8 x 1088 x 1920 is chip_smoke.py's.
 
 Tolerances: kernel B is held bit-exact against the plain staged pipeline
-fed kernel A's integers (A and B share one device function). A and C sum
-their float32 products in another order than the plain version's matrix
-product, so their integers may differ at ties only: at most 1 apart, where
-the float64 value lies within 1e-6 (encode, tests/test_parity.py's
-criterion) or 1e-3 (decode) of a .5 boundary. The plain versions run on the
-card here with TF32 off, so their float32 products stay float32. Kernel D
+fed kernel A's integers (A and B share one device function). A and C are
+held bit-exact against the float32 chains they promise
+(dct_tpu_torch.testing encode_fma_chain / decode_fma_chain), at every
+block count; they sum their float32 products in another order than the
+plain version's matrix product, so against it their integers may differ
+at ties only: at most 1 apart, where the float64 value lies within 1e-6
+(encode, tests/test_parity.py's criterion) or 1e-3 (decode) of a .5
+boundary. The plain versions run on the card here with TF32 off, so their
+float32 products stay float32; 16x16 blocks, which no kernel takes, are
+decoded once more with TF32 on, which the codec's route must override. Kernel D
 is held bit-exact against its plain version and the host decoder in every
 mode, and against its plain version on random bits under a random index;
 the codec's indexed decode on the card gives exactly the pixels of the host
@@ -90,6 +94,140 @@ def test_encode_and_decode_kernels_match_plain(cuda, image, n, adaptive):
     n_mis, n_bad = testing.tie_mismatches(dec.cpu(), ref, dvals,
                                           testing.DECODE_TIE_TOL)
     assert n_bad == 0 and n_mis <= ref.numel() // 1000
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", (2, 4, 8))
+@pytest.mark.parametrize("adaptive", (False, True))
+def test_transform_kernels_equal_the_fma_chains(cuda, image, n, adaptive):
+    cfg = CodecConfig(block_size=n, quality=50, adaptive=adaptive)
+    px, scale = _blocks_and_scale(image, cfg, cuda)
+    px = px.reshape(-1, cfg.n2)
+    ops_d, ops_h = tables.build(cfg, device=cuda), tables.build(cfg)
+    scale_h = None if scale is None else scale.cpu()
+    recip = None if scale is None else transform.reciprocal_scale(scale_h)
+    got = transform_cuda.encode_blocks_kernel(px, cfg, ops_d, scale)
+    np.testing.assert_array_equal(
+        got.cpu().numpy(),
+        testing.encode_fma_chain(px.cpu(), cfg, ops_h, recip).numpy())
+    dec = transform_cuda.decode_blocks_kernel(got, cfg, ops_d, scale)
+    np.testing.assert_array_equal(
+        dec.cpu().numpy(),
+        testing.decode_fma_chain(got.cpu(), cfg, ops_h, scale_h).numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", (2, 4, 8))
+@pytest.mark.parametrize("n_blocks", (0, 1, 4099, 40003))
+def test_transform_kernels_on_ragged_batches(cuda, n, n_blocks):
+    """Block counts that fill no tile (0, 1), end in a part tile (4099 is
+    no multiple of any tile or micro-tile), and hand every CTA several
+    tiles (40003 at n2 = 64); the input starts one block into its buffer,
+    which at n2 = 4 is off the 16-byte grid of the kernels' copies."""
+    cfg = CodecConfig(block_size=n, quality=70, adaptive=True)
+    rng = np.random.default_rng(n_blocks + n)
+    buf = torch.from_numpy(rng.integers(0, 256, (n_blocks + 1, cfg.n2),
+                                        dtype=np.uint8))
+    px = buf.to(cuda)[1:]
+    scale = torch.from_numpy(rng.uniform(0.5, 2.0, n_blocks).astype(
+        np.float32))
+    ops_d, ops_h = tables.build(cfg, device=cuda), tables.build(cfg)
+    before = dict(_build.LAUNCHES)
+    got = transform_cuda.encode_blocks_kernel(px, cfg, ops_d, scale.to(cuda))
+    dec = transform_cuda.decode_blocks_kernel(got, cfg, ops_d, scale.to(cuda))
+    torch.cuda.synchronize()
+    launched = int(n_blocks > 0)
+    for k in ("encode_blocks", "decode_blocks"):
+        assert _build.LAUNCHES[k] == before[k] + launched
+    assert got.shape == dec.shape == (n_blocks, cfg.n2)
+    want = testing.encode_fma_chain(buf[1:], cfg, ops_h,
+                                    transform.reciprocal_scale(scale))
+    np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
+    np.testing.assert_array_equal(
+        dec.cpu().numpy(),
+        testing.decode_fma_chain(want, cfg, ops_h, scale).numpy())
+
+
+@pytest.mark.cuda
+def test_transform_kernels_refuse_16x16(cuda):
+    cfg = CodecConfig(block_size=16)
+    ops = tables.build(cfg, device=cuda)
+    with pytest.raises(NotImplementedError):
+        transform_cuda.encode_blocks_kernel(
+            torch.zeros(4, 256, dtype=torch.uint8, device=cuda), cfg, ops)
+    with pytest.raises(NotImplementedError):
+        transform_cuda.decode_blocks_kernel(
+            torch.zeros(4, 256, dtype=torch.int16, device=cuda), cfg, ops)
+
+
+CASES_16 = {
+    "v1_q50": dict(block_size=16, quality=50, decode_index=False),
+    "v2_q90_index": dict(block_size=16, quality=90, decode_index=True),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(CASES_16))
+def test_16x16_codec_on_cuda_matches_cpu(cuda, image, case):
+    """16x16 blocks encode and decode on the card through the float32
+    route: no A, B or C launch; D and E where the container takes them."""
+    cfg = CodecConfig(**CASES_16[case])
+    gpu = codec.ImageCodec(cfg, device=cuda)
+    _build.reset_launch_counts()
+    data = gpu.encode(image)
+    rec = gpu.decode_to_device(data)
+    torch.cuda.synchronize()
+    counts = dict(_build.LAUNCHES)
+    assert counts["encode_blocks"] == counts["encode_stripes"] == 0
+    assert counts["decode_blocks"] == 0 and counts["pack_chunks"] == 1
+    assert counts["entropy_decode"] == (1 if cfg.decode_index else 0)
+    want = codec.ImageCodec(cfg, device="cpu").encode(image)
+    assert data[4] == want[4] == (2 if cfg.decode_index else 1)
+    if data != want:
+        assert testing.encode_mismatches(data, want, image)[1] == 0
+    assert rec.device.type == "cuda"
+    ref = codec.ImageCodec(cfg, device="cpu").decode(data)
+    assert testing.decode_mismatches(rec.cpu().numpy(), ref, data)[1] == 0
+
+
+@pytest.mark.cuda
+def test_16x16_route_pins_float32_under_tf32(cuda, image):
+    """With the caller's TF32 switch on, the 16x16 encode and decode on
+    the card still agree with the CPU path (TF32's 10-bit mantissa would
+    move decoded pixels by several levels), and the switch is left on."""
+    cfg = CodecConfig(**CASES_16["v2_q90_index"])
+    want = codec.ImageCodec(cfg, device="cpu").encode(image)
+    ref = codec.ImageCodec(cfg, device="cpu").decode(want)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        gpu = codec.ImageCodec(cfg, device=cuda)
+        data = gpu.encode(image)
+        rec = gpu.decode(want)
+        assert torch.backends.cuda.matmul.allow_tf32 is True
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    if data != want:
+        assert testing.encode_mismatches(data, want, image)[1] == 0
+    assert testing.decode_mismatches(rec, ref, want)[1] == 0
+
+
+@pytest.mark.cuda
+def test_16x16_video_on_cuda_matches_cpu(cuda):
+    cfg = CodecConfig(block_size=16, quality=50)
+    frames = np.stack([image_io.synthetic_image(72, 136, "photo", seed=s)
+                       for s in range(2)])
+    _build.reset_launch_counts()
+    streams = video.VideoCodec(cfg, device=cuda).encode(frames)
+    rec = video.VideoCodec(cfg, device=cuda).decode(streams)
+    assert _build.LAUNCHES["encode_blocks"] == 0
+    assert _build.LAUNCHES["decode_blocks"] == 0
+    want = video.VideoCodec(cfg, device="cpu").encode(frames)
+    ref = video.VideoCodec(cfg, device="cpu").decode(streams)
+    for f in range(2):
+        if streams[f] != want[f]:
+            assert testing.encode_mismatches(streams[f], want[f],
+                                             frames[f])[1] == 0
+        assert testing.decode_mismatches(rec[f], ref[f], streams[f])[1] == 0
 
 
 STRIPE_CASES = {
