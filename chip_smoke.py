@@ -7,16 +7,20 @@ toolkit. It builds the port's kernels from csrc/ into build/torch_kernels/,
 then:
 
   1. kernel A (encode transform) on 8 frames of 1088 x 1920, adaptive
-     quantization off and on: bit-exact against the float32 chain it
-     promises (testing.encode_fma_chain), ties only against its plain
-     version;
+     quantization off and on, in 8x8 blocks and in 16x16 blocks (kernel
+     B's n2 = 256 chain): bit-exact against the float32 chain it promises
+     (testing.encode_fma_chain), ties only against its plain version;
   2. kernel C (decode transform) on those coefficients: against
      testing.decode_fma_chain (ties only, expected 0 mismatches) and its
      plain version (ties only);
   3. kernel B (fused stripe encode) against the plain staged pipeline
      (codec.encode_pack_plain) fed kernel A's integers — exactly equal
-     units, stripe bits and block bits — at static q50, dynamic-table q50,
-     and adaptive + DC prediction + coded runs;
+     units, stripe bits and block bits — on the batch at static q50,
+     dynamic-table q50, adaptive + DC prediction + coded runs, and at the
+     other configs B takes: 4x4 blocks in category (dynamic),
+     direct and "none" modes; 8x8 in direct q90, "none", and direct with
+     adaptive + DC prediction + coded runs; 16x16 in category q90, direct
+     and "none"; each timed beside its plain version and its bound;
   4. the main path: ImageCodec(cfg, device="cuda") encodes a 1080p frame
      at static and at dynamic tables, decodes it (decode and
      decode_to_device), and encode_step encodes the 8-frame batch, with
@@ -44,15 +48,17 @@ then:
      adaptive + DC prediction + coded runs, and on random chunks (many
      dead, stripes of uneven length, one filled to the capacity and one
      past it); E's and its plain version's times;
- 10. the staged image path, counted: ImageCodec(cfg, device="cuda")
+ 10. the other image configs, counted: ImageCodec(cfg, device="cuda")
      encodes the 1080p frame at block_size 4 (category, dynamic tables),
      in "none" mode and in direct mode at q90, then decodes it (decode and
-     decode_to_device); kernel E must run and kernel B must not, the
-     containers must equal the CPU path's (ties excepted) and the pixels
-     agree with it within 1. Then 16x16 blocks at q90 with the decode
-     index (a v2 container): the transforms take the plain float32 route,
-     so one E launch encodes, one D launch decodes, and A, B and C do not
-     run;
+     decode_to_device); each encode runs kernel A once (the analyze pass)
+     and kernel B once, and kernel E not at all; the containers must equal
+     the CPU path's (ties excepted) and the pixels agree with it within 1.
+     Then 16x16 blocks at q90 with the decode index (a v2 container): A
+     and B once to encode, D once to decode (the 16x16 decode transform is
+     the float32 product), C and E not at all. Then the frame at
+     stripe_rows=4 (960 blocks a stripe, more than kernel B's shared
+     memory could hold whole) through A and B, equal to the CPU path;
  11. video at full width: VideoCodec(cfg, device="cuda") encodes 32 frames
      of 1080p (one chunk: one A and one E launch, no B) at q50 and q90,
      and decodes them (the q90 stack of v2 containers in one D and one C
@@ -60,7 +66,15 @@ then:
      (whose pass 2 runs kernel B), the decoded stack per-frame
      ImageCodec decode and the host route exactly, and a 2-frame stack the
      CPU path's (ties excepted; pixels within 1). Times of encode, decode
-     and decode_to_device, and peak device memory.
+     and decode_to_device, and peak device memory. Then 8 frames of 1080p
+     in 16x16 blocks at q50: one chunk (analyze + E) and chunk_frames=2
+     (pass 2 through B) must give the same streams;
+ 12. dense streams: the 1080p frame at q97 and q100 and a "noise" frame at
+     q100, in each mode with the decode index: kernel B bit-exact against
+     the plain staged pipeline fed kernel A's integers, and kernel D on
+     B's stream against its plain version and the host decoder. This
+     drives direct mode's ESC, the 16-bit code cap and B's worst-case
+     buffer (the fullest stripe's share of it is printed).
 
 Phases 4, 6, 10 and 11 are the main paths: each zeroes the kernels' launch
 counters just before it and reads them just after, and the kernel table's
@@ -174,11 +188,49 @@ def batch_tables(cfg, px, scale, n_stripes, ops):
     if cfg.dc_prediction:
         zz = codec.dc_predict(zz, n_stripes)
     sym = rle.rle_encode_positional(zz)
-    table = codec._build_table(cfg, hf.category_histogram_masked(
-        sym.values, sym.is_sym).cpu().numpy())
+    mode = cfg.huffman_mode if cfg.use_huffman else "none"
+    hist = None
+    if mode == "category":
+        hist = hf.category_histogram_masked(sym.values, sym.is_sym)
+    elif mode == "direct":
+        hist = hf.value_histogram_masked(sym.values, sym.is_sym,
+                                         codec.DIRECT_VMIN, -codec.DIRECT_VMIN)
+    table = codec._build_table(cfg, None if hist is None
+                               else hist.cpu().numpy())
     run_table = codec._build_run_table(cfg, hf.run_histogram_masked(
         sym.runs, sym.is_sym).cpu().numpy())
     return ops.with_tables(table, run_table), table, run_table
+
+
+def check_b(name, cfg, px, scale, n_stripes, ops):
+    """Kernel B against the plain staged pipeline fed kernel A's integers
+    (exactly equal units, stripe bits and block bits) -> (B's packed
+    stripes, block bits, max |unit difference|)."""
+    import torch
+    from dct_tpu_torch.models import codec
+    from dct_tpu_torch.ops import bitstream as bs
+    from dct_tpu_torch.ops import fused_encode_cuda, rle, transform_cuda
+
+    zz = transform_cuda.encode_blocks_kernel(px, cfg, ops, scale)
+    if cfg.dc_prediction:
+        zz = codec.dc_predict(zz, n_stripes)
+    got, got_bb = fused_encode_cuda.encode_stripes_fused(
+        px, cfg, n_stripes, ops, scale)
+    ref, ref_bb = codec.encode_pack_plain(rle.rle_encode_positional(zz),
+                                          cfg, n_stripes, ops)
+    g, r = bs.fetch_packed(got), bs.fetch_packed(ref)
+    same = (np.array_equal(g.bit_lengths, r.bit_lengths)
+            and np.array_equal(g.units, r.units)
+            and torch.equal(got_bb, ref_bb))
+    capacity_bits = 16 * got.units.shape[1]
+    log(f"B {name}: {px.shape[0]} blocks, {n_stripes} stripes, "
+        f"{int(g.bit_lengths.sum())} bits, fullest stripe "
+        f"{100 * int(g.bit_lengths.max()) / capacity_bits:.1f} % of its "
+        f"worst-case buffer; units/stripe bits/block bits equal to the "
+        f"staged pipeline: {same}")
+    check(same, f"B {name} differs from the staged pipeline")
+    err = int(np.abs(g.units.astype(np.int64) - r.units).max())
+    return got, got_bb, err
 
 
 def same_or_ties(name: str, data: bytes, cpu_data: bytes, image) -> None:
@@ -193,6 +245,58 @@ def same_or_ties(name: str, data: bytes, cpu_data: bytes, image) -> None:
         n_mis, n_bad = testing.encode_mismatches(data, cpu_data, image)
         log(f"{name} coefficients: {n_mis} mismatches ({n_bad} non-ties)")
         check(n_bad == 0, f"{name}: non-tie mismatches")
+
+
+def encode_stages(cfg, frame, dev) -> dict:
+    """Milliseconds of each stage of a dynamic-table ImageCodec encode of
+    one frame on the card (host clock, synchronised; kernel B by CUDA
+    events), beside the staged pack (symbol chunks + kernel E) that these
+    configs ran before kernel B took them."""
+    import torch
+    from dct_tpu_torch import container as cont
+    from dct_tpu_torch import tables
+    from dct_tpu_torch.models import codec
+    from dct_tpu_torch.ops import bitstream as bs
+
+    def synced(fn):
+        def run():
+            out = fn()
+            torch.cuda.synchronize()
+            return out
+        return run
+
+    h, w = frame.shape
+    n_stripes = codec._padded_grid(h, w, cfg)[2]
+    ops = tables.build(cfg, device=dev)
+    upload = synced(lambda: codec.pad_plane_for_encode(
+        torch.from_numpy(frame).to(dev), cfg))
+    img = upload()
+    analyze = synced(lambda: codec.encode_analyze(img, cfg, ops))
+    sym, _, hist, run_hist = analyze()
+    hist_h, run_h = hist.cpu().numpy(), run_hist.cpu().numpy()
+
+    def build_tables():
+        return (codec._build_table(cfg, hist_h),
+                codec._build_run_table(cfg, run_h))
+
+    ops_t = ops.with_tables(*build_tables())
+    packed, _, _ = codec.encode_fused_step(img, cfg, n_stripes, ops_t)
+    fetched = bs.fetch_packed(packed)
+    plane = codec.encode_plane(frame, cfg, dev)
+    return {
+        "upload + pad": host_ms(upload, 10),
+        "analyze (A, RLE, histogram)": host_ms(analyze, 10),
+        "histogram fetch + tables (host)": host_ms(
+            lambda: (hist.cpu(), run_hist.cpu(), build_tables()), 10),
+        "B (encode_fused_step)": cuda_ms(lambda: codec.encode_fused_step(
+            img, cfg, n_stripes, ops_t), 10),
+        "fetch units": host_ms(lambda: bs.fetch_packed(packed), 10),
+        "stripe bytes": host_ms(lambda: bs.stripes_to_bytes(fetched), 10),
+        "serialize": host_ms(lambda: cont.serialize(cont.Container(
+            config=cfg, width=w, height=h, planes=[plane])), 10),
+        "instead: symbol chunks + E": host_ms(synced(
+            lambda: codec.pack_frames(sym, cfg, (), n_stripes, ops_t)), 10),
+    }
 
 
 def main() -> int:
@@ -323,29 +427,89 @@ def main() -> int:
         if cfg is static:
             results["encode_blocks"], results["decode_blocks"] = res_a, res_c
             zz_main = got
+    # kernel A at 16x16 blocks: kernel B's n2 = 256 chain (the 16x16
+    # decode has no kernel: the codec runs the float32 product)
+    px16 = blocks.image_to_blocks(frames_d, 16).reshape(-1, 256)
+    px16_h = px16.cpu().numpy()
+    for cfg in (CodecConfig(block_size=16, quality=90),
+                CodecConfig(block_size=16, quality=50, adaptive=True)):
+        ops = tables.build(cfg, device=dev)
+        _, scale = codec._adaptive(px16, cfg)
+        recip = None if scale is None else transform.reciprocal_scale(scale)
+        recip_h = None if recip is None else recip.cpu().numpy()
+        got = transform_cuda.encode_blocks_kernel(px16, cfg, ops, scale)
+        n_chain = int((got != testing.encode_fma_chain(px16, cfg, ops,
+                                                       recip)).sum())
+        log(f"A 16x16 adaptive={cfg.adaptive}: {n_chain} mismatches of "
+            f"{got.numel()} against encode_fma_chain")
+        check(n_chain == 0, "A at 16x16 differs from the float32 chain")
+        tie_check(f"A 16x16 adaptive={cfg.adaptive}", got,
+                  transform.encode_blocks(px16, cfg, ops, scale),
+                  lambda b: testing.encode_values_f64(
+                      px16_h[b], cfg, None if recip_h is None else recip_h[b]),
+                  testing.ENCODE_TIE_TOL)
+    a16_ms = cuda_ms(lambda: transform_cuda.encode_blocks_kernel(
+        px16, cfg, ops, scale), 20)
+    a16_plain = cuda_ms(lambda: transform.encode_blocks(px16, cfg, ops,
+                                                        scale), 20)
+    nb16 = px16.shape[0]
+    a16_bound = bound_ms(nb16 * (256 * 5 + 4) + 3 * 4 * 256 * 256,
+                         3 * 2 * nb16 * 256 * 256, BF16_FLOPS)
+    log(f"time encode_blocks 16x16 adaptive: kernel {a16_ms:.4f} ms, plain "
+        f"{a16_plain:.4f} ms, bound {a16_bound[0]:.5f} ms ({a16_bound[1]}), "
+        f"float32 floor {3 * 2 * nb16 * 256 * 256 / F32_FLOPS * 1e3:.5f} "
+        f"ms, {nb16} blocks")
+    del px16, px16_h
     s_all = FRAMES * n_stripes
     for name, cfg in (("static", static), ("dynamic", dynamic),
                       ("adaptive+dc+coded_runs", rich)):
         _, scale = codec._adaptive(px, cfg)
         ops, _, _ = batch_tables(cfg, px, scale, s_all,
                                  tables.build(cfg, device=dev))
-        zz = transform_cuda.encode_blocks_kernel(px, cfg, ops, scale)
-        if cfg.dc_prediction:
-            zz = codec.dc_predict(zz, s_all)
-        got, got_bb = fused_encode_cuda.encode_stripes_fused(
-            px, cfg, s_all, ops, scale)
-        ref, ref_bb = codec.encode_pack_plain(rle.rle_encode_positional(zz),
-                                              cfg, s_all, ops)
-        g, r = bs.fetch_packed(got), bs.fetch_packed(ref)
-        same = (np.array_equal(g.bit_lengths, r.bit_lengths)
-                and np.array_equal(g.units, r.units)
-                and torch.equal(got_bb, ref_bb))
-        log(f"B {name}: {int(g.bit_lengths.sum())} bits, units/stripe bits/"
-            f"block bits equal to the staged pipeline: {same}")
-        check(same, f"B {name} differs from the staged pipeline")
+        _, _, err = check_b(name, cfg, px, scale, s_all, ops)
         if cfg is static:
-            err = int(np.abs(g.units.astype(np.int64) - r.units).max())
             results["encode_stripes"] = (0, err)
+    # the other configs B takes, each timed beside its plain version and
+    # its bound (the B row of the kernel table stays static q50 at 8x8,
+    # comparable with earlier measurements)
+    b_configs = {
+        "n4 category dynamic": CodecConfig(block_size=4),
+        "n4 direct": CodecConfig(block_size=4, huffman_mode="direct"),
+        "n4 none": CodecConfig(block_size=4, use_huffman=False),
+        "n8 direct q90": CodecConfig(quality=90, huffman_mode="direct"),
+        "n8 none": CodecConfig(use_huffman=False),
+        "n8 direct adaptive+dc+coded_runs": CodecConfig(
+            quality=50, huffman_mode="direct", adaptive=True,
+            dc_prediction=True, coded_runs=True),
+        "n16 category q90": CodecConfig(block_size=16, quality=90),
+        "n16 direct": CodecConfig(block_size=16, huffman_mode="direct"),
+        "n16 none": CodecConfig(block_size=16, use_huffman=False),
+    }
+    px_of = {8: px}
+    for name, cfg in b_configs.items():
+        n = cfg.block_size
+        if n not in px_of:
+            px_of[n] = blocks.image_to_blocks(frames_d, n).reshape(-1, n * n)
+        pxn, ns = px_of[n], FRAMES * H // n
+        _, scale = codec._adaptive(pxn, cfg)
+        ops, _, _ = batch_tables(cfg, pxn, scale, ns,
+                                 tables.build(cfg, device=dev))
+        packed, _, _ = check_b(name, cfg, pxn, scale, ns, ops)
+        b_ms = cuda_ms(lambda: fused_encode_cuda.encode_stripes_fused(
+            pxn, cfg, ns, ops, scale), 10)
+        plain_ms = cuda_ms(lambda: fused_encode_cuda.encode_stripes_plain(
+            pxn, cfg, ns, ops, scale), 3)
+        nb, n2 = pxn.shape
+        p = 128 if n2 <= 64 else n2
+        b_bound = bound_ms(
+            nb * n2 + 3 * 4 * p * p + packed.bit_lengths.sum().item() / 8
+            + 4 * ns + 4 * nb, 3 * 2 * nb * n2 * n2, BF16_FLOPS)
+        log(f"time encode_stripes {name}: kernel {b_ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, bound {b_bound[0]:.5f} ms ({b_bound[1]}; "
+            f"kernel at {100 * b_bound[0] / b_ms:.1f} %), {nb} blocks of "
+            f"{n2}, {ns} stripes")
+        del packed
+    del px_of
 
     # ---- 5. times --------------------------------------------------------
     ops = tables.build(static, device=dev)
@@ -596,10 +760,13 @@ def main() -> int:
         f"{times['pack_chunks'][1]:.4f} ms (8 x {H}x{W}, static q50, "
         f"{e_inputs[0].numel()} chunks)")
 
-    # ---- 10. the staged image path, counted -----------------------------
+    # ---- 10. the other image configs, counted ---------------------------
+    # (the staged path's configs until kernel B took them: now the analyze
+    # pass, kernel A, then kernel B with the per-image table)
     staged = {"n4 category dynamic": CodecConfig(block_size=4),
               "none": CodecConfig(use_huffman=False),
-              "direct q90": CodecConfig(quality=90, huffman_mode="direct")}
+              "direct q90": CodecConfig(quality=90, huffman_mode="direct"),
+              "stripe_rows=4": CodecConfig(stripe_rows=4)}
     for name, cfg in staged.items():
         gpu_s = codec.ImageCodec(cfg, device=dev)
         _build.reset_launch_counts()
@@ -610,8 +777,10 @@ def main() -> int:
         counted = dict(_build.LAUNCHES)
         main_runs.append(counted)
         log(f"main path {name} launches {counted}")
-        check(counted["pack_chunks"] > 0 and counted["encode_stripes"] == 0,
-              f"{name}: the staged path did not run kernel E alone")
+        check(counted["encode_blocks"] == 1
+              and counted["encode_stripes"] == 1
+              and counted["pack_chunks"] == 0,
+              f"{name}: the encode did not run one A and one B launch")
         same_or_ties(f"e2e {name}", data,
                      codec.ImageCodec(cfg, device="cpu").encode(frame), frame)
         check(rec_d.device.type == "cuda", "decode_to_device left the card")
@@ -628,8 +797,11 @@ def main() -> int:
                              torch.cuda.synchronize()), 10)}
         log(f"ImageCodec 1080p {name} (v{data[4]}): " + ", ".join(
             f"{k} {v:.3f} ms ({mpx / v:.1f} Mpix/s)" for k, v in s_ms.items()))
-    # 16x16 blocks: no kernel takes their transforms (codec.encode_transform
-    # and decode_transform run the float32 products), kernels E and D do
+        log(f"1080p {name} encode stages: " + ", ".join(
+            f"{k} {v:.3f} ms" for k, v in encode_stages(cfg, frame,
+                                                      dev).items()))
+    # 16x16 blocks: kernels A and B encode; D decodes, and the decode
+    # transform is the float32 product (codec.decode_transform)
     cfg16 = CodecConfig(block_size=16, quality=90, decode_index=True)
     gpu16 = codec.ImageCodec(cfg16, device=dev)
     _build.reset_launch_counts()
@@ -644,12 +816,15 @@ def main() -> int:
     log(f"main path 16x16 q90 launches: encode {enc16}, decode_to_device "
         f"{dec16}")
     check(data16[4] == 2, f"the 16x16 q90 container is v{data16[4]}, not v2")
-    check(enc16["pack_chunks"] == 1 and dec16["entropy_decode"] == 1
-          and enc16["entropy_decode"] == dec16["pack_chunks"] == 0,
-          "16x16: not one E launch to encode and one D launch to decode")
-    check(all(enc16[k] == dec16[k] == 0 for k in
-              ("encode_blocks", "encode_stripes", "decode_blocks")),
-          "16x16: a transform kernel or kernel B ran")
+    check(enc16["encode_blocks"] == enc16["encode_stripes"] == 1
+          and dec16["entropy_decode"] == 1,
+          "16x16: not one A and one B launch to encode and one D launch "
+          "to decode")
+    check(enc16["entropy_decode"] == enc16["decode_blocks"] == 0
+          and enc16["pack_chunks"] == dec16["pack_chunks"] == 0
+          and dec16["encode_blocks"] == dec16["encode_stripes"] == 0
+          and dec16["decode_blocks"] == 0,
+          "16x16: kernel C or E ran, or a decode kernel in the encode")
     same_or_ties("e2e 16x16 q90", data16,
                  codec.ImageCodec(cfg16, device="cpu").encode(frame), frame)
     rec16 = gpu16.decode(data16)
@@ -669,6 +844,30 @@ def main() -> int:
                          torch.cuda.synchronize()), 10)}
     log(f"ImageCodec 1080p 16x16 q90 (v{data16[4]}): " + ", ".join(
         f"{k} {v:.3f} ms ({mpx / v:.1f} Mpix/s)" for k, v in s_ms.items()))
+    log("1080p 16x16 q90 encode stages: " + ", ".join(
+        f"{k} {v:.3f} ms" for k, v in encode_stages(cfg16, frame,
+                                                  dev).items()))
+
+    # ---- 12. dense streams through B, then D ---------------------------
+    noise = image_io.synthetic_image(1080, 1920, "noise", seed=3)
+    for fname, img, q in (("photo q97", frame, 97), ("photo q100", frame, 100),
+                          ("noise q100", noise, 100)):
+        img_d = codec.pad_plane_for_encode(torch.from_numpy(img).to(dev),
+                                           static)
+        pxd = blocks.image_to_blocks(img_d, 8).reshape(-1, 64)
+        nsd = img_d.shape[0] // 8
+        for mode, kw in (("category", {}),
+                         ("direct", dict(huffman_mode="direct")),
+                         ("none", dict(use_huffman=False))):
+            cfg = CodecConfig(quality=q, decode_index=True, **kw)
+            ops, table, run_table = batch_tables(
+                cfg, pxd, None, nsd, tables.build(cfg, device=dev))
+            packed, bb, _ = check_b(f"dense {fname} {mode}", cfg, pxd, None,
+                                    nsd, ops)
+            check_d(f"dense {fname} {mode}",
+                    bs.stripes_to_bytes(bs.fetch_packed(packed)),
+                    bb.cpu().numpy().reshape(-1).astype(np.uint16), table,
+                    run_table, mode, 64)
 
     # ---- 11. video at full width -----------------------------------------
     vframes = np.stack([image_io.synthetic_image(VH, VW, "photo", seed=s)
@@ -810,6 +1009,25 @@ def main() -> int:
         f"{torch.cuda.get_device_properties(0).total_memory / 2**30:.1f}")
     check(_build.LAUNCHES["pack_chunks"] == 1,
           "the budget-size stack did not encode in one chunk")
+    # 16x16 blocks, 8 frames: one chunk (kernel A's analyze pass + E)
+    # against chunk_frames=2 (pass 2 through kernel B): one float32 chain
+    cfg16v = CodecConfig(block_size=16)
+    counts16 = {}
+    for chunk in (None, 2):
+        _build.reset_launch_counts()
+        counts16[chunk] = (video.VideoCodec(cfg16v, chunk_frames=chunk,
+                                            device=dev).encode(vframes[:8]),
+                           dict(_build.LAUNCHES))
+        main_runs.append(counts16[chunk][1])
+    (one16, c_one), (two16, c_two) = counts16[None], counts16[2]
+    log(f"video 16x16 q50 8 x {VH}x{VW}: one chunk launches {c_one}, "
+        f"chunk_frames=2 launches {c_two}; streams equal: {one16 == two16}")
+    check(c_one["encode_blocks"] == c_one["pack_chunks"] == 1
+          and c_one["encode_stripes"] == 0,
+          "video 16x16: one chunk did not run one A and one E launch")
+    check(c_two["encode_stripes"] == 4 and c_two["pack_chunks"] == 0,
+          "video 16x16: chunked pass 2 did not run kernel B")
+    check(one16 == two16, "video 16x16: bytes depend on chunking")
 
     sources = {
         "encode_blocks": ("dct_tpu_torch/csrc/transform.cu",

@@ -16,8 +16,9 @@
 // Kernel A: (n_blocks, n2) u8 pixel blocks -> (n_blocks, n2) int32
 // quantized zigzag coefficients. m0/m1/m2 are the float32 bf16-valued
 // split operator parts and bias the encode bias, each with row stride ld
-// (128 for the packed block-diagonal form; the kernel reads the top-left
-// n2 x n2 block). recip: (n_blocks,) reciprocal adaptive scale, or NULL.
+// (128 for the packed block-diagonal form of n2 4/16/64, whose top-left
+// n2 x n2 block the kernel reads; 256 for the (256, 256) parts of n2 =
+// 256). recip: (n_blocks,) reciprocal adaptive scale, or NULL.
 DCT_EXPORT int dct_encode_blocks(const void* px, const void* m0,
                                  const void* m1, const void* m2,
                                  const void* bias, int ld, const void* recip,
@@ -31,21 +32,23 @@ DCT_EXPORT int dct_decode_blocks(const void* zz, const void* m_dec, int ld,
                                  const void* scale, void* out,
                                  long long n_blocks, int n2, void* stream);
 
-// Kernel B: one CTA per stripe, 8x8 blocks, category mode. px: (n_stripes
-// * bps, 64) u8 blocks. cat_len/cat_code: (16,) int32 canonical table.
-// run_len/run_code: (65,) int32 run table, or NULL for the fixed
+// Kernel B: one CTA per stripe, n2 16, 64 or 256, stripes of any width.
+// px: (n_stripes * bps, n2) u8 blocks, 16-byte aligned. m0/m1/m2, bias,
+// ld, recip: as kernel A's. mode: 0 category, 1 direct, 2 none.
+// val_len/val_code: the value table's n_val int32 entries (16 categories;
+// 512 in direct mode, values -255..255 and ESC last; n_val 0 in "none"
+// mode). run_len/run_code: (65,) int32 run table, or NULL for the fixed
 // run_bits-wide run field. words: (n_stripes, n_words) int32 output, each
 // word holding two 16-bit units with its halves swapped, so that the
 // buffer read as int16 is the unit stream in order. stripe_bits:
-// (n_stripes,) int32; block_bits: (n_stripes, bps) int32. A stripe whose
-// shared-memory need exceeds the device's opt-in limit is refused with
-// the error cudaFuncSetAttribute returns.
+// (n_stripes,) int32; block_bits: (n_stripes, bps) int32.
 DCT_EXPORT int dct_encode_stripes(const void* px, const void* m0,
                                   const void* m1, const void* m2,
                                   const void* bias, int ld, const void* recip,
-                                  const void* cat_len, const void* cat_code,
-                                  const void* run_len, const void* run_code,
-                                  int run_bits, int dc_prediction,
+                                  const void* val_len, const void* val_code,
+                                  int n_val, const void* run_len,
+                                  const void* run_code, int run_bits,
+                                  int mode, int dc_prediction, int n2,
                                   int n_stripes, int bps, void* words,
                                   int n_words, void* stripe_bits,
                                   void* block_bits, void* stream);

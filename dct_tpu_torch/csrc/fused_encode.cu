@@ -2,26 +2,44 @@
 // units, one CTA per (frame, stripe).
 //
 // Replaces dct_tpu/ops/fused_encode_pallas.py `_fused_kernel` (wrapper
-// `encode_stripes_fused`) for 8x8 blocks in category mode, with the fixed
-// or the coded run field, adaptive quantization and DC prediction on or
-// off. It ports the outputs, not the TPU mechanism: the pack-tier ladder,
-// the acc4 rungs, lane compaction and the one-hot MXU scatter were
-// workarounds for a machine without per-lane scatter or cumsum.
+// `encode_stripes_fused`) at every config it takes: 4x4, 8x8 and 16x16
+// blocks (n2 16, 64, 256); the category, direct and "none" entropy
+// modes; the fixed run field, or the coded one at n2 <= 64; adaptive
+// quantization and DC prediction on or off; stripes of any width. It ports
+// the outputs, not the TPU mechanism: the pack-tier ladder, the acc4
+// rungs, lane compaction, the one-hot direct-table gather and the MXU
+// scatter were workarounds for a machine without per-lane gathers,
+// scatters or cumsum.
 //
-// What bounds it on an H100: HBM sees 64 B of pixels in per block and the
-// worst-case unit buffer (320 B per block, zeroed by the CTA itself) out,
-// so bytes are small; the time goes to the transform's 3 x 64 x 64 f32
-// multiply-adds per block, fed from shared memory, then to the serial
-// dependencies of the entropy stage inside a stripe (a scan over the
-// stripe's blocks and one over each block's symbols). The design keeps a
-// whole stripe in shared memory (operator parts, pixels, int16
-// coefficients: ~98 KB at 240 blocks, so two CTAs per SM), runs the
-// transform through the device function kernel A uses
-// (transform_core.cuh), and does each block's RLE, fields and scans in
-// one warp with ballots and shuffles. Symbols are placed with atomicOr:
-// each field (code | extra | run, <= 39 bits) touches at most three
-// 32-bit words and fields never share a bit, so the result does not
-// depend on the order of the atomics.
+// What bounds it on an H100: HBM sees n2 bytes of pixels in per block and
+// the worst-case unit buffer out (zeroed by the CTA itself:
+// units_per_block_worst(n2, coded_runs) 16-bit units a block, 80 B at n2
+// 16 (96 B with coded runs), 320 B at 64 (384 B), 1312 B at 256), so bytes
+// are small; the time goes to the transform's 3 x n2 x n2 float32
+// multiply-adds per block, then to the serial dependencies of the entropy
+// stage inside a stripe (a scan over the stripe's blocks and one over each
+// block's symbols).
+//
+// The design:
+// - one CTA per stripe walks it in tiles of kTile blocks (128 at n2 16, 64
+//   at 64, 8 at 256), so shared memory is a constant of n2 (15 KB at 16,
+//   66 KB at 64 — three CTAs an SM —, 17 KB at 256) and a stripe may be
+//   any width;
+// - operators: at n2 <= 64 the three bf16 parts sit in shared memory and
+//   each thread computes one coefficient at a time (split_matmul_coeff);
+//   at 256 they are read through L2 and thread k computes coefficient k
+//   of the tile's 8 blocks (split_matmul_256), the chain kernel A's 16x16
+//   kernel runs too (transform_core.cuh);
+// - per tile: pixels in, transform to int16 coefficients in shared
+//   memory, DC DPCM against the previous block's raw DC (carried across
+//   tile edges), each block's RLE, symbol fields and bit total in one warp
+//   (two 4x4 blocks a warp, one 16-lane segment each) with ballots and
+//   shuffles, an exclusive scan of the block totals on top of the bits of
+//   the tiles before, and placement;
+// - symbols are placed with atomicOr: each field (code | payload | run,
+//   at most 16 + 16 + 9 bits) touches at most three 32-bit words and
+//   fields never share a bit, so the result does not depend on the order
+//   of the atomics.
 
 #include "bindings.h"
 #include "transform_core.cuh"
@@ -30,51 +48,156 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kN2 = 64;
 constexpr unsigned kFull = 0xFFFFFFFFu;
 
+// Entropy modes (the `mode` argument of dct_encode_stripes).
+constexpr int kCategory = 0, kDirect = 1, kNone = 2;
+// Direct mode's alphabet: values [kDirectVmin, -kDirectVmin] at table
+// index v - kDirectVmin, ESC at kDirectEsc (models/codec.py DIRECT_VMIN;
+// the wrapper checks the 512-entry table).
+constexpr int kDirectVmin = -255;
+constexpr int kDirectEsc = 511;
+// Shared-memory table slots: value lengths and codes (512 each), run
+// lengths and codes (65 each), padded to 16 bytes.
+constexpr int kMaxValues = 512;
+constexpr int kRunAlphabet = 65;
+constexpr int kTabInts = 2 * kMaxValues + 2 * kRunAlphabet + 2;
+
+template <int N2>
+struct Shape {
+  static_assert(N2 == 16 || N2 == 64 || N2 == 256, "n2 16, 64 or 256");
+  static constexpr int kV = N2 >= 32 ? N2 / 32 : 1;   // values a lane holds
+  static constexpr int kSeg = N2 >= 32 ? 32 : N2;     // lanes a block spans
+  static constexpr int kPerWarp = 32 / kSeg;          // blocks a warp holds
+  static constexpr int kTile = N2 == 16 ? 128 : (N2 == 64 ? 64 : 8);
+  static constexpr bool kOpsShared = N2 != 256;       // operators in smem
+  // floats: operator parts + bias (n2 <= 64) or the staged pixels (256)
+  static constexpr int kFloats =
+      kOpsShared ? 3 * N2 * N2 + N2 : kTile * dct::kN2Big;
+  static constexpr int kBytes =
+      kFloats * 4 + (kTabInts + 3 * kTile) * 4 +
+      kTile * N2 * (kOpsShared ? 3 : 2);  // int16 coefficients (+ u8 pixels)
+  static_assert(kTile % 4 == 0, "16-byte aligned coefficient rows");
+  static_assert(kOpsShared || kThreads == N2, "a thread a coefficient");
+};
+
+struct Tables {
+  const int* val_len;
+  const int* val_code;
+  const int* run_len;
+  const int* run_code;
+  int mode;
+  int run_bits;  // the fixed run field's width
+  bool coded_runs;
+};
+
 struct Symbol {
-  unsigned long long value;  // code | extra | run, MSB first
+  unsigned long long value;  // code | payload | run, MSB first
   int bits;                  // 0 for a position that emits nothing
 };
 
-// Positional RLE (dct_tpu/ops/rle.py rle_encode_positional) and the
-// category-mode fields (dct_tpu/ops/bitstream.py symbol_chunks) of
-// zigzag position p holding v; nz has bit q set where position q != 0.
-__device__ __forceinline__ Symbol make_symbol(
-    int v, int p, unsigned long long nz, const int* cat_len,
-    const int* cat_code, const int* run_len, const int* run_code,
-    bool coded_runs, int run_bits) {
-  Symbol s{0ull, 0};
-  const bool is_nz = v != 0, last = p == kN2 - 1;
-  if (!is_nz && !last) return s;
-  const unsigned long long below = nz & ((1ull << p) - 1ull);
-  const int pnz = below ? 63 - __clzll(below) : -1;
-  const int run = p - pnz - 1 + ((last && !is_nz) ? 1 : 0);
-  const int a = v < 0 ? -v : v;
-  const int cat = min(a ? 32 - __clz(a) : 0, 15);
-  const unsigned span = (1u << cat) - 1u;
-  const unsigned extra = static_cast<unsigned>(v < 0 ? v + (int)span : v) & span;
-  int lc;
-  unsigned rv;
-  if (coded_runs) {
-    lc = run_len[run];
-    rv = static_cast<unsigned>(run_code[run]);
+// The fields of a symbol of value v with `run` zeros before it
+// (dct_tpu_torch/ops/bitstream.py symbol_chunks):
+//   category: code(cat) | the cat low bits of v (of v + 2^cat - 1 below 0)
+//   direct:   code(v - vmin), or code(ESC) | v as 16 raw bits
+//   none:     v as 16 raw bits
+// then the run, in run_bits bits or as its canonical code.
+__device__ __forceinline__ Symbol make_symbol(int v, int run,
+                                              const Tables& t) {
+  unsigned long long code;
+  int len, plen = 0;
+  unsigned payload = 0u;
+  if (t.mode == kCategory) {
+    const int a = v < 0 ? -v : v;
+    const int cat = min(a ? 32 - __clz(a) : 0, 15);
+    const unsigned span = (1u << cat) - 1u;
+    payload = static_cast<unsigned>(v < 0 ? v + static_cast<int>(span) : v) &
+              span;
+    plen = cat;
+    code = static_cast<unsigned>(t.val_code[cat]);
+    len = t.val_len[cat];
+  } else if (t.mode == kDirect) {
+    const int s = v - kDirectVmin;
+    const bool esc = s < 0 || s >= kDirectEsc;
+    const int idx = esc ? kDirectEsc : s;
+    code = static_cast<unsigned>(t.val_code[idx]);
+    len = t.val_len[idx];
+    if (esc) {
+      payload = static_cast<unsigned>(v) & 0xFFFFu;
+      plen = 16;
+    }
   } else {
-    lc = run_bits;
+    code = static_cast<unsigned>(v) & 0xFFFFu;
+    len = 16;
+  }
+  int lr;
+  unsigned rv;
+  if (t.coded_runs) {
+    lr = t.run_len[run];
+    rv = static_cast<unsigned>(t.run_code[run]);
+  } else {
+    lr = t.run_bits;
     rv = static_cast<unsigned>(run);
   }
-  const unsigned long long code = static_cast<unsigned>(cat_code[cat]);
-  s.value = (((code << cat) | extra) << lc) | rv;
-  s.bits = cat_len[cat] + cat + lc;
-  return s;
+  return Symbol{(((code << plen) | payload) << lr) | rv, len + plen + lr};
 }
 
-__device__ __forceinline__ int warp_inclusive_scan(int v, int lane) {
+// Positional RLE (dct_tpu/ops/rle.py rle_encode_positional): position p
+// of an N2-coefficient block holding v, pnz the last nonzero position
+// before p (-1 for none). Every nonzero value is a symbol; a block whose
+// last position is zero ends in a terminal symbol carrying the trailing
+// run + 1 (n2 for an all-zero block).
+template <int N2>
+__device__ __forceinline__ Symbol symbol_at(int v, int p, int pnz,
+                                            const Tables& t) {
+  if (v == 0 && p != N2 - 1) return Symbol{0ull, 0};
+  return make_symbol(v, p - pnz - 1 + (v == 0 ? 1 : 0), t);
+}
+
+// The symbols of the kPerWarp blocks of the tile from tile-local block bw
+// on (n blocks in the tile). n2 >= 64: symbol i of a lane is position
+// i * 32 + lane of block bw. n2 = 16: lane l holds position l % 16 of
+// block bw + l / 16; a block past n gives no symbols.
+template <int N2>
+__device__ __forceinline__ void block_symbols(
+    const int16_t* __restrict__ s_zz, int bw, int n, int lane,
+    const Tables& t, Symbol (&s)[Shape<N2>::kV]) {
+  using S = Shape<N2>;
+  if constexpr (S::kPerWarp > 1) {
+    const int b = bw + lane / S::kSeg, p = lane % S::kSeg;
+    const bool live = b < n;
+    const int v = live ? s_zz[b * N2 + p] : 0;
+    const unsigned seg = (__ballot_sync(kFull, v != 0) >> (lane - p)) &
+                         ((1u << S::kSeg) - 1u);
+    const unsigned below = seg & ((1u << p) - 1u);
+    const int pnz = below ? 31 - __clz(below) : -1;
+    s[0] = live ? symbol_at<N2>(v, p, pnz, t) : Symbol{0ull, 0};
+  } else {
+    int v[S::kV];
+    unsigned m[S::kV];
 #pragma unroll
-  for (int d = 1; d < 32; d <<= 1) {
-    const int u = __shfl_up_sync(kFull, v, d);
-    if (lane >= d) v += u;
+    for (int i = 0; i < S::kV; ++i) {
+      v[i] = s_zz[bw * N2 + i * 32 + lane];
+      m[i] = __ballot_sync(kFull, v[i] != 0);
+    }
+    int last = -1;  // the last nonzero position of the words before i
+#pragma unroll
+    for (int i = 0; i < S::kV; ++i) {
+      const unsigned below = m[i] & ((1u << lane) - 1u);
+      const int pnz = below ? 32 * i + 31 - __clz(below) : last;
+      s[i] = symbol_at<N2>(v[i], 32 * i + lane, pnz, t);
+      if (m[i]) last = 32 * i + 31 - __clz(m[i]);
+    }
+  }
+}
+
+// Inclusive scan over segments of W lanes.
+template <int W>
+__device__ __forceinline__ int seg_inclusive_scan(int v, int lane) {
+#pragma unroll
+  for (int d = 1; d < W; d <<= 1) {
+    const int u = __shfl_up_sync(kFull, v, d, W);
+    if ((lane & (W - 1)) >= d) v += u;
   }
   return v;
 }
@@ -85,7 +208,7 @@ __device__ __forceinline__ void place(Symbol s, long long off,
                                       unsigned* words, int n_words) {
   if (s.bits == 0) return;
   const int w0 = static_cast<int>(off >> 5);
-  const int end = static_cast<int>(off & 31) + s.bits;  // <= 31 + 39
+  const int end = static_cast<int>(off & 31) + s.bits;  // <= 31 + 41 < 96
 #pragma unroll
   for (int i = 0; i < 3; ++i) {
     const int sh = 32 * (i + 1) - end;  // left shift placing the field's LSB
@@ -97,6 +220,7 @@ __device__ __forceinline__ void place(Symbol s, long long off,
   }
 }
 
+template <int N2>
 __global__ void __launch_bounds__(kThreads)
     encode_stripes_kernel(const uint8_t* __restrict__ px,
                           const float* __restrict__ m0,
@@ -104,136 +228,173 @@ __global__ void __launch_bounds__(kThreads)
                           const float* __restrict__ m2,
                           const float* __restrict__ bias, int ld,
                           const float* __restrict__ recip,
-                          const int* __restrict__ cat_len,
-                          const int* __restrict__ cat_code,
+                          const int* __restrict__ val_len,
+                          const int* __restrict__ val_code, int n_val,
                           const int* __restrict__ run_len,
                           const int* __restrict__ run_code, int run_bits,
-                          int dc_prediction, int bps,
+                          int mode, int dc_prediction, int bps,
                           unsigned* __restrict__ words, int n_words,
                           int* __restrict__ stripe_bits,
                           int* __restrict__ block_bits) {
-  extern __shared__ float smem[];
-  float* s_m0 = smem;
-  float* s_m1 = s_m0 + kN2 * kN2;
-  float* s_m2 = s_m1 + kN2 * kN2;
-  float* s_b = s_m2 + kN2 * kN2;
-  int* s_tab = reinterpret_cast<int*>(s_b + kN2);  // 16 + 16 + 65 + 65
-  int* s_cat_len = s_tab;
-  int* s_cat_code = s_tab + 16;
-  int* s_run_len = s_tab + 32;
-  int* s_run_code = s_tab + 97;
-  int* s_bbits = s_tab + 162;        // per-block bit totals
-  int* s_boff = s_bbits + bps;       // per-block exclusive bit offsets
-  int16_t* s_zz = reinterpret_cast<int16_t*>(s_boff + bps);
-  uint8_t* s_px = reinterpret_cast<uint8_t*>(s_zz + bps * kN2);
+  using S = Shape<N2>;
+  constexpr int T = S::kTile;
+  extern __shared__ __align__(16) float smem[];
+  float* s_f = smem;  // operators + bias, or the staged pixels (n2 = 256)
+  int* s_tab = reinterpret_cast<int*>(s_f + S::kFloats);
+  int* s_val_len = s_tab;
+  int* s_val_code = s_tab + kMaxValues;
+  int* s_run_len = s_tab + 2 * kMaxValues;
+  int* s_run_code = s_run_len + kRunAlphabet;
+  int* s_bbits = s_tab + kTabInts;  // per-block bit totals of the tile
+  int* s_boff = s_bbits + T;        // per-block exclusive bit offsets
+  int* s_dc = s_boff + T;           // raw DCs of the tile
+  int16_t* s_zz = reinterpret_cast<int16_t*>(s_dc + T);
+  uint8_t* s_px = reinterpret_cast<uint8_t*>(s_zz + T * N2);  // n2 <= 64
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const long long stripe = blockIdx.x;
   const bool adaptive = recip != nullptr;
-  const bool coded_runs = run_len != nullptr;
   unsigned* row = words + stripe * n_words;
-  const long long blk0 = stripe * bps;
 
-  // ---- 0. zero this stripe's units; load operators, tables, pixels ----
+  // ---- 0. zero this stripe's units; load tables and operators ----
   for (int i = tid; i < n_words; i += kThreads) row[i] = 0u;
-  for (int i = tid; i < kN2 * kN2; i += kThreads) {
-    const int src = (i / kN2) * ld + (i % kN2);
-    s_m0[i] = m0[src];
-    s_m1[i] = m1[src];
-    s_m2[i] = m2[src];
+  for (int i = tid; i < n_val; i += kThreads) {
+    s_val_len[i] = val_len[i];
+    s_val_code[i] = val_code[i];
   }
-  if (tid < kN2) s_b[tid] = bias[tid];
-  if (tid < 16) {
-    s_cat_len[tid] = cat_len[tid];
-    s_cat_code[tid] = cat_code[tid];
-  }
-  if (coded_runs && tid < 65) {
+  if (run_len != nullptr && tid < kRunAlphabet) {
     s_run_len[tid] = run_len[tid];
     s_run_code[tid] = run_code[tid];
   }
-  const uint8_t* spx = px + blk0 * kN2;
-  for (int i = tid; i < bps * kN2; i += kThreads) s_px[i] = spx[i];
-  __syncthreads();
-
-  // ---- 1. transform (kernel A's device function) ----
-  for (int i = tid; i < bps * kN2; i += kThreads) {
-    const int b = i >> 6, k = i & 63;
-    const float y = dct::split_matmul_coeff<kN2>(s_px + b * kN2, s_m0, s_m1,
-                                                 s_m2, s_b, k);
-    const float r = adaptive ? recip[blk0 + b] : 1.f;
-    s_zz[i] = static_cast<int16_t>(dct::quantize_coeff(y, k, adaptive, r));
+  if constexpr (S::kOpsShared) {
+    for (int i = tid; i < N2 * N2; i += kThreads) {
+      const int src = (i / N2) * ld + (i % N2);
+      s_f[i] = m0[src];
+      s_f[N2 * N2 + i] = m1[src];
+      s_f[2 * N2 * N2 + i] = m2[src];
+    }
+    if (tid < N2) s_f[3 * N2 * N2 + tid] = bias[tid];
   }
-  __syncthreads();
+  const Tables tabs{s_val_len, s_val_code, s_run_len, s_run_code, mode,
+                    run_bits, run_len != nullptr};
 
-  // ---- 2. stripe-local DC DPCM against the previous block's raw DC ----
-  if (dc_prediction) {
-    for (int b = tid; b < bps; b += kThreads)
-      s_boff[b] = b ? s_zz[(b - 1) * kN2] : 0;
-    __syncthreads();
-    for (int b = tid; b < bps; b += kThreads)
-      s_zz[b * kN2] = static_cast<int16_t>(s_zz[b * kN2] - s_boff[b]);
-    __syncthreads();
-  }
+  int base_bits = 0;  // bits of the tiles before (warp 0 keeps it)
+  int prev_dc = 0;    // raw DC of the block before the tile
+  for (int t0 = 0; t0 < bps; t0 += T) {
+    const int n = min(T, bps - t0);
+    const long long blk = stripe * bps + t0;  // the tile's first block
 
-  // ---- 3-6a. per block (one warp): RLE, fields, block bit totals ----
-  for (int b = warp; b < bps; b += kWarps) {
-    const int v0 = s_zz[b * kN2 + lane], v1 = s_zz[b * kN2 + 32 + lane];
-    const unsigned long long nz =
-        static_cast<unsigned long long>(__ballot_sync(kFull, v1 != 0)) << 32 |
-        __ballot_sync(kFull, v0 != 0);
-    const Symbol s0 = make_symbol(v0, lane, nz, s_cat_len, s_cat_code,
-                                  s_run_len, s_run_code, coded_runs, run_bits);
-    const Symbol s1 = make_symbol(v1, lane + 32, nz, s_cat_len, s_cat_code,
-                                  s_run_len, s_run_code, coded_runs, run_bits);
-    int t = s0.bits + s1.bits;
+    // ---- 1. pixels in, transform (kernel A's chain) ----
+    if constexpr (S::kOpsShared) {
+      const uint4* src = reinterpret_cast<const uint4*>(px + blk * N2);
+      for (int i = tid; i < n * N2 / 16; i += kThreads)
+        reinterpret_cast<uint4*>(s_px)[i] = __ldg(src + i);
+    } else {
+      dct::stage_pixels_256<T, kThreads>(s_f, px + blk * N2, n);
+    }
+    __syncthreads();
+    if constexpr (S::kOpsShared) {
+      for (int i = tid; i < n * N2; i += kThreads) {
+        const int b = i / N2, k = i % N2;
+        const float y = dct::split_matmul_coeff<N2>(
+            s_px + b * N2, s_f, s_f + N2 * N2, s_f + 2 * N2 * N2,
+            s_f + 3 * N2 * N2, k);
+        const float r = adaptive ? recip[blk + b] : 1.f;
+        s_zz[i] = static_cast<int16_t>(dct::quantize_coeff(y, k, adaptive, r));
+      }
+    } else {
+      float y[T];
+      dct::split_matmul_256<T>(s_f, m0, m1, m2, bias, ld, tid, y);
 #pragma unroll
-    for (int d = 16; d > 0; d >>= 1) t += __shfl_xor_sync(kFull, t, d);
-    if (lane == 0) {
-      s_bbits[b] = t;
-      block_bits[blk0 + b] = t;
+      for (int b = 0; b < T; ++b) {
+        if (b >= n) break;
+        const float r = adaptive ? recip[blk + b] : 1.f;
+        s_zz[b * N2 + tid] =
+            static_cast<int16_t>(dct::quantize_coeff(y[b], tid, adaptive, r));
+      }
     }
-  }
-  __syncthreads();
+    __syncthreads();
 
-  // ---- 6b. exclusive scan of block totals over the stripe ----
-  if (warp == 0) {
-    int carry = 0;
-    for (int base = 0; base < bps; base += 32) {
-      const int idx = base + lane;
-      const int v = idx < bps ? s_bbits[idx] : 0;
-      const int incl = warp_inclusive_scan(v, lane);
-      if (idx < bps) s_boff[idx] = carry + incl - v;
-      carry += __shfl_sync(kFull, incl, 31);
+    // ---- 2. stripe-local DC DPCM against the previous block's raw DC ----
+    if (dc_prediction) {
+      for (int b = tid; b < n; b += kThreads) s_dc[b] = s_zz[b * N2];
+      __syncthreads();
+      for (int b = tid; b < n; b += kThreads)
+        s_zz[b * N2] = static_cast<int16_t>(s_dc[b] - (b ? s_dc[b - 1] : prev_dc));
+      __syncthreads();
+      prev_dc = s_dc[n - 1];
     }
-    if (lane == 0) stripe_bits[stripe] = carry;
-  }
-  __syncthreads();
 
-  // ---- 6c-8. per-symbol offsets (in-block scan) and placement ----
-  for (int b = warp; b < bps; b += kWarps) {
-    const int v0 = s_zz[b * kN2 + lane], v1 = s_zz[b * kN2 + 32 + lane];
-    const unsigned long long nz =
-        static_cast<unsigned long long>(__ballot_sync(kFull, v1 != 0)) << 32 |
-        __ballot_sync(kFull, v0 != 0);
-    const Symbol s0 = make_symbol(v0, lane, nz, s_cat_len, s_cat_code,
-                                  s_run_len, s_run_code, coded_runs, run_bits);
-    const Symbol s1 = make_symbol(v1, lane + 32, nz, s_cat_len, s_cat_code,
-                                  s_run_len, s_run_code, coded_runs, run_bits);
-    const int i0 = warp_inclusive_scan(s0.bits, lane);
-    const int half = __shfl_sync(kFull, i0, 31);
-    const int i1 = warp_inclusive_scan(s1.bits, lane);
-    const long long base = s_boff[b];
-    place(s0, base + i0 - s0.bits, row, n_words);
-    place(s1, base + half + i1 - s1.bits, row, n_words);
+    // ---- 3. per block: RLE, fields, block bit totals ----
+    for (int bw = warp * S::kPerWarp; bw < n; bw += kWarps * S::kPerWarp) {
+      Symbol s[S::kV];
+      block_symbols<N2>(s_zz, bw, n, lane, tabs, s);
+      int tot = 0;
+#pragma unroll
+      for (int i = 0; i < S::kV; ++i) tot += s[i].bits;
+#pragma unroll
+      for (int d = S::kSeg / 2; d > 0; d >>= 1)
+        tot += __shfl_xor_sync(kFull, tot, d);
+      const int b = bw + lane / S::kSeg;
+      if (lane % S::kSeg == 0 && b < n) {
+        s_bbits[b] = tot;
+        block_bits[blk + b] = tot;
+      }
+    }
+    __syncthreads();
+
+    // ---- 4. exclusive scan of the tile's block totals, on the base ----
+    if (warp == 0) {
+      for (int c = 0; c < n; c += 32) {
+        const int idx = c + lane;
+        const int v = idx < n ? s_bbits[idx] : 0;
+        const int incl = seg_inclusive_scan<32>(v, lane);
+        if (idx < n) s_boff[idx] = base_bits + incl - v;
+        base_bits += __shfl_sync(kFull, incl, 31);
+      }
+    }
+    __syncthreads();
+
+    // ---- 5. per-symbol offsets (in-block scan) and placement ----
+    for (int bw = warp * S::kPerWarp; bw < n; bw += kWarps * S::kPerWarp) {
+      Symbol s[S::kV];
+      block_symbols<N2>(s_zz, bw, n, lane, tabs, s);
+      const int b = bw + lane / S::kSeg;
+      long long off = b < n ? s_boff[b] : 0;
+#pragma unroll
+      for (int i = 0; i < S::kV; ++i) {
+        const int incl = seg_inclusive_scan<S::kSeg>(s[i].bits, lane);
+        place(s[i], off + incl - s[i].bits, row, n_words);
+        off += __shfl_sync(kFull, incl, 31);  // kV > 1 only at n2 >= 64
+      }
+    }
+    __syncthreads();  // the tile's buffers are free for the next one
   }
+  if (tid == 0) stripe_bits[stripe] = base_bits;
 }
 
-// Dynamic shared memory for a stripe of bps blocks: operator parts and
-// bias, tables, per-block bits and offsets, int16 coefficients, pixels.
-long long smem_bytes(int bps) {
-  return (3LL * kN2 * kN2 + kN2) * sizeof(float) + 162LL * sizeof(int) +
-         2LL * bps * sizeof(int) + static_cast<long long>(bps) * kN2 *
-         (sizeof(int16_t) + sizeof(uint8_t));
+template <int N2>
+int launch(const void* px, const void* m0, const void* m1, const void* m2,
+           const void* bias, int ld, const void* recip, const void* val_len,
+           const void* val_code, int n_val, const void* run_len,
+           const void* run_code, int run_bits, int mode, int dc_prediction,
+           int n_stripes, int bps, void* words, int n_words,
+           void* stripe_bits, void* block_bits, cudaStream_t stream) {
+  constexpr int smem = Shape<N2>::kBytes;
+  auto kernel = encode_stripes_kernel<N2>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<n_stripes, kThreads, smem, stream>>>(
+      static_cast<const uint8_t*>(px), static_cast<const float*>(m0),
+      static_cast<const float*>(m1), static_cast<const float*>(m2),
+      static_cast<const float*>(bias), ld, static_cast<const float*>(recip),
+      static_cast<const int*>(val_len), static_cast<const int*>(val_code),
+      n_val, static_cast<const int*>(run_len),
+      static_cast<const int*>(run_code), run_bits, mode, dc_prediction, bps,
+      static_cast<unsigned*>(words), n_words, static_cast<int*>(stripe_bits),
+      static_cast<int*>(block_bits));
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -241,29 +402,28 @@ long long smem_bytes(int bps) {
 DCT_EXPORT int dct_encode_stripes(const void* px, const void* m0,
                                   const void* m1, const void* m2,
                                   const void* bias, int ld, const void* recip,
-                                  const void* cat_len, const void* cat_code,
-                                  const void* run_len, const void* run_code,
-                                  int run_bits, int dc_prediction,
+                                  const void* val_len, const void* val_code,
+                                  int n_val, const void* run_len,
+                                  const void* run_code, int run_bits,
+                                  int mode, int dc_prediction, int n2,
                                   int n_stripes, int bps, void* words,
                                   int n_words, void* stripe_bits,
                                   void* block_bits, void* stream) {
-  const long long need = smem_bytes(bps);
-  if (need > INT32_MAX) return static_cast<int>(cudaErrorInvalidValue);
-  const int smem = static_cast<int>(need);
-  cudaError_t err = cudaFuncSetAttribute(
-      encode_stripes_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  encode_stripes_kernel<<<n_stripes, kThreads, smem,
-                          static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(px), static_cast<const float*>(m0),
-      static_cast<const float*>(m1), static_cast<const float*>(m2),
-      static_cast<const float*>(bias), ld, static_cast<const float*>(recip),
-      static_cast<const int*>(cat_len), static_cast<const int*>(cat_code),
-      static_cast<const int*>(run_len), static_cast<const int*>(run_code),
-      run_bits, dc_prediction, bps, static_cast<unsigned*>(words), n_words,
-      static_cast<int*>(stripe_bits), static_cast<int*>(block_bits));
-  return static_cast<int>(cudaGetLastError());
+  if (n_val < 0 || n_val > kMaxValues || mode < kCategory || mode > kNone)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (n_stripes == 0) return static_cast<int>(cudaSuccess);
+  auto s = static_cast<cudaStream_t>(stream);
+#define DCT_B(N)                                                              \
+  return launch<N>(px, m0, m1, m2, bias, ld, recip, val_len, val_code, n_val, \
+                   run_len, run_code, run_bits, mode, dc_prediction,          \
+                   n_stripes, bps, words, n_words, stripe_bits, block_bits, s)
+  switch (n2) {
+    case 16: DCT_B(16);
+    case 64: DCT_B(64);
+    case 256: DCT_B(256);
+  }
+#undef DCT_B
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 DCT_EXPORT const char* dct_error_string(int code) {

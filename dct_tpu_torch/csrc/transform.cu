@@ -40,6 +40,13 @@
 // Every output keeps the arithmetic chain of the one-value-a-thread form:
 // A split_matmul_coeff's, C z_k (AC scaled by one __fmul_rn) folded by
 // __fmaf_rn over k = 0..n2-1 from 0, then + 128, round half away, clamp.
+//
+// A also takes 16x16 blocks (n2 = 256), which the reference's Pallas
+// kernel does not (its codec runs them in XLA): kernel B takes them, and
+// the analyze pass before B must give B's integers. That kernel
+// (encode_blocks_256_kernel) runs B's 256 chain, split_matmul_256, with
+// the operator read through L2. C stays at n2 4/16/64; 16x16 decode is
+// the codec's float32 product.
 
 #include "bindings.h"
 #include "transform_core.cuh"
@@ -220,6 +227,63 @@ __global__ void __launch_bounds__(kThreads, 2)
   }
 }
 
+// ---- kernel A at n2 = 256 ---------------------------------------------
+// 16x16 blocks: the (256, 256) operator parts do not fit the tile above's
+// shared memory (768 KB), so this kernel reads them through L2 by
+// dct::split_matmul_256, the chain kernel B runs at n2 = 256. A grid-
+// stride loop walks tiles of k256Tile blocks; each tile's pixels are
+// staged as float, and thread k computes coefficient k of every block of
+// the tile (three L2 loads a step of j for 3 x k256Tile FMAs), storing
+// them as consecutive int32s.
+
+constexpr int k256Tile = 8;
+
+template <bool ADAPTIVE>
+__global__ void __launch_bounds__(kThreads, 2)
+    encode_blocks_256_kernel(const uint8_t* __restrict__ px,
+                             const float* __restrict__ m0,
+                             const float* __restrict__ m1,
+                             const float* __restrict__ m2,
+                             const float* __restrict__ bias, int ld,
+                             const float* __restrict__ recip,
+                             int32_t* __restrict__ out, long long n_blocks) {
+  static_assert(kThreads == dct::kN2Big, "a thread a coefficient");
+  constexpr int T = k256Tile, N2 = dct::kN2Big;
+  __shared__ __align__(16) float xT[N2 * T];  // pixel j of block r at xT[j*T+r]
+  const int k = threadIdx.x;
+  const long long n_tiles = (n_blocks + T - 1) / T;
+  for (long long t = blockIdx.x; t < n_tiles; t += gridDim.x) {
+    const long long b0 = t * T;
+    const int n = static_cast<int>(n_blocks - b0 < T ? n_blocks - b0 : T);
+    __syncthreads();  // the tile before is computed
+    dct::stage_pixels_256<T, kThreads>(xT, px + b0 * N2, n);
+    __syncthreads();
+    float y[T];
+    dct::split_matmul_256<T>(xT, m0, m1, m2, bias, ld, k, y);
+#pragma unroll
+    for (int r = 0; r < T; ++r) {
+      if (r >= n) break;
+      const float rr = ADAPTIVE ? recip[b0 + r] : 1.f;
+      out[(b0 + r) * N2 + k] = dct::quantize_coeff(y[r], k, ADAPTIVE, rr);
+    }
+  }
+}
+
+template <bool ADAPTIVE>
+int launch_encode_256(const void* px, const void* m0, const void* m1,
+                      const void* m2, const void* bias, int ld,
+                      const void* recip, void* out, long long n_blocks,
+                      cudaStream_t stream) {
+  auto kernel = encode_blocks_256_kernel<ADAPTIVE>;
+  kernel<<<grid_for(kernel, 0, (n_blocks + k256Tile - 1) / k256Tile),
+           kThreads, 0, stream>>>(
+      static_cast<const uint8_t*>(px), static_cast<const float*>(m0),
+      static_cast<const float*>(m1), static_cast<const float*>(m2),
+      static_cast<const float*>(bias), ld, static_cast<const float*>(recip),
+      static_cast<int32_t*>(out), n_blocks);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // ---- kernel C ---------------------------------------------------------
 
 // The pixel of y: round_half_away(y + 128) clamped to [0, 255], in fewer
@@ -372,6 +436,11 @@ DCT_EXPORT int dct_encode_blocks(const void* px, const void* m0,
     case 4: DCT_ENC(4);
     case 16: DCT_ENC(16);
     case 64: DCT_ENC(64);
+    case 256:
+      return ad ? launch_encode_256<true>(px, m0, m1, m2, bias, ld, recip, out,
+                                         n_blocks, s)
+                : launch_encode_256<false>(px, m0, m1, m2, bias, ld, recip,
+                                           out, n_blocks, s);
   }
 #undef DCT_ENC
   return static_cast<int>(cudaErrorInvalidValue);

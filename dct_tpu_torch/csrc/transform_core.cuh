@@ -1,9 +1,10 @@
 // The encode transform shared by kernel A (transform.cu, a register
 // micro-tile: split_matmul_tile) and kernel B (fused_encode.cu, one
-// coefficient: split_matmul_coeff). Both run the same float32 chain for
-// every coefficient, so the two kernels give bit-identical integers by
-// construction — the role dct_tpu.ops.transform.split_operand_matmul plays
-// for the reference's Pallas kernels.
+// coefficient: split_matmul_coeff), and at n2 = 256 by both through
+// split_matmul_256. Both run the same float32 chain for every coefficient,
+// so the two kernels give bit-identical integers by construction — the
+// role dct_tpu.ops.transform.split_operand_matmul plays for the
+// reference's Pallas kernels.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -90,6 +91,74 @@ __device__ __forceinline__ void split_matmul_tile(
     for (int c = 0; c < C; ++c)
       y[r][c] = __fadd_rn(__fadd_rn(__fadd_rn(a0[r][c], a1[r][c]), a2[r][c]),
                           bias[k0 + c]);
+}
+
+// 16x16 blocks (n2 = 256), shared by kernel A (encode_blocks_256_kernel)
+// and kernel B at n2 = 256. The chain is the reference's K = 128 split
+// (dct_tpu/ops/transform.py, the n2 = 256 branch of encode_blocks): per
+// part i, lo_i sums j = 0..127 and hi_i sums j = 128..255, each in j
+// order; t_i = lo_i + hi_i; then ((t_0 + t_1) + t_2) + b. Every u8 x bf16
+// product is exact in float32, so the FMAs round like multiply-then-add.
+// The three (256, 256) parts take 768 KB, more than shared memory holds:
+// they are read through L2 (__ldg; the 768 KB stay resident in its
+// 50 MB), three values a step of j, each used for all R blocks. Thread k
+// computes coefficient k of the R blocks.
+constexpr int kN2Big = 256;
+
+// Stage up to R blocks of 256 u8 pixels (src, n of them) as float,
+// j-major: pixel j of block r at xT[j * R + r]; blocks past n are zero.
+// All threads of the CTA take part; the caller synchronises after.
+template <int R, int THREADS>
+__device__ __forceinline__ void stage_pixels_256(float* __restrict__ xT,
+                                                 const uint8_t* __restrict__ src,
+                                                 int n) {
+  for (int i = threadIdx.x; i < R * kN2Big; i += THREADS) {
+    const int r = i / kN2Big, j = i % kN2Big;
+    xT[j * R + r] = r < n ? static_cast<float>(src[i]) : 0.f;
+  }
+}
+
+// One half (j0 = 0 or 128) of the K = 128 split, for every part at once.
+template <int R>
+__device__ __forceinline__ void split_half_256(
+    const float* __restrict__ xT, const float* __restrict__ m0,
+    const float* __restrict__ m1, const float* __restrict__ m2, int ld,
+    int k, int j0, float (&a)[3][R]) {
+#pragma unroll
+  for (int r = 0; r < R; ++r) a[0][r] = a[1][r] = a[2][r] = 0.f;
+#pragma unroll 4
+  for (int j = j0; j < j0 + kN2Big / 2; ++j) {
+    float x[R];
+    load_f32x4(x, xT + j * R);
+    const float w0 = __ldg(m0 + j * ld + k), w1 = __ldg(m1 + j * ld + k),
+                w2 = __ldg(m2 + j * ld + k);
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      a[0][r] = __fmaf_rn(x[r], w0, a[0][r]);
+      a[1][r] = __fmaf_rn(x[r], w1, a[1][r]);
+      a[2][r] = __fmaf_rn(x[r], w2, a[2][r]);
+    }
+  }
+}
+
+// Coefficient k of the R staged blocks; m0/m1/m2 (256, 256) with row
+// stride ld and bias (256,) in device memory.
+template <int R>
+__device__ __forceinline__ void split_matmul_256(
+    const float* __restrict__ xT, const float* __restrict__ m0,
+    const float* __restrict__ m1, const float* __restrict__ m2,
+    const float* __restrict__ bias, int ld, int k, float (&y)[R]) {
+  float lo[3][R], hi[3][R];
+  split_half_256<R>(xT, m0, m1, m2, ld, k, 0, lo);
+  split_half_256<R>(xT, m0, m1, m2, ld, k, kN2Big / 2, hi);
+  const float b = __ldg(bias + k);
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const float t0 = __fadd_rn(lo[0][r], hi[0][r]);
+    const float t1 = __fadd_rn(lo[1][r], hi[1][r]);
+    const float t2 = __fadd_rn(lo[2][r], hi[2][r]);
+    y[r] = __fadd_rn(__fadd_rn(__fadd_rn(t0, t1), t2), b);
+  }
 }
 
 // C round(): half away from zero. Never rintf (half to even). The

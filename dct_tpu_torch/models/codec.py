@@ -8,17 +8,18 @@
            (kernel C) -> crop; v1 containers are entropy-decoded on the
            host (dct_tpu_torch.native, or the Python decoder) and uploaded
 
-Two encode paths, as in the reference. Configs that kernel B takes (8x8
-blocks, category mode: ``fused_kernel_ok``) encode static tables in one
-kernel (ops/fused_encode_cuda.py); with dynamic tables the analyze pass —
-transform (kernel A), RLE, histogram — gives the per-image canonical
-table, then kernel B encodes with it. Every other config (4x4 and 2x2
-blocks, direct and "none" modes) runs the staged path: the analyze pass,
-then symbol chunks packed by kernel E (ops/pack_cuda.py). On the CPU the
-same functions run the plain versions. The block transforms go to kernels
-A and C for the block sizes they take; 16x16 blocks run the plain float32
-products on the card (encode_transform, decode_transform), as the
-reference runs them in XLA.
+Two encode paths, as in the reference. Configs that kernel B takes (4x4,
+8x8 and 16x16 blocks, every entropy mode: ``fused_kernel_ok``) encode
+static tables in one kernel (ops/fused_encode_cuda.py); with dynamic
+tables the analyze pass — transform (kernel A), RLE, histogram — gives
+the per-image canonical table, then kernel B encodes with it. 2x2 blocks
+run the staged path: the analyze pass, then symbol chunks packed by
+kernel E (ops/pack_cuda.py), as does the video codec's one-chunk encode.
+On the CPU the same functions run the plain versions. The encode
+transform goes to kernel A at every block size B takes and at 2x2; the
+decode transform to kernel C at 2x2, 4x4 and 8x8, while 16x16 blocks
+decode through the plain float32 product on the card
+(decode_transform), as the reference runs it in XLA.
 
 The entry points run on the card: with no ``device`` they take ``cuda``,
 and raise where there is none; ``device="cpu"`` runs the plain versions.
@@ -102,13 +103,11 @@ def encode_transform(pixels: torch.Tensor, cfg: CodecConfig,
                      scale: torch.Tensor | None = None) -> torch.Tensor:
     """(..., B, n2) u8 blocks -> int32 quantized zigzag coefficients on
     their device: kernel A for the block sizes it takes
-    (transform_cuda.KERNEL_N2), else (16x16 blocks) transform.encode_blocks,
-    whose n2 = 256 branch keeps the reference's explicit K=128 halves.
-    That route is not a kernel and not a fallback: no TPU kernel takes n2 =
-    256, and the reference runs the same products in XLA outside any
-    Pallas kernel. On the card it is torch.matmul in full float32, whatever
-    the caller's TF32 switch; it launches and counts nothing."""
-    if cfg.n2 in transform_cuda.KERNEL_N2:
+    (transform_cuda.ENCODE_N2, 16x16 included: its chain is kernel B's),
+    else (block sizes no kernel takes) transform.encode_blocks, the
+    reference's float32 XLA product, in full float32 whatever the caller's
+    TF32 switch; that route launches and counts nothing."""
+    if cfg.n2 in transform_cuda.ENCODE_N2:
         return transform_cuda.encode_blocks_kernel(pixels, cfg, ops, scale)
     with transform.full_float32():
         return transform.encode_blocks(pixels, cfg, ops, scale)
@@ -118,10 +117,12 @@ def decode_transform(zz: torch.Tensor, cfg: CodecConfig,
                      ops: tables.CodecOperators,
                      scale: torch.Tensor | None = None) -> torch.Tensor:
     """(..., B, n2) zigzag coefficients -> u8 pixel blocks on their device:
-    kernel C for the block sizes it takes, else (16x16 blocks)
-    transform.decode_blocks, the reference's float32 XLA product, in full
-    float32 whatever the caller's TF32 switch (see encode_transform)."""
-    if cfg.n2 in transform_cuda.KERNEL_N2:
+    kernel C for the block sizes it takes (transform_cuda.DECODE_N2), else
+    (16x16 blocks) transform.decode_blocks, the reference's float32 XLA
+    product: not a kernel and not a fallback, since no TPU kernel takes
+    it. On the card it is torch.matmul in full float32, whatever the
+    caller's TF32 switch; it launches and counts nothing."""
+    if cfg.n2 in transform_cuda.DECODE_N2:
         return transform_cuda.decode_blocks_kernel(zz, cfg, ops, scale)
     with transform.full_float32():
         return transform.decode_blocks(zz, cfg, ops, scale)
@@ -242,12 +243,12 @@ def _build_run_table(cfg: CodecConfig, run_hist: np.ndarray | None):
 
 
 def fused_kernel_ok(cfg: CodecConfig) -> bool:
-    """Whether kernel B (the fused stripe encode) takes cfg: 8x8 blocks in
-    category mode. Every other config encodes through the staged path
-    (kernel A, DC prediction, positional RLE, symbol chunks, kernel E)."""
-    mode = cfg.huffman_mode if cfg.use_huffman else "none"
-    return (cfg.n2 == fused_encode_cuda.KERNEL_N2
-            and mode == fused_encode_cuda.KERNEL_MODE)
+    """Whether kernel B (the fused stripe encode) takes cfg: 4x4, 8x8 and
+    16x16 blocks in every entropy mode, stripes of any width, as the
+    reference's kernel does. Other block sizes (2x2) encode through the
+    staged path (kernel A, DC prediction, positional RLE, symbol chunks,
+    kernel E)."""
+    return cfg.n2 in fused_encode_cuda.KERNEL_N2
 
 
 def _frames_out(packed: bs.PackedStripes, block_bits: torch.Tensor,

@@ -10,13 +10,17 @@ chunks: dynamic tables come from histograms summed over every chunk (pass
 1), and pass 2 encodes each chunk against the final tables.
 
 Per chunk of frames, on the card: static tables run kernel B over every
-stripe of every frame (or the staged path where kernel B does not take
-the config); a stack that fits one chunk runs the analyze pass once
-(kernel A) and packs those same symbols with one kernel E launch; with
-several chunks, pass 1 runs the analyze pass chunk by chunk for the
-histograms, and pass 2 encodes each chunk with kernel B where
-codec.fused_kernel_ok, else analyze + kernel E. Decode runs one kernel D
-launch over an all-indexed (v2) stack and one kernel C launch.
+stripe of every frame (or, for 2x2 blocks, which kernel B does not take,
+the staged path); with dynamic tables a stack that fits one chunk runs
+the analyze pass once (kernel A) and packs those same symbols with one
+kernel E launch, as the reference does; with several chunks, pass 1 runs
+the analyze pass chunk by chunk for the histograms, and pass 2 encodes
+each chunk with kernel B where codec.fused_kernel_ok (4x4, 8x8 and 16x16
+blocks, every mode), else analyze + kernel E. Kernels A and B share one
+float32 chain at every block size, so the bytes do not depend on which
+of the two paths ran. Decode runs one kernel D launch over an
+all-indexed (v2) stack and one kernel C launch (16x16 blocks: the float32
+product).
 
 Only gray stacks are ported: RGB stacks raise NotImplementedError, and
 the reference's ``mesh`` argument (the sharded encode) is not taken.

@@ -36,8 +36,9 @@ _SIGNATURES = {
         "dct_decode_blocks": [_p, _p, _i, _p, _p, _ll, _i, _p],
     },
     "fused_encode": {
-        "dct_encode_stripes": [_p, _p, _p, _p, _p, _i, _p, _p, _p, _p, _p,
-                               _i, _i, _i, _i, _p, _i, _p, _p, _p],
+        "dct_encode_stripes": [_p, _p, _p, _p, _p, _i, _p, _p, _p, _i, _p,
+                               _p, _i, _i, _i, _i, _i, _i, _p, _i, _p, _p,
+                               _p],
     },
     "entropy_decode": {
         "dct_entropy_decode": [_p, _ll, _p, _p, _p, _i, _p, _ll, _i, _i, _i,

@@ -4,11 +4,14 @@ counterpart of ``dct_tpu.ops.fused_encode_pallas.encode_stripes_fused``.
 Pixels go in, packed stripe units, stripe bit lengths and per-block bit
 lengths come out. The plain version is the staged composition the
 reference's staged path runs — transform, DC prediction, positional RLE,
-symbol chunks, the plain chunk packer (models/codec.py encode_pack_plain)
-— and it covers every entropy mode. The kernel takes 8x8 blocks in
-category mode, with fixed or coded runs, adaptive quantization and DC
-prediction on or off; the codec sends every other config on the card
-through the staged path with kernel E (models/codec.py fused_kernel_ok).
+symbol chunks, the plain chunk packer (models/codec.py encode_pack_plain).
+The kernel takes what the reference's kernel takes: 4x4, 8x8 and 16x16
+blocks (KERNEL_N2) in the category, direct and "none" modes
+(KERNEL_MODES), with the fixed run field or (n2 <= 64) the coded one,
+adaptive quantization and DC prediction on or off, and stripes of any
+width. 2x2 blocks raise NotImplementedError; the codec encodes them
+through the staged path with kernel E (models/codec.py fused_kernel_ok),
+as the reference does.
 """
 
 from __future__ import annotations
@@ -16,12 +19,16 @@ from __future__ import annotations
 import torch
 
 from dct_tpu_torch.config import CodecConfig
-from dct_tpu_torch.ops import _build, rle, transform
+from dct_tpu_torch.ops import _build, rle, transform, transform_cuda
 from dct_tpu_torch.ops import bitstream as bs
-from dct_tpu_torch.tables import CodecOperators
+from dct_tpu_torch.tables import PACKED_N2, CodecOperators
 
-KERNEL_N2 = 64
-KERNEL_MODE = "category"
+KERNEL_N2 = (16, 64, 256)
+KERNEL_MODES = ("category", "direct", "none")
+# value-table entries per mode: 16 categories; direct mode's alphabet
+# [-255, 255] (models/codec.py DIRECT_VMIN) + ESC; no table in "none" mode
+TABLE_ENTRIES = {"category": 16, "direct": 512, "none": 0}
+RUN_TABLE_ENTRIES = 65
 
 
 def encode_stripes_plain(
@@ -42,6 +49,34 @@ def encode_stripes_plain(
                                    n_stripes, ops)
 
 
+def _check_operands(pixels: torch.Tensor, cfg: CodecConfig, n_stripes: int,
+                    ops: CodecOperators, mode: str) -> None:
+    if pixels.dtype != torch.uint8 or pixels.dim() != 2 \
+            or pixels.shape[1] != cfg.n2:
+        raise ValueError(f"expected (NB, {cfg.n2}) uint8 blocks, got "
+                         f"{tuple(pixels.shape)} {pixels.dtype}")
+    if not pixels.is_contiguous():
+        raise ValueError("pixels must be contiguous")
+    if n_stripes <= 0 or pixels.shape[0] % n_stripes:
+        raise ValueError(f"{pixels.shape[0]} blocks do not split into "
+                         f"{n_stripes} stripes")
+    if ops.device != pixels.device:
+        raise ValueError(f"operators on {ops.device}, pixels on "
+                         f"{pixels.device}")
+    n_val = TABLE_ENTRIES[mode]
+    if n_val and ops.cat_lengths.numel() != n_val:
+        raise ValueError(f"{mode} mode requires a {n_val}-entry table, got "
+                         f"{ops.cat_lengths.numel()} entries")
+    if cfg.coded_runs and (ops.run_lengths is None
+                           or ops.run_lengths.numel() != RUN_TABLE_ENTRIES):
+        raise ValueError(f"coded_runs requires a {RUN_TABLE_ENTRIES}-entry "
+                         "run table")
+    p = 128 if cfg.n2 in PACKED_N2 else cfg.n2
+    if ops.m0.shape != (p, p) or ops.bias.shape != (1, p):
+        raise ValueError(f"n2={cfg.n2} requires the ({p}, {p}) operator "
+                         f"parts, got {tuple(ops.m0.shape)}")
+
+
 def encode_stripes_fused(
     pixels: torch.Tensor,
     cfg: CodecConfig,
@@ -53,32 +88,20 @@ def encode_stripes_fused(
     every frame stacked) -> (PackedStripes, (n_stripes, bps) int32 block
     bits). encode_stripes_plain on the CPU, kernel B on CUDA: units come
     back as an (n_stripes, capacity) int16 view of the kernel's word
-    buffer, capacity = bps * units_per_block_worst(n2, coded_runs)."""
+    buffer, capacity = bps * units_per_block_worst(n2, coded_runs). ops
+    carries the mode's value table (cat_lengths / cat_codes: 16 entries
+    in category mode, 512 in direct mode) and, under coded_runs, the run
+    table."""
     if pixels.device.type == "cpu":
         return encode_stripes_plain(pixels, cfg, n_stripes, ops, adaptive_scale)
     mode = cfg.huffman_mode if cfg.use_huffman else "none"
-    if cfg.n2 != KERNEL_N2 or mode != KERNEL_MODE:
+    if cfg.n2 not in KERNEL_N2 or mode not in KERNEL_MODES:
         raise NotImplementedError(
-            f"fused encode kernel takes n2={KERNEL_N2} in {KERNEL_MODE!r} "
-            f"mode, got n2={cfg.n2} in {mode!r}: not ported yet")
-    if pixels.dtype != torch.uint8 or pixels.dim() != 2 \
-            or pixels.shape[1] != cfg.n2:
-        raise ValueError(f"expected (NB, {cfg.n2}) uint8 blocks, got "
-                         f"{tuple(pixels.shape)} {pixels.dtype}")
-    if not pixels.is_contiguous():
-        raise ValueError("pixels must be contiguous")
-    if pixels.shape[0] % n_stripes:
-        raise ValueError(f"{pixels.shape[0]} blocks do not split into "
-                         f"{n_stripes} stripes")
-    if ops.device != pixels.device:
-        raise ValueError(f"operators on {ops.device}, pixels on "
-                         f"{pixels.device}")
-    if cfg.coded_runs and (ops.run_lengths is None
-                           or ops.run_lengths.numel() != 65):
-        raise ValueError("coded_runs requires a 65-entry run table")
-    if ops.cat_lengths.numel() != 16 or ops.m0.shape != (128, 128):
-        raise ValueError("category mode on 8x8 blocks requires a 16-entry "
-                         "table and the packed (128, 128) operators")
+            f"fused encode kernel takes n2 in {KERNEL_N2} in modes "
+            f"{KERNEL_MODES}, got n2={cfg.n2} in {mode!r}")
+    _check_operands(pixels, cfg, n_stripes, ops, mode)
+    if pixels.data_ptr() % 16:  # the kernel reads pixels 16 bytes a copy
+        pixels = pixels.clone()
     bps = pixels.shape[0] // n_stripes
     recip = None
     if cfg.adaptive:
@@ -94,22 +117,25 @@ def encode_stripes_fused(
     words = torch.empty(n_stripes, n_words, dtype=torch.int32, device=dev)
     bits = torch.empty(n_stripes, dtype=torch.int32, device=dev)
     block_bits = torch.empty(n_stripes, bps, dtype=torch.int32, device=dev)
+    n_val = TABLE_ENTRIES[mode]
     coded = cfg.coded_runs
+    m0, m1, m2 = transform_cuda.row_major(ops)
     lib = _build.library("fused_encode")
     with torch.cuda.device(dev):
         rc = lib.dct_encode_stripes(
-            pixels.data_ptr(), ops.m0.data_ptr(), ops.m1.data_ptr(),
-            ops.m2.data_ptr(), ops.bias.data_ptr(), ops.m0.shape[1],
-            _build.ptr(recip), ops.cat_lengths.data_ptr(),
-            ops.cat_codes.data_ptr(),
+            pixels.data_ptr(), m0.data_ptr(), m1.data_ptr(),
+            m2.data_ptr(), ops.bias.data_ptr(), m0.shape[1],
+            _build.ptr(recip),
+            _build.ptr(ops.cat_lengths if n_val else None),
+            _build.ptr(ops.cat_codes if n_val else None), n_val,
             _build.ptr(ops.run_lengths if coded else None),
             _build.ptr(ops.run_codes if coded else None),
-            bs.run_field_bits(cfg.n2), int(cfg.dc_prediction),
-            n_stripes, bps, words.data_ptr(), n_words, bits.data_ptr(),
+            bs.run_field_bits(cfg.n2), KERNEL_MODES.index(mode),
+            int(cfg.dc_prediction), cfg.n2, n_stripes, bps,
+            words.data_ptr(), n_words, bits.data_ptr(),
             block_bits.data_ptr(), torch.cuda.current_stream().cuda_stream,
         )
-    # a stripe too wide for the card's opt-in shared memory fails here
-    _build.check(lib, rc, f"encode_stripes ({bps} blocks per stripe)")
+    _build.check(lib, rc, f"encode_stripes (n2={cfg.n2}, {mode})")
     _build.LAUNCHES["encode_stripes"] += 1
     units = words.view(torch.int16)[:, :capacity]
     return bs.PackedStripes(units=units, bit_lengths=bits), block_bits

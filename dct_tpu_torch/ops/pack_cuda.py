@@ -8,6 +8,11 @@ launches the kernel on the current stream and counts the launch, and never
 falls back. The kernel takes the int32 chunks symbol_chunks gives, with
 lengths in [0, 16] and no value bit above its length; under that contract
 its units and bit lengths equal the plain version's.
+
+On the main paths only two encodes reach it: 2x2 blocks, which kernel B
+does not take, and the video codec's one-chunk encode with dynamic
+tables, which packs the symbols of its analyze pass (models/video.py).
+Every other encode runs kernel B.
 """
 
 from __future__ import annotations

@@ -5,11 +5,12 @@
 ``decode_blocks_kernel`` replaces ``decode_blocks_pallas``. For a tensor on
 the CPU each wrapper runs the plain version (ops/transform.py); for a CUDA
 tensor it checks its operands, launches the kernel and counts the launch,
-and never falls back. The kernels take n2 in {4, 16, 64} (KERNEL_N2) and
-raise NotImplementedError for any other: 16x16 blocks (n2 = 256) have no
-TPU kernel either, and the codec sends them to the plain float32 products
-(models/codec.py encode_transform / decode_transform), as the reference
-sends them to XLA.
+and never falls back. Kernel A takes n2 in {4, 16, 64, 256} (ENCODE_N2):
+at 256 it runs kernel B's 16x16 chain, so the analyze pass and B give the
+same integers. Kernel C takes n2 in {4, 16, 64} (DECODE_N2): 16x16 decode
+has no TPU kernel, and the codec sends it to the plain float32 product
+(models/codec.py decode_transform), as the reference sends it to XLA.
+Any other n2 raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -20,14 +21,15 @@ from dct_tpu_torch.config import CodecConfig
 from dct_tpu_torch.ops import _build, transform
 from dct_tpu_torch.tables import PACKED_N2, CodecOperators
 
-KERNEL_N2 = PACKED_N2
+ENCODE_N2 = PACKED_N2 + (256,)
+DECODE_N2 = PACKED_N2
 
 
-def _check_launch(x: torch.Tensor, cfg: CodecConfig, ops: CodecOperators,
-                  dtypes: tuple, what: str) -> None:
-    if cfg.n2 not in KERNEL_N2:
+def _check_launch(x: torch.Tensor, cfg: CodecConfig, operator: torch.Tensor,
+                  dtypes: tuple, what: str, kernel_n2: tuple) -> None:
+    if cfg.n2 not in kernel_n2:
         raise NotImplementedError(
-            f"{what} kernel takes n2 in {KERNEL_N2}, got {cfg.n2}")
+            f"{what} kernel takes n2 in {kernel_n2}, got {cfg.n2}")
     if x.dtype not in dtypes:
         raise TypeError(f"{what}: expected {dtypes}, got {x.dtype}")
     if x.dim() < 2 or x.shape[-1] != cfg.n2:
@@ -35,12 +37,21 @@ def _check_launch(x: torch.Tensor, cfg: CodecConfig, ops: CodecOperators,
                          f"{tuple(x.shape)}")
     if not x.is_contiguous():
         raise ValueError(f"{what}: input must be contiguous")
-    if ops.device != x.device:
-        raise ValueError(f"{what}: operators on {ops.device}, input on "
+    if operator.device != x.device:
+        raise ValueError(f"{what}: operators on {operator.device}, input on "
                          f"{x.device}")
-    if ops.m0.shape != (128, 128) or ops.m_dec.shape != (128, 128):
-        raise ValueError(f"{what}: operators are not the packed (128, 128) "
-                         f"form of n2={cfg.n2}")
+    p = 128 if cfg.n2 in PACKED_N2 else cfg.n2
+    if operator.shape != (p, p):
+        raise ValueError(f"{what}: n2={cfg.n2} requires the ({p}, {p}) "
+                         f"operators, got {tuple(operator.shape)}")
+
+
+def row_major(ops: CodecOperators) -> tuple:
+    """The encode operator parts as the kernels read them, row-major: the
+    packed forms already are; the (256, 256) parts of 16x16 blocks come
+    transposed in memory from tables.encode_operator_split and are
+    copied."""
+    return tuple(m.contiguous() for m in (ops.m0, ops.m1, ops.m2))
 
 
 def _aligned(x: torch.Tensor) -> torch.Tensor:
@@ -59,7 +70,8 @@ def encode_blocks_kernel(
     coefficients; transform.encode_blocks on the CPU, kernel A on CUDA."""
     if pixels.device.type == "cpu":
         return transform.encode_blocks(pixels, cfg, ops, adaptive_scale)
-    _check_launch(pixels, cfg, ops, (torch.uint8,), "encode_blocks")
+    _check_launch(pixels, cfg, ops.m0, (torch.uint8,), "encode_blocks",
+                  ENCODE_N2)
     pixels = _aligned(pixels)
     n_blocks = pixels.numel() // cfg.n2
     recip = None
@@ -72,11 +84,12 @@ def encode_blocks_kernel(
     out = torch.empty(pixels.shape, dtype=torch.int32, device=pixels.device)
     if n_blocks == 0:
         return out
+    m0, m1, m2 = row_major(ops)
     lib = _build.library("transform")
     with torch.cuda.device(pixels.device):
         rc = lib.dct_encode_blocks(
-            pixels.data_ptr(), ops.m0.data_ptr(), ops.m1.data_ptr(),
-            ops.m2.data_ptr(), ops.bias.data_ptr(), ops.m0.shape[1],
+            pixels.data_ptr(), m0.data_ptr(), m1.data_ptr(),
+            m2.data_ptr(), ops.bias.data_ptr(), m0.shape[1],
             _build.ptr(recip), out.data_ptr(), n_blocks, cfg.n2,
             torch.cuda.current_stream().cuda_stream,
         )
@@ -96,7 +109,8 @@ def decode_blocks_kernel(
     int16, the wire's coefficient type; int32 input is narrowed to it."""
     if zz.device.type == "cpu":
         return transform.decode_blocks(zz, cfg, ops, adaptive_scale)
-    _check_launch(zz, cfg, ops, (torch.int16, torch.int32), "decode_blocks")
+    _check_launch(zz, cfg, ops.m_dec, (torch.int16, torch.int32),
+                  "decode_blocks", DECODE_N2)
     zz = _aligned(zz.to(torch.int16))
     n_blocks = zz.numel() // cfg.n2
     scale = None

@@ -132,22 +132,28 @@ def encode_fma_chain(pixels: torch.Tensor, cfg: CodecConfig,
                      ops: dct_tables.CodecOperators,
                      recip: torch.Tensor | None = None) -> torch.Tensor:
     """Kernel A's arithmetic, value by value, on pixels' device: (B, n2) u8
-    blocks -> (B, n2) int32. Per coefficient three float32 accumulators,
-    one per bf16 operator part, each summed over j = 0 .. n2-1 in order,
-    then ((a0 + a1) + a2) + bias, times recip on AC under adaptive
-    quantization (one multiply), rounded half away from zero. The kernel
-    accumulates by FMA; here each step is a multiply and then an add: a u8
-    pixel times a bf16 value is exact in float32, so the two round alike
-    and the emulation is exact. recip: (B,) float32 reciprocal scales, or
-    None."""
+    blocks -> (B, n2) int32; kernel B's too. Per coefficient three float32
+    accumulators, one per bf16 operator part, each summed over j = 0 ..
+    n2-1 in order, then ((a0 + a1) + a2) + bias. At n2 = 256 each part's
+    sum is the reference's K = 128 split: lo over j = 0 .. 127 and hi over
+    j = 128 .. 255, each in order, a_i = lo_i + hi_i. Then times recip on
+    AC under adaptive quantization (one multiply), rounded half away from
+    zero. The kernels accumulate by FMA; here each step is a multiply and
+    then an add: a u8 pixel times a bf16 value is exact in float32, so the
+    two round alike and the emulation is exact. recip: (B,) float32
+    reciprocal scales, or None."""
     n2 = cfg.n2
     x = pixels.reshape(-1, n2).to(torch.float32)
     parts = [m[:n2, :n2] for m in (ops.m0, ops.m1, ops.m2)]
-    acc = [x.new_zeros(x.shape) for _ in parts]
-    for j in range(n2):
-        xj = x[:, j:j + 1]
-        for a, m in zip(acc, parts):
-            a.add_(xj * m[j])
+    halves = ((0, 128), (128, 256)) if n2 == 256 else ((0, n2),)
+    acc = None
+    for j0, j1 in halves:
+        half = [x.new_zeros(x.shape) for _ in parts]
+        for j in range(j0, j1):
+            xj = x[:, j:j + 1]
+            for a, m in zip(half, parts):
+                a.add_(xj * m[j])
+        acc = half if acc is None else [a + h for a, h in zip(acc, half)]
     y = (acc[0] + acc[1]) + acc[2] + ops.bias[:, :n2]
     if recip is not None:
         y[:, 1:] = y[:, 1:] * recip.reshape(-1, 1).to(torch.float32)

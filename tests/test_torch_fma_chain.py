@@ -1,8 +1,9 @@
 """The float32 chains kernels A and C promise (dct_tpu_torch.testing
 encode_fma_chain / decode_fma_chain) against the JAX reference and the
 plain versions on the CPU, and the codec's dispatch of the block
-transforms: kernels A and C for n2 in {4, 16, 64}, the plain float32
-products for 16x16 blocks.
+transforms: kernel A for n2 in {4, 16, 64, 256} (at 256 the chain of
+kernel B's 16x16 path, the reference's K = 128 split), kernel C for n2 in
+{4, 16, 64}, the plain float32 product for 16x16 decode.
 
 Tolerances. The chains sum the same exact products in another order than
 the reference's matrix products, so their integers may differ at ties only:
@@ -91,6 +92,26 @@ def test_decode_fma_chain_matches_reference(image, n, adaptive, quality):
     _ties_only(got, plain, vals, testing.DECODE_TIE_TOL)
 
 
+@pytest.mark.parametrize("adaptive", (False, True))
+@pytest.mark.parametrize("quality", (10, 50, 90))
+def test_encode_fma_chain_256_matches_reference(image, adaptive, quality):
+    """The n2 = 256 chain (lo and hi halves of each part, t_i = lo_i +
+    hi_i, ((t_0 + t_1) + t_2) + b) against the JAX 16x16 encode, whose
+    explicit K = 128 dots keep the same association: ties only."""
+    cfg, ops, px, scale_t, ref_cfg, scale = _reference_case(
+        image[:64, :128], 16, adaptive, quality)
+    recip = None if scale_t is None else transform.reciprocal_scale(scale_t)
+    got = testing.encode_fma_chain(torch.from_numpy(px), cfg, ops, recip)
+    assert got.dtype == torch.int32 and got.shape == px.shape == (32, 256)
+    vals = testing.encode_values_f64(
+        px, cfg, None if recip is None else recip.numpy())
+    want = np.array(ref_tf.encode_blocks(jnp.asarray(px), ref_cfg,
+                                           adaptive_scale=scale))
+    _ties_only(got, want, vals, testing.ENCODE_TIE_TOL)
+    plain = transform.encode_blocks(torch.from_numpy(px), cfg, ops, scale_t)
+    _ties_only(got, plain, vals, testing.ENCODE_TIE_TOL)
+
+
 def test_fma_chains_take_int16_and_leading_axes(image):
     """The kernels' input types: int16 coefficients decode as int32 ones."""
     cfg = CodecConfig(quality=50)
@@ -105,11 +126,12 @@ def test_fma_chains_take_int16_and_leading_axes(image):
 
 @pytest.fixture
 def kernels_refused(monkeypatch):
-    """Kernel wrappers A and C that raise if called at all."""
+    """Kernel C's wrapper, raising if called at all: 16x16 decode takes
+    the float32 product. (16x16 encode calls kernel A's wrapper, which
+    runs its plain version on the CPU.)"""
     def refuse(*args, **kwargs):
-        raise AssertionError("a transform kernel wrapper was called")
+        raise AssertionError("the decode kernel wrapper was called")
 
-    monkeypatch.setattr(transform_cuda, "encode_blocks_kernel", refuse)
     monkeypatch.setattr(transform_cuda, "decode_blocks_kernel", refuse)
 
 
@@ -152,9 +174,9 @@ def test_16x16_video_takes_the_float32_route(kernels_refused):
 
 @pytest.mark.parametrize("n", (2, 4, 8, 16))
 def test_transform_dispatch(image, monkeypatch, n):
-    """codec.encode_transform / decode_transform call kernels A and C for
-    n2 in KERNEL_N2 and never for 16x16 blocks, and count nothing
-    themselves."""
+    """codec.encode_transform / decode_transform call kernel A for n2 in
+    ENCODE_N2 (16x16 included) and kernel C for n2 in DECODE_N2 (never
+    for 16x16 blocks), and count nothing themselves."""
     calls = []
     for name in ("encode_blocks_kernel", "decode_blocks_kernel"):
         real = getattr(transform_cuda, name)
@@ -168,9 +190,10 @@ def test_transform_dispatch(image, monkeypatch, n):
     zz = codec.encode_transform(px, cfg, ops)
     rec = codec.decode_transform(zz, cfg, ops)
     assert _build.LAUNCHES == before
-    in_kernels = cfg.n2 in transform_cuda.KERNEL_N2
+    assert cfg.n2 in transform_cuda.ENCODE_N2
     assert calls == (["encode_blocks_kernel", "decode_blocks_kernel"]
-                     if in_kernels else [])
+                     if cfg.n2 in transform_cuda.DECODE_N2
+                     else ["encode_blocks_kernel"])
     torch.testing.assert_close(zz, transform.encode_blocks(px, cfg, ops),
                                rtol=0, atol=0)
     torch.testing.assert_close(rec, transform.decode_blocks(zz, cfg, ops),

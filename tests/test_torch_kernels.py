@@ -9,15 +9,17 @@ suite's conftest.py imports jax). Shapes are small; the full-size
 comparison at 8 x 1088 x 1920 is chip_smoke.py's.
 
 Tolerances: kernel B is held bit-exact against the plain staged pipeline
-fed kernel A's integers (A and B share one device function). A and C are
-held bit-exact against the float32 chains they promise
-(dct_tpu_torch.testing encode_fma_chain / decode_fma_chain), at every
-block count; they sum their float32 products in another order than the
-plain version's matrix product, so against it their integers may differ
-at ties only: at most 1 apart, where the float64 value lies within 1e-6
-(encode, tests/test_parity.py's criterion) or 1e-3 (decode) of a .5
-boundary. The plain versions run on the card here with TF32 off, so their
-float32 products stay float32; 16x16 blocks, which no kernel takes, are
+fed kernel A's integers (A and B share one float32 chain at every n2),
+in every mode at 4x4, 8x8 and 16x16 blocks and on a stripe wider than
+shared memory could hold. A and C are held bit-exact against the float32
+chains they promise (dct_tpu_torch.testing encode_fma_chain /
+decode_fma_chain), at every block count, A at 16x16 too; they sum their
+float32 products in another order than the plain version's matrix
+product, so against it their integers may differ at ties only: at most 1
+apart, where the float64 value lies within 1e-6 (encode,
+tests/test_parity.py's criterion) or 1e-3 (decode) of a .5 boundary. The
+plain versions run on the card here with TF32 off, so their float32
+products stay float32; 16x16 blocks, whose decode no kernel takes, are
 decoded once more with TF32 on, which the codec's route must override. Kernel D
 is held bit-exact against its plain version and the host decoder in every
 mode, and against its plain version on random bits under a random index;
@@ -149,15 +151,43 @@ def test_transform_kernels_on_ragged_batches(cuda, n, n_blocks):
 
 
 @pytest.mark.cuda
-def test_transform_kernels_refuse_16x16(cuda):
+@pytest.mark.parametrize("n_blocks", (0, 1, 4099, 40003))
+def test_encode_kernel_256_on_ragged_batches(cuda, n_blocks):
+    """Kernel A at 16x16 blocks (kernel B's chain, the operator read
+    through L2): bit-exact against encode_fma_chain's n2 = 256 chain on
+    block counts that fill no tile, end in a part tile and give every CTA
+    several tiles, from an input one block into its buffer."""
+    cfg = CodecConfig(block_size=16, quality=70, adaptive=True)
+    rng = np.random.default_rng(n_blocks)
+    buf = torch.from_numpy(rng.integers(0, 256, (n_blocks + 1, 256),
+                                        dtype=np.uint8))
+    scale = torch.from_numpy(rng.uniform(0.5, 2.0, n_blocks).astype(
+        np.float32))
+    before = _build.LAUNCHES["encode_blocks"]
+    got = transform_cuda.encode_blocks_kernel(
+        buf.to(cuda)[1:], cfg, tables.build(cfg, device=cuda), scale.to(cuda))
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["encode_blocks"] == before + int(n_blocks > 0)
+    assert got.shape == (n_blocks, 256) and got.dtype == torch.int32
+    want = testing.encode_fma_chain(buf[1:], cfg, tables.build(cfg),
+                                    transform.reciprocal_scale(scale))
+    np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
+
+
+@pytest.mark.cuda
+def test_transform_kernels_refuse_what_they_do_not_take(cuda):
+    """Kernel C takes no 16x16 blocks (the codec decodes them through the
+    float32 product), and neither kernel a block size without a kernel."""
     cfg = CodecConfig(block_size=16)
     ops = tables.build(cfg, device=cuda)
     with pytest.raises(NotImplementedError):
-        transform_cuda.encode_blocks_kernel(
-            torch.zeros(4, 256, dtype=torch.uint8, device=cuda), cfg, ops)
-    with pytest.raises(NotImplementedError):
         transform_cuda.decode_blocks_kernel(
             torch.zeros(4, 256, dtype=torch.int16, device=cuda), cfg, ops)
+    cfg3 = CodecConfig(block_size=3)
+    ops3 = tables.build(cfg3, device=cuda)
+    with pytest.raises(NotImplementedError):
+        transform_cuda.encode_blocks_kernel(
+            torch.zeros(4, 9, dtype=torch.uint8, device=cuda), cfg3, ops3)
 
 
 CASES_16 = {
@@ -169,8 +199,9 @@ CASES_16 = {
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", sorted(CASES_16))
 def test_16x16_codec_on_cuda_matches_cpu(cuda, image, case):
-    """16x16 blocks encode and decode on the card through the float32
-    route: no A, B or C launch; D and E where the container takes them."""
+    """16x16 blocks encode on the card through kernels A (the analyze
+    pass) and B, and decode through D where the container is indexed and
+    the float32 product: no C or E launch."""
     cfg = CodecConfig(**CASES_16[case])
     gpu = codec.ImageCodec(cfg, device=cuda)
     _build.reset_launch_counts()
@@ -178,8 +209,8 @@ def test_16x16_codec_on_cuda_matches_cpu(cuda, image, case):
     rec = gpu.decode_to_device(data)
     torch.cuda.synchronize()
     counts = dict(_build.LAUNCHES)
-    assert counts["encode_blocks"] == counts["encode_stripes"] == 0
-    assert counts["decode_blocks"] == 0 and counts["pack_chunks"] == 1
+    assert counts["encode_blocks"] == counts["encode_stripes"] == 1
+    assert counts["decode_blocks"] == 0 and counts["pack_chunks"] == 0
     assert counts["entropy_decode"] == (1 if cfg.decode_index else 0)
     want = codec.ImageCodec(cfg, device="cpu").encode(image)
     assert data[4] == want[4] == (2 if cfg.decode_index else 1)
@@ -219,7 +250,8 @@ def test_16x16_video_on_cuda_matches_cpu(cuda):
     _build.reset_launch_counts()
     streams = video.VideoCodec(cfg, device=cuda).encode(frames)
     rec = video.VideoCodec(cfg, device=cuda).decode(streams)
-    assert _build.LAUNCHES["encode_blocks"] == 0
+    assert _build.LAUNCHES["encode_blocks"] == 1  # one chunk: analyze + E
+    assert _build.LAUNCHES["pack_chunks"] == 1
     assert _build.LAUNCHES["decode_blocks"] == 0
     want = video.VideoCodec(cfg, device="cpu").encode(frames)
     ref = video.VideoCodec(cfg, device="cpu").decode(streams)
@@ -235,22 +267,23 @@ STRIPE_CASES = {
     "dynamic_q50": dict(quality=50),
     "q90_adaptive_dc_runs": dict(quality=90, adaptive=True,
                                  dc_prediction=True, coded_runs=True),
+    "n4_category": dict(block_size=4),
+    "n4_direct": dict(block_size=4, huffman_mode="direct"),
+    "n4_none": dict(block_size=4, use_huffman=False),
+    "direct_q90": dict(quality=90, huffman_mode="direct"),
+    "none_q50": dict(use_huffman=False),
+    "direct_adaptive_dc_runs": dict(quality=90, huffman_mode="direct",
+                                    adaptive=True, dc_prediction=True,
+                                    coded_runs=True),
+    "n16_category_q90": dict(block_size=16, quality=90),
+    "n16_direct": dict(block_size=16, huffman_mode="direct"),
+    "n16_none": dict(block_size=16, use_huffman=False),
 }
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("case", sorted(STRIPE_CASES))
-def test_stripe_kernel_matches_staged_pipeline(cuda, image, case):
-    cfg = CodecConfig(**STRIPE_CASES[case])
-    px, scale = _blocks_and_scale(image, cfg, cuda)
-    n_stripes = 9
-    ops = tables.build(cfg, device=cuda)
-    if not cfg.static_tables:  # per-image tables, as the codec builds them
-        _, _, hist, run_hist = codec.encode_analyze(
-            codec.pad_plane_for_encode(torch.from_numpy(image).to(cuda), cfg),
-            cfg, ops)
-        ops = ops.with_tables(codec._build_table(cfg, hist.cpu().numpy()),
-                              codec._build_run_table(cfg, run_hist.cpu().numpy()))
+def _stripe_check(cfg, px, scale, n_stripes, ops):
+    """Kernel B against the plain staged pipeline fed kernel A's integers:
+    units, stripe bits and block bits exactly equal."""
     packed, bbits = fused_encode_cuda.encode_stripes_fused(
         px, cfg, n_stripes, ops, scale)
     zz = transform_cuda.encode_blocks_kernel(px, cfg, ops, scale)
@@ -267,18 +300,38 @@ def test_stripe_kernel_matches_staged_pipeline(cuda, image, case):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", sorted(STRIPE_CASES))
+def test_stripe_kernel_matches_staged_pipeline(cuda, image, case):
+    cfg = CodecConfig(**STRIPE_CASES[case])
+    px, scale = _blocks_and_scale(image, cfg, cuda)
+    n_stripes = codec._padded_grid(*image.shape, cfg)[2]
+    ops = tables.build(cfg, device=cuda)
+    if not cfg.static_tables:  # per-image tables, as the codec builds them
+        _, _, hist, run_hist = codec.encode_analyze(
+            codec.pad_plane_for_encode(torch.from_numpy(image).to(cuda), cfg),
+            cfg, ops)
+        ops = ops.with_tables(codec._build_table(cfg, hist.cpu().numpy()),
+                              codec._build_run_table(cfg, run_hist.cpu().numpy()))
+    _stripe_check(cfg, px.reshape(-1, cfg.n2), scale, n_stripes, ops)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(STRIPE_CASES))
 def test_codec_on_cuda_matches_cpu(cuda, image, case):
     cfg = CodecConfig(**STRIPE_CASES[case])
     _build.reset_launch_counts()
     data = codec.ImageCodec(cfg, device=cuda).encode(image)
-    assert data == codec.ImageCodec(cfg, device="cpu").encode(image)
+    want = codec.ImageCodec(cfg, device="cpu").encode(image)
+    if data != want:  # 16x16: kernel A's chain against the CPU's product
+        assert cfg.block_size == 16
+        assert testing.encode_mismatches(data, want, image)[1] == 0
     rec = codec.ImageCodec(cfg, device=cuda).decode_to_device(data)
     assert rec.device.type == "cuda"
     ref = codec.ImageCodec(cfg, device="cpu").decode(data)
     assert np.abs(rec.cpu().numpy().astype(int) - ref).max() <= 1
     assert _build.LAUNCHES["encode_stripes"] == 1
     assert _build.LAUNCHES["encode_blocks"] == (0 if cfg.static_tables else 1)
-    assert _build.LAUNCHES["decode_blocks"] == 1
+    assert _build.LAUNCHES["pack_chunks"] == 0
+    assert _build.LAUNCHES["decode_blocks"] == (0 if cfg.n2 == 256 else 1)
 
 
 @pytest.mark.cuda
@@ -297,8 +350,10 @@ def test_encode_step_frames_on_cuda(cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kw", (dict(block_size=4), dict(huffman_mode="none")))
+@pytest.mark.parametrize("kw", (dict(block_size=2),
+                                dict(block_size=2, use_huffman=False)))
 def test_stripe_kernel_refuses_what_it_does_not_cover(cuda, kw):
+    """2x2 blocks (n2 = 4): no B config in the reference either."""
     cfg = CodecConfig(static_tables=False, **kw)
     px = torch.zeros(16, cfg.n2, dtype=torch.uint8, device=cuda)
     with pytest.raises(NotImplementedError):
@@ -315,12 +370,19 @@ def test_container_of_1080p_frame_is_v1_at_q50(cuda):
 
 
 @pytest.mark.cuda
-def test_stripe_wider_than_shared_memory_is_refused(cuda):
-    cfg = CodecConfig(static_tables=True)
-    px = torch.zeros(1200, 64, dtype=torch.uint8, device=cuda)  # ~290 KB
-    with pytest.raises(RuntimeError, match="1200 blocks per stripe"):
-        fused_encode_cuda.encode_stripes_fused(
-            px, cfg, 1, tables.build(cfg, device=cuda))
+@pytest.mark.parametrize("block_size", (4, 8, 16))
+def test_stripe_wider_than_shared_memory_encodes(cuda, block_size):
+    """Two stripes of 1,201 blocks each (at 8x8 ~290 KB of pixels,
+    operators and coefficients, more than a CTA's shared memory): kernel
+    B walks them in tiles, the last one part-filled (an odd count, so at
+    4x4 the last warp holds one block)."""
+    cfg = CodecConfig(block_size=block_size, quality=80, static_tables=True,
+                      dc_prediction=True)
+    img = image_io.synthetic_image(2 * block_size, 1201 * block_size,
+                                   "photo", seed=4)
+    px, _ = _blocks_and_scale(img, cfg, cuda)
+    _stripe_check(cfg, px.reshape(-1, cfg.n2), None, 2,
+                  tables.build(cfg, device=cuda))
 
 
 DECODE_CASES = {
@@ -409,7 +471,7 @@ def test_indexed_decode_on_cuda_equals_the_host_route(cuda, image, case):
     rec = codec.ImageCodec(cfg, device=cuda).decode_to_device(data)
     assert rec.device.type == "cuda"
     assert _build.LAUNCHES["entropy_decode"] == 1
-    assert _build.LAUNCHES["decode_blocks"] == 1
+    assert _build.LAUNCHES["decode_blocks"] == (0 if cfg.n2 == 256 else 1)
     c = cont.deserialize(data)
     host = codec.decode_plane_device(
         dataclasses.replace(c.planes[0], block_bits=None), c.config, cuda)
@@ -505,14 +567,16 @@ def test_staged_pack_matches_plain_on_symbol_chunks(cuda, image, case):
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", sorted(STAGED_CASES))
 def test_staged_codec_on_cuda_matches_cpu(cuda, image, case):
-    """Configs kernel B does not take encode through kernels A and E."""
+    """The dynamic-table encodes: kernel A's analyze pass, then kernel B
+    where it takes the config, else (2x2 blocks) kernel E."""
     cfg = CodecConfig(**STAGED_CASES[case])
-    assert not codec.fused_kernel_ok(cfg)
+    fused = codec.fused_kernel_ok(cfg)
+    assert fused == (cfg.block_size != 2)
     _build.reset_launch_counts()
     data = codec.ImageCodec(cfg, device=cuda).encode(image)
-    assert _build.LAUNCHES["pack_chunks"] == 1
+    assert _build.LAUNCHES["pack_chunks"] == (0 if fused else 1)
     assert _build.LAUNCHES["encode_blocks"] == 1
-    assert _build.LAUNCHES["encode_stripes"] == 0
+    assert _build.LAUNCHES["encode_stripes"] == (1 if fused else 0)
     assert data == codec.ImageCodec(cfg, device="cpu").encode(image)
     rec = codec.ImageCodec(cfg, device=cuda).decode_to_device(data)
     assert rec.device.type == "cuda"

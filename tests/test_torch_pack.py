@@ -5,8 +5,11 @@ The port's chunk packer (ops/bitstream.py pack_chunks, which
 ops/pack_cuda.py pack_chunks_kernel runs for CPU tensors) must give the
 units and stripe bit lengths of the JAX Pallas packer in interpret mode
 (``pack_chunks_pallas``, as tests/test_entropy_stage.py runs it) and of the
-JAX scatter packer, bit for bit; the staged ImageCodec must write the JAX
-ImageCodec's container bytes in every mode it routes there.
+JAX scatter packer, bit for bit; the dynamic-table ImageCodec on the CPU
+(the analyze pass, then the staged pack kernel E's plain version runs)
+must write the JAX ImageCodec's container bytes in every mode. On the
+card the same configs run kernel B after the analyze pass, except 2x2
+blocks, which keep kernel E.
 """
 
 import numpy as np
@@ -216,7 +219,7 @@ STAGED_CASES = {
 def test_staged_image_path_matches_reference(image, case, decode_index):
     kw = dict(STAGED_CASES[case], decode_index=decode_index)
     cfg = CodecConfig(**kw)
-    assert not codec.fused_kernel_ok(cfg)
+    assert codec.fused_kernel_ok(cfg) == (cfg.block_size != 2)
     want = ref_codec.ImageCodec(RefConfig(**kw)).encode(image)
     got = codec.ImageCodec(cfg, device="cpu").encode(image)
     assert got == want
@@ -230,9 +233,9 @@ def test_staged_image_path_matches_reference(image, case, decode_index):
 
 @pytest.mark.parametrize("case", ("n4_static_runs",))
 def test_staged_encode_step_matches_reference(case):
-    """Static tables where kernel B does not take the config: encode_step
-    over a frame stack runs the staged path, frame by frame equal to the
-    JAX encode_step."""
+    """Static tables at 4x4 blocks with coded runs: encode_step over a
+    frame stack (kernel B's route, its plain version on the CPU), frame by
+    frame equal to the JAX encode_step."""
     kw = STAGED_CASES[case]
     cfg = CodecConfig(**kw)
     frames = np.stack([image_io.synthetic_image(32, 48, "photo", seed=s)

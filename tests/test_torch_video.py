@@ -134,11 +134,11 @@ def test_chunked_decode_matches(frames):
 @pytest.mark.parametrize("block_size", (2, 4, 8, 16))
 @pytest.mark.parametrize("mode", ("category", "direct", "none"))
 def test_fused_kernel_ok_truth_table(block_size, mode):
-    """Kernel B takes 8x8 blocks in category mode and nothing else."""
+    """Kernel B takes 4x4, 8x8 and 16x16 blocks in every mode, and 2x2
+    blocks in none."""
     cfg = CodecConfig(block_size=block_size, use_huffman=mode != "none",
                       huffman_mode=mode if mode != "none" else "category")
-    assert codec.fused_kernel_ok(cfg) == (block_size == 8
-                                          and mode == "category")
+    assert codec.fused_kernel_ok(cfg) == (block_size in (4, 8, 16))
 
 
 def test_cpu_video_launches_nothing(frames):
