@@ -4,18 +4,28 @@
 
 Run from the repository root on a machine with a CUDA card and the CUDA
 toolkit. It builds the port's kernels from csrc/ into build/torch_kernels/,
-then:
+counts the integer tensor-core instructions (IMMA, from cuobjdump -sass)
+in kernels A's and B's functions (each must have some), holds the
+tensor-core tile's integer products (transform_cuda.mma_products) equal
+to int64 products at n2 4, 16, 64 and 256, then:
 
-  1. kernel A (encode transform) on 8 frames of 1088 x 1920, adaptive
-     quantization off and on, in 8x8 blocks and in 16x16 blocks (kernel
-     B's n2 = 256 chain): bit-exact against the float32 chain it promises
-     (testing.encode_fma_chain), ties only against its plain version;
+  1. kernel A (encode transform: the tensor-core tile, the rounding
+     certificate and the rescue of csrc/transform_core.cuh) on 8 frames
+     of 1088 x 1920, adaptive quantization off and on and static q100
+     (timed: ~2 % of its coefficients rescued), in 8x8 blocks and in
+     16x16 blocks: bit-exact against the float32 chain it promises
+     (testing.encode_fma_chain), ties only against its plain version,
+     with the share of coefficients its chain rescued; its library time
+     is one cuBLAS call computing its products only (the pixels as bf16
+     times the four byte planes as bf16, float32 out: exact, every partial
+     sum an integer below 2^24), checked equal to the tile's products;
   2. kernel C (decode transform) on those coefficients: against
      testing.decode_fma_chain (ties only, expected 0 mismatches) and its
      plain version (ties only);
   3. kernel B (fused stripe encode) against the plain staged pipeline
      (codec.encode_pack_plain) fed kernel A's integers — exactly equal
-     units, stripe bits and block bits — on the batch at static q50,
+     units, stripe bits and block bits, with B's rescue share — on the
+     batch at static q50,
      dynamic-table q50, adaptive + DC prediction + coded runs, and at the
      other configs B takes: 4x4 blocks in category (dynamic),
      direct and "none" modes; 8x8 in direct q90, "none", and direct with
@@ -85,11 +95,11 @@ in different orders; dct_tpu_torch.testing). B, D and E are held
 bit-exact. Any failed check raises. Each kernel's bound is the larger of
 the bytes it must move (each input read once, each output written once)
 over 3.35 TB/s and its operations over the H100's peak for their type
-(989 TFLOP/s bf16 for A and B, whose u8 x bf16 products are exact there;
-67 TFLOP/s float32 for C, whose coefficients need float32; D and E do no
-arithmetic worth a bound), computed from this run's inputs; A's floor on
-the float32 CUDA cores, where it runs, is printed beside it, and so is
-each kernel's launches x (time - bound), the order of the redesign queue.
+(1,979 TOP/s int8 for A and B, four u8 x u8/s8 products of n2 x n2 a
+block on the tensor cores; 67 TFLOP/s float32 for C, whose coefficients
+need float32; D and E do no arithmetic worth a bound), computed from this
+run's inputs; each kernel's launches x (time - bound), the order of the
+redesign queue, is printed beside it.
 The last line is the JSON status; the line before it the card's name and
 power limit, and the one before that the kernel table.
 """
@@ -107,7 +117,7 @@ import numpy as np
 FRAMES, H, W = 8, 1088, 1920  # 1080p on the 8-px grid: 136 x 240 blocks
 VIDEO_FRAMES, VH, VW = 32, 1080, 1920  # the video phase: 66 Mpix, one chunk
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
-BF16_FLOPS = 989e12
+INT8_OPS = 1979e12
 F32_FLOPS = 67e12
 
 
@@ -174,6 +184,45 @@ def bound_ms(n_bytes: float, flops: float = 0.0, peak: float = 1.0):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def a_b_ops(nb: int, n2: int) -> float:
+    """Operations of A's and B's transform: four (n2, n2) int8 plane
+    products a block, two operations a multiply-add."""
+    return 4 * 2 * nb * n2 * n2
+
+
+def operator_bytes(ops) -> int:
+    """The operands A and B read for the transform: the byte planes, the
+    certificate constants, the transposed float32 parts, the bias."""
+    return sum(t.numel() * t.element_size() for t in (
+        ops.int_planes, ops.int_cert, ops.parts_t, ops.bias))
+
+
+def rescue_share(kernel: str, coefficients: int) -> str:
+    from dct_tpu_torch.ops import _build
+
+    n = _build.rescued(kernel)
+    return f"{n} rescued ({100 * n / coefficients:.3f} %)"
+
+
+def imma_counts(names) -> dict:
+    """{kernel function: IMMA instructions} in the built libraries, from
+    cuobjdump -sass (next to nvcc)."""
+    import pathlib
+    from dct_tpu_torch.ops import _build
+
+    cuobjdump = pathlib.Path(_build.nvcc_path()).parent / "cuobjdump"
+    counts = {}
+    for name in names:
+        sass = subprocess.run([str(cuobjdump), "-sass",
+                               str(_build.library_path(name))],
+                              capture_output=True, text=True,
+                              check=True).stdout
+        for fn, body in re.findall(r"Function : (\S+)(.*?)(?=Function :|\Z)",
+                                   sass, re.S):
+            counts[fn] = len(re.findall(r"\bIMMA\b", body))
+    return counts
+
+
 def batch_tables(cfg, px, scale, n_stripes, ops):
     """Per-batch canonical tables from the histograms of kernel A's
     coefficients (static tables: the defaults): (ops, table, run_table)."""
@@ -211,11 +260,15 @@ def check_b(name, cfg, px, scale, n_stripes, ops):
     from dct_tpu_torch.ops import bitstream as bs
     from dct_tpu_torch.ops import fused_encode_cuda, rle, transform_cuda
 
+    from dct_tpu_torch.ops import _build
+
     zz = transform_cuda.encode_blocks_kernel(px, cfg, ops, scale)
     if cfg.dc_prediction:
         zz = codec.dc_predict(zz, n_stripes)
+    _build.reset_rescued()
     got, got_bb = fused_encode_cuda.encode_stripes_fused(
         px, cfg, n_stripes, ops, scale)
+    share = rescue_share("encode_stripes", px.numel())
     ref, ref_bb = codec.encode_pack_plain(rle.rle_encode_positional(zz),
                                           cfg, n_stripes, ops)
     g, r = bs.fetch_packed(got), bs.fetch_packed(ref)
@@ -226,8 +279,8 @@ def check_b(name, cfg, px, scale, n_stripes, ops):
     log(f"B {name}: {px.shape[0]} blocks, {n_stripes} stripes, "
         f"{int(g.bit_lengths.sum())} bits, fullest stripe "
         f"{100 * int(g.bit_lengths.max()) / capacity_bits:.1f} % of its "
-        f"worst-case buffer; units/stripe bits/block bits equal to the "
-        f"staged pipeline: {same}")
+        f"worst-case buffer; {share}; units/stripe bits/block bits equal "
+        f"to the staged pipeline: {same}")
     check(same, f"B {name} differs from the staged pipeline")
     err = int(np.abs(g.units.astype(np.int64) - r.units).max())
     return got, got_bb, err
@@ -346,6 +399,28 @@ def main() -> int:
                 log(f"    {kind} n2={n2} adaptive={ad}: {used} registers, "
                     f"{spill} bytes spill stores")
 
+    imma = imma_counts(("transform", "fused_encode"))
+    for fn, n in imma.items():
+        if "encode" in fn:  # kernels A and B (C and D do no integer products)
+            log(f"IMMA instructions in {fn}: {n}")
+            check(n > 0, f"{fn} has no integer tensor-core instructions")
+    # the tensor-core tile's integer products, before A and B rely on them
+    for n in (2, 4, 8, 16):
+        cfg = CodecConfig(block_size=n, quality=90)
+        ops = tables.build(cfg, device=dev)
+        p = tables.mma_width(cfg.n2)
+        w, _ = tables.integer_operator(*(m[:cfg.n2, :cfg.n2].cpu().numpy()
+                                         for m in (ops.m0, ops.m1, ops.m2)))
+        w_bd = torch.block_diag(*[torch.from_numpy(w)] * (p // cfg.n2))
+        rows = torch.from_numpy(np.random.default_rng(n).integers(
+            0, 256, (4097, p), dtype=np.uint8))
+        rows[0] = 255
+        got = transform_cuda.mma_products(rows.to(dev), ops, cfg.n2).cpu()
+        same = torch.equal(got, rows.to(torch.int64) @ w_bd)
+        log(f"tile products n2={cfg.n2} ({rows.shape[0]} rows of {p}): equal "
+            f"to int64 x @ W: {same}")
+        check(same, f"tile products differ at n2={cfg.n2}")
+
     static = CodecConfig(quality=50, static_tables=True, use_pallas=True)
     dynamic = CodecConfig(quality=50)
     rich = CodecConfig(quality=50, adaptive=True, dc_prediction=True,
@@ -393,16 +468,19 @@ def main() -> int:
     px_h = px.cpu().numpy()
     results = {}
     zz_main = None
-    for cfg in (static, rich):
+    q100 = CodecConfig(quality=100, static_tables=True)
+    for cfg in (static, rich, q100):
         ops = tables.build(cfg, device=dev)
         _, scale = codec._adaptive(px, cfg)
         recip = None if scale is None else transform.reciprocal_scale(scale)
         recip_h = None if recip is None else recip.cpu().numpy()
+        _build.reset_rescued()
         got = transform_cuda.encode_blocks_kernel(px, cfg, ops, scale)
         n_chain = int((got != testing.encode_fma_chain(px, cfg, ops,
                                                        recip)).sum())
         log(f"A adaptive={cfg.adaptive}: {n_chain} mismatches of "
-            f"{got.numel()} against encode_fma_chain")
+            f"{got.numel()} against encode_fma_chain; "
+            f"{rescue_share('encode_blocks', got.numel())}")
         check(n_chain == 0, "A differs from the float32 chain it promises")
         want = transform.encode_blocks(px, cfg, ops, scale)
         res_a = tie_check(
@@ -427,8 +505,12 @@ def main() -> int:
         if cfg is static:
             results["encode_blocks"], results["decode_blocks"] = res_a, res_c
             zz_main = got
-    # kernel A at 16x16 blocks: kernel B's n2 = 256 chain (the 16x16
-    # decode has no kernel: the codec runs the float32 product)
+        if cfg is q100:  # the rescue's cost: q50's blocks, ~60x the rescues
+            a100_ms = cuda_ms(lambda: transform_cuda.encode_blocks_kernel(
+                px, cfg, ops), 20)
+            log(f"time encode_blocks static q100: kernel {a100_ms:.4f} ms")
+    # kernel A at 16x16 blocks, on the n2 = 256 tile it shares with B (the
+    # 16x16 decode has no kernel: the codec runs the float32 product)
     px16 = blocks.image_to_blocks(frames_d, 16).reshape(-1, 256)
     px16_h = px16.cpu().numpy()
     for cfg in (CodecConfig(block_size=16, quality=90),
@@ -437,11 +519,13 @@ def main() -> int:
         _, scale = codec._adaptive(px16, cfg)
         recip = None if scale is None else transform.reciprocal_scale(scale)
         recip_h = None if recip is None else recip.cpu().numpy()
+        _build.reset_rescued()
         got = transform_cuda.encode_blocks_kernel(px16, cfg, ops, scale)
         n_chain = int((got != testing.encode_fma_chain(px16, cfg, ops,
                                                        recip)).sum())
-        log(f"A 16x16 adaptive={cfg.adaptive}: {n_chain} mismatches of "
-            f"{got.numel()} against encode_fma_chain")
+        log(f"A 16x16 q{cfg.quality} adaptive={cfg.adaptive}: {n_chain} "
+            f"mismatches of {got.numel()} against encode_fma_chain; "
+            f"{rescue_share('encode_blocks', got.numel())}")
         check(n_chain == 0, "A at 16x16 differs from the float32 chain")
         tie_check(f"A 16x16 adaptive={cfg.adaptive}", got,
                   transform.encode_blocks(px16, cfg, ops, scale),
@@ -453,12 +537,11 @@ def main() -> int:
     a16_plain = cuda_ms(lambda: transform.encode_blocks(px16, cfg, ops,
                                                         scale), 20)
     nb16 = px16.shape[0]
-    a16_bound = bound_ms(nb16 * (256 * 5 + 4) + 3 * 4 * 256 * 256,
-                         3 * 2 * nb16 * 256 * 256, BF16_FLOPS)
+    a16_bound = bound_ms(nb16 * (256 * 5 + 4) + operator_bytes(ops),
+                         a_b_ops(nb16, 256), INT8_OPS)
     log(f"time encode_blocks 16x16 adaptive: kernel {a16_ms:.4f} ms, plain "
         f"{a16_plain:.4f} ms, bound {a16_bound[0]:.5f} ms ({a16_bound[1]}), "
-        f"float32 floor {3 * 2 * nb16 * 256 * 256 / F32_FLOPS * 1e3:.5f} "
-        f"ms, {nb16} blocks")
+        f"{nb16} blocks")
     del px16, px16_h
     s_all = FRAMES * n_stripes
     for name, cfg in (("static", static), ("dynamic", dynamic),
@@ -500,10 +583,9 @@ def main() -> int:
         plain_ms = cuda_ms(lambda: fused_encode_cuda.encode_stripes_plain(
             pxn, cfg, ns, ops, scale), 3)
         nb, n2 = pxn.shape
-        p = 128 if n2 <= 64 else n2
         b_bound = bound_ms(
-            nb * n2 + 3 * 4 * p * p + packed.bit_lengths.sum().item() / 8
-            + 4 * ns + 4 * nb, 3 * 2 * nb * n2 * n2, BF16_FLOPS)
+            nb * n2 + operator_bytes(ops) + packed.bit_lengths.sum().item() / 8
+            + 4 * ns + 4 * nb, a_b_ops(nb, n2), INT8_OPS)
         log(f"time encode_stripes {name}: kernel {b_ms:.4f} ms, plain "
             f"{plain_ms:.4f} ms, bound {b_bound[0]:.5f} ms ({b_bound[1]}; "
             f"kernel at {100 * b_bound[0] / b_ms:.1f} %), {nb} blocks of "
@@ -535,6 +617,26 @@ def main() -> int:
     for k, (ms, plain) in times.items():
         log(f"time {k}: kernel {ms:.4f} ms, plain {plain:.4f} ms "
             f"(8 x {H}x{W})")
+    # A's library time: one cuBLAS call computing its products only, the
+    # pixels as bf16 times the four byte planes side by side as bf16,
+    # float32 out (exact: every partial sum is an integer below 2^24)
+    w8, _ = tables.integer_operator(*(m[:64, :64].cpu().numpy()
+                                      for m in (ops.m0, ops.m1, ops.m2)))
+    planes = torch.from_numpy(np.concatenate(list(tables.byte_planes(w8)),
+                                             axis=1)).to(dev, torch.bfloat16)
+    px_bf = px.to(torch.bfloat16)
+    lib_prod = torch.mm(px_bf, planes, out_dtype=torch.float32)
+    lib_s = sum(lib_prod[:, 64 * l:64 * (l + 1)].to(torch.int64) << 8 * l
+                for l in range(4))
+    tile_s = transform_cuda.mma_products(px.reshape(-1, 64), ops, 64)
+    check(torch.equal(lib_s, tile_s),
+          "the cuBLAS plane products differ from the tile's")
+    a_library_ms = cuda_ms(lambda: torch.mm(px_bf, planes,
+                                            out_dtype=torch.float32), 20)
+    log(f"time encode_blocks library (cuBLAS bf16 ({px.shape[0]}, 64) @ "
+        f"(64, 256), float32 out; products only, equal to the tile's): "
+        f"{a_library_ms:.4f} ms")
+    del lib_prod, lib_s, tile_s, px_bf
     c32_ms = cuda_ms(lambda: transform_cuda.decode_blocks_kernel(
         zz_main, static, ops), 20)
     log(f"time decode_blocks on A's int32 coefficients (the wrapper narrows "
@@ -1046,12 +1148,13 @@ def main() -> int:
     nb = px.shape[0]
     op_bytes = 4 * 128 * 128
     mm_flops = 2 * nb * 64 * 64  # one (NB, 64) x (64, 64) product
+    ab_bytes = operator_bytes(tables.build(static, device=dev))
     bounds = {
-        "encode_blocks": bound_ms(nb * 64 + nb * 64 * 4 + 3 * op_bytes,
-                                  3 * mm_flops, BF16_FLOPS),
+        "encode_blocks": bound_ms(nb * 64 + nb * 64 * 4 + ab_bytes,
+                                  a_b_ops(nb, 64), INT8_OPS),
         "encode_stripes": bound_ms(
-            nb * 64 + 3 * op_bytes + batch_bits / 8 + 4 * s_all + 4 * nb,
-            3 * mm_flops, BF16_FLOPS),
+            nb * 64 + ab_bytes + batch_bits / 8 + 4 * s_all + 4 * nb,
+            a_b_ops(nb, 64), INT8_OPS),
         "decode_blocks": bound_ms(nb * 64 * 2 + nb * 64 + op_bytes,
                                   mm_flops, F32_FLOPS),
         "entropy_decode": bound_ms(
@@ -1068,9 +1171,6 @@ def main() -> int:
         log(f"bound {k}: {b_ms:.5f} ms ({by}); kernel at "
             f"{100 * b_ms / times[k][0]:.1f} % of it; launches x (time - "
             f"bound) {counts[k] * (times[k][0] - b_ms):.3f} ms")
-    f32_floor = 3 * mm_flops / F32_FLOPS * 1e3  # A runs on the CUDA cores
-    log(f"A's float32 floor {f32_floor:.5f} ms; kernel at "
-        f"{100 * f32_floor / times['encode_blocks'][0]:.1f} % of it")
     table = [
         {"name": k, "route": "cuda", "source": sources[k][0],
          "replaces": sources[k][1],
@@ -1078,7 +1178,8 @@ def main() -> int:
          "max_abs_err": results[k][1], "ms": round(times[k][0], 4),
          "plain_ms": round(times[k][1], 4),
          "bound_ms": round(bounds[k][0], 5), "bound_by": bounds[k][1],
-         "library_ms": None}
+         "library_ms": (round(a_library_ms, 4) if k == "encode_blocks"
+                        else None)}
         for k in sources
     ]
     print(json.dumps({"kernels": table}))

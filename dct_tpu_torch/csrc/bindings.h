@@ -14,16 +14,25 @@
 #define DCT_EXPORT extern "C" __attribute__((visibility("default")))
 
 // Kernel A: (n_blocks, n2) u8 pixel blocks -> (n_blocks, n2) int32
-// quantized zigzag coefficients. m0/m1/m2 are the float32 bf16-valued
-// split operator parts and bias the encode bias, each with row stride ld
-// (128 for the packed block-diagonal form of n2 4/16/64, whose top-left
-// n2 x n2 block the kernel reads; 256 for the (256, 256) parts of n2 =
-// 256). recip: (n_blocks,) reciprocal adaptive scale, or NULL.
-DCT_EXPORT int dct_encode_blocks(const void* px, const void* m0,
-                                 const void* m1, const void* m2,
-                                 const void* bias, int ld, const void* recip,
+// quantized zigzag coefficients, n2 4, 16, 64 or 256, px 16-byte aligned.
+// frag: the integer operator's byte planes in the tile's B-fragment order,
+// 4 P^2 bytes (P = max(n2, 32)); cert: (3, P) float64 certificate
+// constants; parts_t: (3, n2, n2) float32 bf16 parts transposed, for the
+// rescue; bias: the float32 encode bias (its first n2 entries are read);
+// recip: (n_blocks,) reciprocal adaptive scale, or NULL (tables.py
+// CodecOperators). rescued: one uint64 in device memory, to which the
+// kernel adds the coefficients its float32 chain computed.
+DCT_EXPORT int dct_encode_blocks(const void* px, const void* frag,
+                                 const void* cert, const void* parts_t,
+                                 const void* bias, const void* recip,
                                  void* out, long long n_blocks, int n2,
-                                 void* stream);
+                                 void* rescued, void* stream);
+
+// The tensor-core tile's integer products alone (a test of it):
+// (n_rows, p) u8 packed rows, p 32, 64 or 256, and frag as above ->
+// (n_rows, p) int64 x @ W.
+DCT_EXPORT int dct_mma_products(const void* px, const void* frag, void* out,
+                                int n_rows, int p, void* stream);
 
 // Kernel C: (n_blocks, n2) int16 zigzag coefficients -> (n_blocks, n2) u8
 // pixels. m_dec: float32 decode operator, row stride ld. scale:
@@ -33,8 +42,8 @@ DCT_EXPORT int dct_decode_blocks(const void* zz, const void* m_dec, int ld,
                                  long long n_blocks, int n2, void* stream);
 
 // Kernel B: one CTA per stripe, n2 16, 64 or 256, stripes of any width.
-// px: (n_stripes * bps, n2) u8 blocks, 16-byte aligned. m0/m1/m2, bias,
-// ld, recip: as kernel A's. mode: 0 category, 1 direct, 2 none.
+// px: (n_stripes * bps, n2) u8 blocks, 16-byte aligned. frag, cert,
+// parts_t, bias, recip, rescued: as kernel A's. mode: 0 category, 1 direct, 2 none.
 // val_len/val_code: the value table's n_val int32 entries (16 categories;
 // 512 in direct mode, values -255..255 and ESC last; n_val 0 in "none"
 // mode). run_len/run_code: (65,) int32 run table, or NULL for the fixed
@@ -42,16 +51,17 @@ DCT_EXPORT int dct_decode_blocks(const void* zz, const void* m_dec, int ld,
 // word holding two 16-bit units with its halves swapped, so that the
 // buffer read as int16 is the unit stream in order. stripe_bits:
 // (n_stripes,) int32; block_bits: (n_stripes, bps) int32.
-DCT_EXPORT int dct_encode_stripes(const void* px, const void* m0,
-                                  const void* m1, const void* m2,
-                                  const void* bias, int ld, const void* recip,
+DCT_EXPORT int dct_encode_stripes(const void* px, const void* frag,
+                                  const void* cert, const void* parts_t,
+                                  const void* bias, const void* recip,
                                   const void* val_len, const void* val_code,
                                   int n_val, const void* run_len,
                                   const void* run_code, int run_bits,
                                   int mode, int dc_prediction, int n2,
                                   int n_stripes, int bps, void* words,
                                   int n_words, void* stripe_bits,
-                                  void* block_bits, void* stream);
+                                  void* block_bits, void* rescued,
+                                  void* stream);
 
 // Kernel D: entropy decode of indexed (v2) stripes, one thread per block.
 // payload: (payload_bytes,) u8, the stripes concatenated (bytes past the

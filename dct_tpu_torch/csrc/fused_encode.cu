@@ -15,27 +15,31 @@
 // the worst-case unit buffer out (zeroed by the CTA itself:
 // units_per_block_worst(n2, coded_runs) 16-bit units a block, 80 B at n2
 // 16 (96 B with coded runs), 320 B at 64 (384 B), 1312 B at 256), so bytes
-// are small; the time goes to the transform's 3 x n2 x n2 float32
-// multiply-adds per block, then to the serial dependencies of the entropy
-// stage inside a stripe (a scan over the stripe's blocks and one over each
-// block's symbols).
+// are small. The transform runs on the integer tensor cores (4 x n2 x n2
+// int8 multiply-adds a block, a few microseconds at the batch) with a
+// float64 certificate a coefficient and the float32 chain for the few the
+// certificate leaves open; what remains is the serial dependencies of the
+// entropy stage inside a stripe (a scan over the stripe's blocks and one
+// over each block's symbols).
 //
 // The design:
-// - one CTA per stripe walks it in tiles of kTile blocks (128 at n2 16, 64
-//   at 64, 8 at 256), so shared memory is a constant of n2 (15 KB at 16,
-//   66 KB at 64 — three CTAs an SM —, 17 KB at 256) and a stripe may be
-//   any width;
-// - operators: at n2 <= 64 the three bf16 parts sit in shared memory and
-//   each thread computes one coefficient at a time (split_matmul_coeff);
-//   at 256 they are read through L2 and thread k computes coefficient k
-//   of the tile's 8 blocks (split_matmul_256), the chain kernel A's 16x16
-//   kernel runs too (transform_core.cuh);
-// - per tile: pixels in, transform to int16 coefficients in shared
-//   memory, DC DPCM against the previous block's raw DC (carried across
-//   tile edges), each block's RLE, symbol fields and bit total in one warp
-//   (two 4x4 blocks a warp, one 16-lane segment each) with ballots and
-//   shuffles, an exclusive scan of the block totals on top of the bits of
-//   the tiles before, and placement;
+// - one CTA per stripe walks it in tiles of kTile blocks (128 at n2 16 and
+//   64, 64 at 256; 128 measured faster than 64 at 64), so shared memory
+//   is a constant of n2 (17 KB at 16, 49 KB at 64, 89 KB at 256) and a
+//   stripe may be any width;
+// - per tile: pixels in (16-byte loads into packed rows, transform_core.cuh
+//   MmaTile), the certified tile of transform_core.cuh — kernel A's — to
+//   int16 coefficients in shared memory, the rescue list worked through
+//   by the whole CTA, DC DPCM against the previous block's raw DC (carried
+//   across tile edges), each block's RLE, symbol fields and bit total in
+//   one warp (two 4x4 blocks a warp, one 16-lane segment each) with
+//   ballots and shuffles, an exclusive scan of the block totals on top of
+//   the bits of the tiles before, and placement;
+// - operators: the byte planes' B fragments (4 n2^2 bytes at n2 >= 32,
+//   16 KB at 64 and 256 KB at 256) are read through L1/L2, each once per
+//   tile and warp for all of the warp's blocks (at 256 four m-tiles, 64
+//   blocks, a read: 256 KB per 64 blocks instead of the float32 parts'
+//   768 KB per 8); the transposed float32 parts only by the rescue;
 // - symbols are placed with atomicOr: each field (code | payload | run,
 //   at most 16 + 16 + 9 bits) touches at most three 32-bit words and
 //   fields never share a bit, so the result does not depend on the order
@@ -69,16 +73,28 @@ struct Shape {
   static constexpr int kV = N2 >= 32 ? N2 / 32 : 1;   // values a lane holds
   static constexpr int kSeg = N2 >= 32 ? 32 : N2;     // lanes a block spans
   static constexpr int kPerWarp = 32 / kSeg;          // blocks a warp holds
-  static constexpr int kTile = N2 == 16 ? 128 : (N2 == 64 ? 64 : 8);
-  static constexpr bool kOpsShared = N2 != 256;       // operators in smem
-  // floats: operator parts + bias (n2 <= 64) or the staged pixels (256)
-  static constexpr int kFloats =
-      kOpsShared ? 3 * N2 * N2 + N2 : kTile * dct::kN2Big;
-  static constexpr int kBytes =
-      kFloats * 4 + (kTabInts + 3 * kTile) * 4 +
-      kTile * N2 * (kOpsShared ? 3 : 2);  // int16 coefficients (+ u8 pixels)
+  static constexpr int kTile = N2 == 256 ? 64 : 128;  // blocks a tile
+  static constexpr int kP = N2 < 32 ? 32 : N2;        // a packed row
+  static constexpr int kRows = kTile * N2 / kP;       // packed rows a tile
+  using Mma = dct::MmaTile<kP, kRows, kP == 256 ? 4 : 2, kThreads>;
+  // tables + block scalars, int16 coefficients, pixels, rescue list, count
+  static constexpr int kBytes = (kTabInts + 3 * kTile) * 4 +
+                                kTile * N2 * 2 + kRows * Mma::kStride +
+                                kTile * N2 * 2 + 16;
   static_assert(kTile % 4 == 0, "16-byte aligned coefficient rows");
-  static_assert(kOpsShared || kThreads == N2, "a thread a coefficient");
+};
+
+// Coefficients of the certified tile into the tile's int16 buffer.
+struct SmemStore {
+  int16_t* zz;
+  __device__ __forceinline__ void pair(int idx, int q0, int q1) {
+    *reinterpret_cast<unsigned*>(zz + idx) =
+        static_cast<unsigned>(static_cast<uint16_t>(q0)) |
+        static_cast<unsigned>(static_cast<uint16_t>(q1)) << 16;
+  }
+  __device__ __forceinline__ void one(int idx, int q) {
+    zz[idx] = static_cast<int16_t>(q);
+  }
 };
 
 struct Tables {
@@ -223,10 +239,10 @@ __device__ __forceinline__ void place(Symbol s, long long off,
 template <int N2>
 __global__ void __launch_bounds__(kThreads)
     encode_stripes_kernel(const uint8_t* __restrict__ px,
-                          const float* __restrict__ m0,
-                          const float* __restrict__ m1,
-                          const float* __restrict__ m2,
-                          const float* __restrict__ bias, int ld,
+                          const uint4* __restrict__ frag,
+                          const double* __restrict__ cert,
+                          const float* __restrict__ parts_t,
+                          const float* __restrict__ bias,
                           const float* __restrict__ recip,
                           const int* __restrict__ val_len,
                           const int* __restrict__ val_code, int n_val,
@@ -235,12 +251,13 @@ __global__ void __launch_bounds__(kThreads)
                           int mode, int dc_prediction, int bps,
                           unsigned* __restrict__ words, int n_words,
                           int* __restrict__ stripe_bits,
-                          int* __restrict__ block_bits) {
+                          int* __restrict__ block_bits,
+                          unsigned long long* __restrict__ rescued) {
   using S = Shape<N2>;
+  using M = typename S::Mma;
   constexpr int T = S::kTile;
-  extern __shared__ __align__(16) float smem[];
-  float* s_f = smem;  // operators + bias, or the staged pixels (n2 = 256)
-  int* s_tab = reinterpret_cast<int*>(s_f + S::kFloats);
+  extern __shared__ __align__(16) int smem[];
+  int* s_tab = smem;
   int* s_val_len = s_tab;
   int* s_val_code = s_tab + kMaxValues;
   int* s_run_len = s_tab + 2 * kMaxValues;
@@ -249,14 +266,16 @@ __global__ void __launch_bounds__(kThreads)
   int* s_boff = s_bbits + T;        // per-block exclusive bit offsets
   int* s_dc = s_boff + T;           // raw DCs of the tile
   int16_t* s_zz = reinterpret_cast<int16_t*>(s_dc + T);
-  uint8_t* s_px = reinterpret_cast<uint8_t*>(s_zz + T * N2);  // n2 <= 64
+  uint8_t* s_px = reinterpret_cast<uint8_t*>(s_zz + T * N2);  // packed rows
+  uint16_t* s_list = reinterpret_cast<uint16_t*>(s_px + S::kRows * M::kStride);
+  int* s_count = reinterpret_cast<int*>(s_list + T * N2);
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const long long stripe = blockIdx.x;
   const bool adaptive = recip != nullptr;
   unsigned* row = words + stripe * n_words;
 
-  // ---- 0. zero this stripe's units; load tables and operators ----
+  // ---- 0. zero this stripe's units; load tables ----
   for (int i = tid; i < n_words; i += kThreads) row[i] = 0u;
   for (int i = tid; i < n_val; i += kThreads) {
     s_val_len[i] = val_len[i];
@@ -266,53 +285,37 @@ __global__ void __launch_bounds__(kThreads)
     s_run_len[tid] = run_len[tid];
     s_run_code[tid] = run_code[tid];
   }
-  if constexpr (S::kOpsShared) {
-    for (int i = tid; i < N2 * N2; i += kThreads) {
-      const int src = (i / N2) * ld + (i % N2);
-      s_f[i] = m0[src];
-      s_f[N2 * N2 + i] = m1[src];
-      s_f[2 * N2 * N2 + i] = m2[src];
-    }
-    if (tid < N2) s_f[3 * N2 * N2 + tid] = bias[tid];
-  }
   const Tables tabs{s_val_len, s_val_code, s_run_len, s_run_code, mode,
                     run_bits, run_len != nullptr};
 
   int base_bits = 0;  // bits of the tiles before (warp 0 keeps it)
   int prev_dc = 0;    // raw DC of the block before the tile
+  long long n_rescued = 0;  // coefficients the chain computed
   for (int t0 = 0; t0 < bps; t0 += T) {
     const int n = min(T, bps - t0);
     const long long blk = stripe * bps + t0;  // the tile's first block
 
-    // ---- 1. pixels in, transform (kernel A's chain) ----
-    if constexpr (S::kOpsShared) {
-      const uint4* src = reinterpret_cast<const uint4*>(px + blk * N2);
-      for (int i = tid; i < n * N2 / 16; i += kThreads)
-        reinterpret_cast<uint4*>(s_px)[i] = __ldg(src + i);
-    } else {
-      dct::stage_pixels_256<T, kThreads>(s_f, px + blk * N2, n);
+    // ---- 1. pixels in, the certified transform (kernel A's tile) ----
+    const uint4* src = reinterpret_cast<const uint4*>(px + blk * N2);
+    for (int i = tid; i < n * N2 / 16; i += kThreads) {
+      const int o = 16 * i;  // packed row o / P, byte o % P
+      *reinterpret_cast<uint4*>(s_px + o / S::kP * M::kStride + o % S::kP) =
+          __ldg(src + i);
     }
+    if (tid == 0) *s_count = 0;
     __syncthreads();
-    if constexpr (S::kOpsShared) {
-      for (int i = tid; i < n * N2; i += kThreads) {
-        const int b = i / N2, k = i % N2;
-        const float y = dct::split_matmul_coeff<N2>(
-            s_px + b * N2, s_f, s_f + N2 * N2, s_f + 2 * N2 * N2,
-            s_f + 3 * N2 * N2, k);
-        const float r = adaptive ? recip[blk + b] : 1.f;
-        s_zz[i] = static_cast<int16_t>(dct::quantize_coeff(y, k, adaptive, r));
-      }
-    } else {
-      float y[T];
-      dct::split_matmul_256<T>(s_f, m0, m1, m2, bias, ld, tid, y);
-#pragma unroll
-      for (int b = 0; b < T; ++b) {
-        if (b >= n) break;
-        const float r = adaptive ? recip[blk + b] : 1.f;
-        s_zz[b * N2 + tid] =
-            static_cast<int16_t>(dct::quantize_coeff(y[b], tid, adaptive, r));
-      }
-    }
+    const float* rc = adaptive ? recip + blk : nullptr;
+    SmemStore store{s_zz};
+    dct::mma_tile<M>(s_px, frag,
+                     [&](int r, int c, long long s0, long long s1) {
+                       dct::certify_pair<N2, S::kP>(r, c, s0, s1, n, cert, rc,
+                                                    s_list, s_count, store);
+                     });
+    __syncthreads();
+    const int n_open = *s_count;
+    dct::rescue_tile<N2, S::kP, M::kStride, kThreads>(
+        s_list, n_open, s_px, parts_t, bias, rc, store);
+    n_rescued += n_open;
     __syncthreads();
 
     // ---- 2. stripe-local DC DPCM against the previous block's raw DC ----
@@ -370,53 +373,60 @@ __global__ void __launch_bounds__(kThreads)
     }
     __syncthreads();  // the tile's buffers are free for the next one
   }
-  if (tid == 0) stripe_bits[stripe] = base_bits;
+  if (tid == 0) {
+    stripe_bits[stripe] = base_bits;
+    if (n_rescued) atomicAdd(rescued, static_cast<unsigned long long>(n_rescued));
+  }
 }
 
 template <int N2>
-int launch(const void* px, const void* m0, const void* m1, const void* m2,
-           const void* bias, int ld, const void* recip, const void* val_len,
-           const void* val_code, int n_val, const void* run_len,
-           const void* run_code, int run_bits, int mode, int dc_prediction,
-           int n_stripes, int bps, void* words, int n_words,
-           void* stripe_bits, void* block_bits, cudaStream_t stream) {
+int launch(const void* px, const void* frag, const void* cert,
+           const void* parts_t, const void* bias, const void* recip,
+           const void* val_len, const void* val_code, int n_val,
+           const void* run_len, const void* run_code, int run_bits, int mode,
+           int dc_prediction, int n_stripes, int bps, void* words,
+           int n_words, void* stripe_bits, void* block_bits, void* rescued,
+           cudaStream_t stream) {
   constexpr int smem = Shape<N2>::kBytes;
   auto kernel = encode_stripes_kernel<N2>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   kernel<<<n_stripes, kThreads, smem, stream>>>(
-      static_cast<const uint8_t*>(px), static_cast<const float*>(m0),
-      static_cast<const float*>(m1), static_cast<const float*>(m2),
-      static_cast<const float*>(bias), ld, static_cast<const float*>(recip),
+      static_cast<const uint8_t*>(px), static_cast<const uint4*>(frag),
+      static_cast<const double*>(cert), static_cast<const float*>(parts_t),
+      static_cast<const float*>(bias), static_cast<const float*>(recip),
       static_cast<const int*>(val_len), static_cast<const int*>(val_code),
       n_val, static_cast<const int*>(run_len),
       static_cast<const int*>(run_code), run_bits, mode, dc_prediction, bps,
       static_cast<unsigned*>(words), n_words, static_cast<int*>(stripe_bits),
-      static_cast<int*>(block_bits));
+      static_cast<int*>(block_bits),
+      static_cast<unsigned long long*>(rescued));
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-DCT_EXPORT int dct_encode_stripes(const void* px, const void* m0,
-                                  const void* m1, const void* m2,
-                                  const void* bias, int ld, const void* recip,
+DCT_EXPORT int dct_encode_stripes(const void* px, const void* frag,
+                                  const void* cert, const void* parts_t,
+                                  const void* bias, const void* recip,
                                   const void* val_len, const void* val_code,
                                   int n_val, const void* run_len,
                                   const void* run_code, int run_bits,
                                   int mode, int dc_prediction, int n2,
                                   int n_stripes, int bps, void* words,
                                   int n_words, void* stripe_bits,
-                                  void* block_bits, void* stream) {
+                                  void* block_bits, void* rescued,
+                                  void* stream) {
   if (n_val < 0 || n_val > kMaxValues || mode < kCategory || mode > kNone)
     return static_cast<int>(cudaErrorInvalidValue);
   if (n_stripes == 0) return static_cast<int>(cudaSuccess);
   auto s = static_cast<cudaStream_t>(stream);
 #define DCT_B(N)                                                              \
-  return launch<N>(px, m0, m1, m2, bias, ld, recip, val_len, val_code, n_val, \
-                   run_len, run_code, run_bits, mode, dc_prediction,          \
-                   n_stripes, bps, words, n_words, stripe_bits, block_bits, s)
+  return launch<N>(px, frag, cert, parts_t, bias, recip, val_len, val_code,  \
+                   n_val, run_len, run_code, run_bits, mode, dc_prediction,   \
+                   n_stripes, bps, words, n_words, stripe_bits, block_bits,   \
+                   rescued, s)
   switch (n2) {
     case 16: DCT_B(16);
     case 64: DCT_B(64);

@@ -6,47 +6,49 @@
 // `decode_blocks_pallas`).
 //
 // What bounds them on an H100. Per 8x8 block A reads 64 B and writes
-// 256 B for 3 x 64 x 64 multiply-adds (three chains over the bf16 split of
-// the operator, in the order that keeps it bit-identical to kernel B:
-// transform_core.cuh); C reads 128 B and writes 64 B for 64 x 64. That is
-// 38 (A) and 21 (C) FMAs a byte, above the card's float32 rate over its
-// memory rate (~10 a byte), so HBM is not the limit. The tensor cores stay
-// out: they sum in an order of their own, A must keep giving B's integers,
-// and C's coefficients need float32. On the CUDA cores two pipes bound
-// them: the FMAs (128 a clock an SM) and the shared-memory loads that feed
-// them, which cost the bytes they deliver to registers (128 B a clock an
-// SM, broadcast or not). A thread that computes an R x C micro-tile loads
-// R + C floats a step for R * C FMAs, so the loads take 4 (R + C) / (R * C)
-// of the FMAs' time: 1.5x for C at 8 x 4, 1.33x for A at 4 x 4 (4 + 3 x 4
-// floats for 48 FMAs). 8 x 8 would balance the two, but its tile's shared
-// memory leaves one CTA an SM and it measured slower for C, as did 4 x 4;
-// A's larger tiles need more than 128 registers.
+// 256 B of int32 coefficients; its arithmetic runs on the integer tensor
+// cores (4 x 64 x 64 int8 multiply-adds a block over the operator's byte
+// planes, a few microseconds at the batch) with a float64 certificate a
+// coefficient (transform_core.cuh), so HBM bounds it. C reads 128 B and
+// writes 64 B for 64 x 64 float32 multiply-adds, 21 a byte, above the
+// card's float32 rate over its memory rate (~10 a byte), so HBM is not
+// its limit: C stays on the CUDA cores, as its coefficients need float32,
+// bound by the FMAs (128 a clock an SM) and the shared-memory loads that
+// feed them, which cost the bytes they deliver to registers (128 B a clock
+// an SM, broadcast or not). A thread that computes an R x C micro-tile
+// loads R + C floats a step for R * C FMAs, 1.5x the FMAs' time at C's
+// 8 x 4; 8 x 8 would balance the two, but its tile's shared memory leaves
+// one CTA an SM and it measured slower, as did 4 x 4.
 //
 // The design:
-// - a persistent grid (two CTAs an SM) walks tiles of kBlocks blocks; each
-//   CTA loads its operator(s) into shared memory once;
-// - a tile's input arrives by cp.async (16 B a copy) into a ring of two
-//   stages, so tile t+1 loads while tile t is staged and computed;
-// - staging widens each input to float once (C also applies the adaptive
-//   AC scale there) and stores it value-major — xT[j][b] for A, zT[k][b] for C — so that one
-//   LDS.128 gives a thread four blocks' values. Ring rows are padded to an
-//   odd number of 16-byte units, which keeps the staging reads free of bank
-//   conflicts; the value-major writes go to consecutive words;
-// - each thread computes an R-block x C-value micro-tile in registers. C:
-//   8 blocks x 4 pixels, 32 FMAs for 3 LDS.128 a step of k. A: 4 blocks x 4
-//   coefficients, 48 FMAs for 4 LDS.128 a step of j (split_matmul_tile);
-// - stores are wide: C writes a thread's 4 pixels of a block as one 4-byte
-//   word, A its 4 coefficients of a block as one 16-byte store.
-// Every output keeps the arithmetic chain of the one-value-a-thread form:
-// A split_matmul_coeff's, C z_k (AC scaled by one __fmul_rn) folded by
-// __fmaf_rn over k = 0..n2-1 from 0, then + 128, round half away, clamp.
+// - a persistent grid (three CTAs an SM for A below n2 = 256, measured
+//   faster than two; two otherwise) walks tiles; a tile's input arrives
+//   by cp.async (16 B a copy) into a ring of two stages, so tile t+1
+//   loads while tile t is computed;
+// - A: the ring holds packed rows of P = max(n2, 32) pixels (32 / n2
+//   blocks a row below 32) padded to P + 16 bytes, which the tensor-core
+//   tile of transform_core.cuh (the one kernel B runs) reads in place: the
+//   integer products, the certificate, 8-byte stores of each certified
+//   coefficient pair, then the tile's rescue list (the float32 chain
+//   itself for the coefficients the certificate leaves open) worked
+//   through by the whole CTA. Tiles of 128 packed rows at n2 4/16/64, 64
+//   at 256, whose byte planes (256 KB) are read through L2 once per tile
+//   and warp for the warp's 64 blocks;
+// - C: staging widens each coefficient to float once (applying the
+//   adaptive AC scale there) and stores it value-major — zT[k][b] — so
+//   that one LDS.128 gives a thread four blocks' values. Ring rows are
+//   padded to an odd number of 16-byte units, which keeps the staging
+//   reads free of bank conflicts; each thread computes an 8-block x
+//   4-pixel micro-tile in registers, 32 FMAs for 3 LDS.128 a step of k,
+//   and writes a block's 4 pixels as one 4-byte word. Each output keeps
+//   the chain of the one-value-a-thread form: z_k (AC scaled by one
+//   __fmul_rn) folded by __fmaf_rn over k = 0..n2-1 from 0, then + 128,
+//   round half away, clamp.
 //
-// A also takes 16x16 blocks (n2 = 256), which the reference's Pallas
-// kernel does not (its codec runs them in XLA): kernel B takes them, and
-// the analyze pass before B must give B's integers. That kernel
-// (encode_blocks_256_kernel) runs B's 256 chain, split_matmul_256, with
-// the operator read through L2. C stays at n2 4/16/64; 16x16 decode is
-// the codec's float32 product.
+// A takes 16x16 blocks (n2 = 256), which the reference's Pallas kernel
+// does not (its codec runs them in XLA): kernel B takes them, and the
+// analyze pass before B must give B's integers. C stays at n2 4/16/64;
+// 16x16 decode is the codec's float32 product.
 
 #include "bindings.h"
 #include "transform_core.cuh"
@@ -148,143 +150,139 @@ int grid_for(Kernel kernel, int smem, long long n_tiles) {
 // ---- kernel A ---------------------------------------------------------
 
 template <int N2>
-using EncTiling = Tiling<N2, 1, 4, 4>;
+struct EncShape {
+  static constexpr int kP = N2 < 32 ? 32 : N2;           // a packed row
+  static constexpr int kRows = kP == 256 ? 64 : 128;     // packed rows a tile
+  static constexpr int kBlocks = kRows * kP / N2;        // blocks a tile
+  using Mma = dct::MmaTile<kP, kRows, kP == 256 ? 4 : 2, kThreads>;
+  static constexpr int kStage = kRows * Mma::kStride;    // one ring stage
+  static constexpr int kBytes = 2 * kStage + kRows * kP * 2 + 16;  // + list
+};
 
+// Start copying tile `tile` of the (n_blocks, N2) pixels into a ring
+// stage as packed rows: 16-byte copies of the bytes that exist, the last
+// one cut short (cp.async fills the rest with zeros).
 template <int N2>
-constexpr int encode_smem() {
-  using G = EncTiling<N2>;
-  return 2 * G::kRingBytes + (3 * N2 * N2 + N2 * G::kBlocks + N2) * 4;
+__device__ __forceinline__ void load_packed(uint8_t* stage,
+                                            const uint8_t* __restrict__ src,
+                                            long long tile,
+                                            long long n_blocks) {
+  using E = EncShape<N2>;
+  const long long b0 = tile * E::kBlocks;
+  const long long rows = n_blocks - b0 < E::kBlocks ? n_blocks - b0
+                                                    : E::kBlocks;
+  const int valid = static_cast<int>(rows) * N2;
+  const uint8_t* base = src + b0 * N2;
+  for (int off = threadIdx.x * 16; off < valid; off += kThreads * 16)
+    cp_async16(stage + off / E::kP * E::Mma::kStride + off % E::kP,
+               base + off, valid - off < 16 ? valid - off : 16);
 }
 
-template <int N2, bool ADAPTIVE>
-__global__ void __launch_bounds__(kThreads, 2)
-    encode_blocks_kernel(const uint8_t* __restrict__ px,
-                         const float* __restrict__ m0,
-                         const float* __restrict__ m1,
-                         const float* __restrict__ m2,
-                         const float* __restrict__ bias, int ld,
-                         const float* __restrict__ recip,
-                         int32_t* __restrict__ out, long long n_blocks) {
-  using G = EncTiling<N2>;
-  constexpr int T = G::kBlocks, kR = G::kR, kC = G::kC;
-  extern __shared__ __align__(16) uint8_t smem[];
-  float* s_m0 = reinterpret_cast<float*>(smem + 2 * G::kRingBytes);
-  float* s_m1 = s_m0 + N2 * N2;
-  float* s_m2 = s_m1 + N2 * N2;
-  float* xT = s_m2 + N2 * N2;  // (N2, T): pixel j of block b at xT[j*T+b]
-  float* s_b = xT + N2 * T;
-  load_operator<N2>(s_m0, m0, ld);
-  load_operator<N2>(s_m1, m1, ld);
-  load_operator<N2>(s_m2, m2, ld);
-  for (int i = threadIdx.x; i < N2; i += kThreads) s_b[i] = bias[i];
+// Coefficients of the certified tile straight to device memory.
+struct GlobalStore {
+  int32_t* out;  // the tile's first block
+  __device__ __forceinline__ void pair(int idx, int q0, int q1) {
+    *reinterpret_cast<int2*>(out + idx) = make_int2(q0, q1);
+  }
+  __device__ __forceinline__ void one(int idx, int q) { out[idx] = q; }
+};
 
-  const int k0 = threadIdx.x % G::kGroups * kC;  // this thread's tile
-  const int r0 = threadIdx.x / G::kGroups * kR;
-  const long long n_tiles = (n_blocks + T - 1) / T;
-  long long t = blockIdx.x;
-  if (t < n_tiles) load_tile<G>(smem, px, t, n_blocks);
+template <int N2, bool ADAPTIVE>
+__global__ void __launch_bounds__(kThreads, EncShape<N2>::kP == 256 ? 2 : 3)
+    encode_blocks_kernel(const uint8_t* __restrict__ px,
+                         const uint4* __restrict__ frag,
+                         const double* __restrict__ cert,
+                         const float* __restrict__ parts_t,
+                         const float* __restrict__ bias,
+                         const float* __restrict__ recip,
+                         int32_t* __restrict__ out, long long n_blocks,
+                         unsigned long long* __restrict__ rescued) {
+  using E = EncShape<N2>;
+  using M = typename E::Mma;
+  extern __shared__ __align__(16) uint8_t smem[];
+  uint16_t* s_list = reinterpret_cast<uint16_t*>(smem + 2 * E::kStage);
+  int* s_count = reinterpret_cast<int*>(s_list + E::kRows * E::kP);
+  const long long n_tiles = (n_blocks + E::kBlocks - 1) / E::kBlocks;
+  long long t = blockIdx.x, n_rescued = 0;
+  if (threadIdx.x == 0) *s_count = 0;
+  if (t < n_tiles) load_packed<N2>(smem, px, t, n_blocks);
   cp_async_commit();
   for (int s = 0; t < n_tiles; t += gridDim.x, s ^= 1) {
     if (t + gridDim.x < n_tiles)
-      load_tile<G>(smem + (s ^ 1) * G::kRingBytes, px, t + gridDim.x,
-                   n_blocks);
+      load_packed<N2>(smem + (s ^ 1) * E::kStage, px, t + gridDim.x,
+                      n_blocks);
     cp_async_commit();
     cp_async_wait<1>();  // this thread's copies of tile t have landed
-    __syncthreads();     // everyone's have, and tile t-1 is computed
-    const long long b0 = t * T;
-    const int n = static_cast<int>(n_blocks - b0 < T ? n_blocks - b0 : T);
-    for (int i = threadIdx.x; i < T * G::kChunks; i += kThreads) {
-      const int b = i % T, ch = i / T;
-      unsigned w[G::kChunk / 4] = {};
-      if (b < n)
-        load_chunk<G::kChunk>(w, smem + s * G::kRingBytes + b * G::kRingRow +
-                                     ch * G::kChunk);
-#pragma unroll
-      for (int e = 0; e < G::kValues; ++e)
-        xT[(ch * G::kValues + e) * T + b] =
-            static_cast<float>((w[e / 4] >> (8 * (e % 4))) & 0xFFu);
-    }
+    __syncthreads();     // everyone's have, and tile t-1 is done
+    const long long b0 = t * E::kBlocks;
+    const int n = static_cast<int>(n_blocks - b0 < E::kBlocks ? n_blocks - b0
+                                                              : E::kBlocks);
+    const uint8_t* stage = smem + s * E::kStage;
+    const float* rc = ADAPTIVE ? recip + b0 : nullptr;
+    GlobalStore store{out + b0 * N2};
+    dct::mma_tile<M>(stage, frag, [&](int r, int c, long long s0,
+                                      long long s1) {
+      dct::certify_pair<N2, E::kP>(r, c, s0, s1, n, cert, rc, s_list, s_count,
+                                   store);
+    });
     __syncthreads();
-
-    float y[kR][kC];
-    dct::split_matmul_tile<N2, kR, kC>(xT + r0, T, s_m0, s_m1, s_m2, s_b,
-                                       k0, y);
-#pragma unroll
-    for (int r = 0; r < kR; ++r) {
-      if (r0 + r >= n) break;
-      const long long b = b0 + r0 + r;
-      const float rr = ADAPTIVE ? recip[b] : 1.f;
-#pragma unroll
-      for (int c = 0; c < kC; c += 4) {
-        int4 q;
-        q.x = dct::quantize_coeff(y[r][c], k0 + c, ADAPTIVE, rr);
-        q.y = dct::quantize_coeff(y[r][c + 1], k0 + c + 1, ADAPTIVE, rr);
-        q.z = dct::quantize_coeff(y[r][c + 2], k0 + c + 2, ADAPTIVE, rr);
-        q.w = dct::quantize_coeff(y[r][c + 3], k0 + c + 3, ADAPTIVE, rr);
-        *reinterpret_cast<int4*>(out + b * N2 + k0 + c) = q;
-      }
-    }
+    const int n_open = *s_count;
+    dct::rescue_tile<N2, E::kP, M::kStride, kThreads>(
+        s_list, n_open, stage, parts_t, bias, rc, store);
+    n_rescued += n_open;
+    __syncthreads();  // the stage and the list are free
+    if (threadIdx.x == 0) *s_count = 0;
   }
+  if (threadIdx.x == 0 && n_rescued)
+    atomicAdd(rescued, static_cast<unsigned long long>(n_rescued));
 }
 
-// ---- kernel A at n2 = 256 ---------------------------------------------
-// 16x16 blocks: the (256, 256) operator parts do not fit the tile above's
-// shared memory (768 KB), so this kernel reads them through L2 by
-// dct::split_matmul_256, the chain kernel B runs at n2 = 256. A grid-
-// stride loop walks tiles of k256Tile blocks; each tile's pixels are
-// staged as float, and thread k computes coefficient k of every block of
-// the tile (three L2 loads a step of j for 3 x k256Tile FMAs), storing
-// them as consecutive int32s.
-
-constexpr int k256Tile = 8;
-
-template <bool ADAPTIVE>
-__global__ void __launch_bounds__(kThreads, 2)
-    encode_blocks_256_kernel(const uint8_t* __restrict__ px,
-                             const float* __restrict__ m0,
-                             const float* __restrict__ m1,
-                             const float* __restrict__ m2,
-                             const float* __restrict__ bias, int ld,
-                             const float* __restrict__ recip,
-                             int32_t* __restrict__ out, long long n_blocks) {
-  static_assert(kThreads == dct::kN2Big, "a thread a coefficient");
-  constexpr int T = k256Tile, N2 = dct::kN2Big;
-  __shared__ __align__(16) float xT[N2 * T];  // pixel j of block r at xT[j*T+r]
-  const int k = threadIdx.x;
-  const long long n_tiles = (n_blocks + T - 1) / T;
-  for (long long t = blockIdx.x; t < n_tiles; t += gridDim.x) {
-    const long long b0 = t * T;
-    const int n = static_cast<int>(n_blocks - b0 < T ? n_blocks - b0 : T);
-    __syncthreads();  // the tile before is computed
-    dct::stage_pixels_256<T, kThreads>(xT, px + b0 * N2, n);
-    __syncthreads();
-    float y[T];
-    dct::split_matmul_256<T>(xT, m0, m1, m2, bias, ld, k, y);
-#pragma unroll
-    for (int r = 0; r < T; ++r) {
-      if (r >= n) break;
-      const float rr = ADAPTIVE ? recip[b0 + r] : 1.f;
-      out[(b0 + r) * N2 + k] = dct::quantize_coeff(y[r], k, ADAPTIVE, rr);
-    }
+// The tile's integer products alone, for testing mma_tile: (n_rows, P)
+// packed u8 rows -> (n_rows, P) int64 x @ W, 64 rows a CTA.
+template <int P>
+__global__ void __launch_bounds__(kThreads)
+    mma_products_kernel(const uint8_t* __restrict__ px,
+                        const uint4* __restrict__ frag,
+                        long long* __restrict__ out, int n_rows) {
+  constexpr int TR = 64;
+  using M = dct::MmaTile<P, TR, P == 256 ? 4 : 2, kThreads>;
+  __shared__ __align__(16) uint8_t s_px[TR * M::kStride];
+  const long long r0 = static_cast<long long>(blockIdx.x) * TR;
+  const int rows = n_rows - r0 < TR ? static_cast<int>(n_rows - r0) : TR;
+  for (int i = threadIdx.x; i < TR * P / 16; i += kThreads) {
+    const int r = i * 16 / P, col = i * 16 % P;
+    uint4 v = make_uint4(0u, 0u, 0u, 0u);
+    if (r < rows)
+      v = *reinterpret_cast<const uint4*>(px + (r0 + r) * P + col);
+    *reinterpret_cast<uint4*>(s_px + r * M::kStride + col) = v;
   }
-}
-
-template <bool ADAPTIVE>
-int launch_encode_256(const void* px, const void* m0, const void* m1,
-                      const void* m2, const void* bias, int ld,
-                      const void* recip, void* out, long long n_blocks,
-                      cudaStream_t stream) {
-  auto kernel = encode_blocks_256_kernel<ADAPTIVE>;
-  kernel<<<grid_for(kernel, 0, (n_blocks + k256Tile - 1) / k256Tile),
-           kThreads, 0, stream>>>(
-      static_cast<const uint8_t*>(px), static_cast<const float*>(m0),
-      static_cast<const float*>(m1), static_cast<const float*>(m2),
-      static_cast<const float*>(bias), ld, static_cast<const float*>(recip),
-      static_cast<int32_t*>(out), n_blocks);
-  return static_cast<int>(cudaGetLastError());
+  __syncthreads();
+  dct::mma_tile<M>(s_px, frag, [&](int r, int c, long long s0,
+                                   long long s1) {
+    if (r < rows) {
+      out[(r0 + r) * P + c] = s0;
+      out[(r0 + r) * P + c + 1] = s1;
+    }
+  });
 }
 
 // ---- kernel C ---------------------------------------------------------
+
+// N consecutive floats from shared memory, four at a time (one LDS.128
+// each): src must be 16-byte aligned and N a multiple of 4.
+template <int N>
+__device__ __forceinline__ void load_f32x4(float (&dst)[N],
+                                           const float* __restrict__ src) {
+  static_assert(N % 4 == 0, "float4 loads");
+#pragma unroll
+  for (int i = 0; i < N; i += 4) {
+    const float4 v = *reinterpret_cast<const float4*>(src + i);
+    dst[i] = v.x;
+    dst[i + 1] = v.y;
+    dst[i + 2] = v.z;
+    dst[i + 3] = v.w;
+  }
+}
 
 // The pixel of y: round_half_away(y + 128) clamped to [0, 255], in fewer
 // instructions. For y + 128 >= 0 the add of 0.5 is round_half_away's own;
@@ -362,8 +360,8 @@ __global__ void __launch_bounds__(kThreads, 2)
 #pragma unroll 4
     for (int k = 0; k < N2; ++k) {
       float z[kR], w[kC];
-      dct::load_f32x4(z, zT + k * T + r0);
-      dct::load_f32x4(w, s_m + k * N2 + j0);
+      load_f32x4(z, zT + k * T + r0);
+      load_f32x4(w, s_m + k * N2 + j0);
 #pragma unroll
       for (int r = 0; r < kR; ++r)
 #pragma unroll
@@ -383,21 +381,24 @@ __global__ void __launch_bounds__(kThreads, 2)
 }
 
 template <int N2, bool ADAPTIVE>
-int launch_encode(const void* px, const void* m0, const void* m1,
-                  const void* m2, const void* bias, int ld, const void* recip,
-                  void* out, long long n_blocks, cudaStream_t stream) {
-  constexpr int smem = encode_smem<N2>();
+int launch_encode(const void* px, const void* frag, const void* cert,
+                  const void* parts_t, const void* bias, const void* recip,
+                  void* out, long long n_blocks, void* rescued,
+                  cudaStream_t stream) {
+  using E = EncShape<N2>;
+  constexpr int smem = E::kBytes;
   auto kernel = encode_blocks_kernel<N2, ADAPTIVE>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  constexpr int T = EncTiling<N2>::kBlocks;
-  kernel<<<grid_for(kernel, smem, (n_blocks + T - 1) / T), kThreads, smem,
-           stream>>>(
-      static_cast<const uint8_t*>(px), static_cast<const float*>(m0),
-      static_cast<const float*>(m1), static_cast<const float*>(m2),
-      static_cast<const float*>(bias), ld, static_cast<const float*>(recip),
-      static_cast<int32_t*>(out), n_blocks);
+  kernel<<<grid_for(kernel, smem,
+                    (n_blocks + E::kBlocks - 1) / E::kBlocks),
+           kThreads, smem, stream>>>(
+      static_cast<const uint8_t*>(px), static_cast<const uint4*>(frag),
+      static_cast<const double*>(cert), static_cast<const float*>(parts_t),
+      static_cast<const float*>(bias), static_cast<const float*>(recip),
+      static_cast<int32_t*>(out), n_blocks,
+      static_cast<unsigned long long*>(rescued));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -420,29 +421,44 @@ int launch_decode(const void* zz, const void* m_dec, int ld,
 
 }  // namespace
 
-DCT_EXPORT int dct_encode_blocks(const void* px, const void* m0,
-                                 const void* m1, const void* m2,
-                                 const void* bias, int ld, const void* recip,
+DCT_EXPORT int dct_encode_blocks(const void* px, const void* frag,
+                                 const void* cert, const void* parts_t,
+                                 const void* bias, const void* recip,
                                  void* out, long long n_blocks, int n2,
-                                 void* stream) {
+                                 void* rescued, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
   const bool ad = recip != nullptr;
 #define DCT_ENC(N)                                                          \
-  return ad ? launch_encode<N, true>(px, m0, m1, m2, bias, ld, recip, out, \
-                                     n_blocks, s)                          \
-            : launch_encode<N, false>(px, m0, m1, m2, bias, ld, recip, out, \
-                                      n_blocks, s)
+  return ad ? launch_encode<N, true>(px, frag, cert, parts_t, bias, recip, \
+                                     out, n_blocks, rescued, s)            \
+            : launch_encode<N, false>(px, frag, cert, parts_t, bias,       \
+                                      recip, out, n_blocks, rescued, s)
   switch (n2) {
     case 4: DCT_ENC(4);
     case 16: DCT_ENC(16);
     case 64: DCT_ENC(64);
-    case 256:
-      return ad ? launch_encode_256<true>(px, m0, m1, m2, bias, ld, recip, out,
-                                         n_blocks, s)
-                : launch_encode_256<false>(px, m0, m1, m2, bias, ld, recip,
-                                           out, n_blocks, s);
+    case 256: DCT_ENC(256);
   }
 #undef DCT_ENC
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+DCT_EXPORT int dct_mma_products(const void* px, const void* frag, void* out,
+                                int n_rows, int p, void* stream) {
+  auto s = static_cast<cudaStream_t>(stream);
+  const int grid = (n_rows + 63) / 64;
+  if (grid == 0) return static_cast<int>(cudaSuccess);
+#define DCT_MMA(P)                                                         \
+  mma_products_kernel<P><<<grid, kThreads, 0, s>>>(                        \
+      static_cast<const uint8_t*>(px), static_cast<const uint4*>(frag),    \
+      static_cast<long long*>(out), n_rows);                               \
+  return static_cast<int>(cudaGetLastError())
+  switch (p) {
+    case 32: DCT_MMA(32);
+    case 64: DCT_MMA(64);
+    case 256: DCT_MMA(256);
+  }
+#undef DCT_MMA
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

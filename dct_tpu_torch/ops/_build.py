@@ -21,6 +21,8 @@ import pathlib
 import shutil
 import subprocess
 
+import torch
+
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 SOURCES = ("transform", "fused_encode", "entropy_decode", "pack")
@@ -32,12 +34,13 @@ NVCC_FLAGS = (
 _p, _i, _ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
     "transform": {
-        "dct_encode_blocks": [_p, _p, _p, _p, _p, _i, _p, _p, _ll, _i, _p],
+        "dct_encode_blocks": [_p, _p, _p, _p, _p, _p, _p, _ll, _i, _p, _p],
+        "dct_mma_products": [_p, _p, _p, _i, _i, _p],
         "dct_decode_blocks": [_p, _p, _i, _p, _p, _ll, _i, _p],
     },
     "fused_encode": {
-        "dct_encode_stripes": [_p, _p, _p, _p, _p, _i, _p, _p, _p, _i, _p,
-                               _p, _i, _i, _i, _i, _i, _i, _p, _i, _p, _p,
+        "dct_encode_stripes": [_p, _p, _p, _p, _p, _p, _p, _p, _i, _p, _p,
+                               _i, _i, _i, _i, _i, _i, _p, _i, _p, _p, _p,
                                _p],
     },
     "entropy_decode": {
@@ -54,12 +57,39 @@ _SIGNATURES = {
 LAUNCHES = {"encode_blocks": 0, "encode_stripes": 0, "decode_blocks": 0,
             "entropy_decode": 0, "pack_chunks": 0}
 
+# Coefficients the float32 chain computed in kernels A and B (the rescue
+# of transform_core.cuh), one uint64 counter in device memory per kernel
+# and device, added to by the kernels: read with rescued(), which waits.
+_rescue_counters: dict[tuple, torch.Tensor] = {}
+
 _libs: dict[str, ctypes.CDLL] = {}
 
 
 def reset_launch_counts() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+def rescue_counter(kernel: str, device) -> torch.Tensor:
+    """The (1,) int64 device counter kernel A or B adds its rescued
+    coefficients to."""
+    key = (kernel, torch.device(device))
+    if key not in _rescue_counters:
+        _rescue_counters[key] = torch.zeros(1, dtype=torch.int64,
+                                            device=device)
+    return _rescue_counters[key]
+
+
+def rescued(kernel: str) -> int:
+    """Coefficients kernel A ("encode_blocks") or B ("encode_stripes") has
+    rescued since the last reset_rescued(), over all devices."""
+    return sum(int(t.item()) for (k, _), t in _rescue_counters.items()
+               if k == kernel)
+
+
+def reset_rescued() -> None:
+    for t in _rescue_counters.values():
+        t.zero_()
 
 
 def nvcc_path() -> str:

@@ -11,7 +11,9 @@ blocks (KERNEL_N2) in the category, direct and "none" modes
 adaptive quantization and DC prediction on or off, and stripes of any
 width. 2x2 blocks raise NotImplementedError; the codec encodes them
 through the staged path with kernel E (models/codec.py fused_kernel_ok),
-as the reference does.
+as the reference does. The kernel's transform is kernel A's tensor-core
+tile (csrc/transform_core.cuh), so its integers are A's, those of the
+float32 chain testing.encode_fma_chain.
 """
 
 from __future__ import annotations
@@ -21,7 +23,7 @@ import torch
 from dct_tpu_torch.config import CodecConfig
 from dct_tpu_torch.ops import _build, rle, transform, transform_cuda
 from dct_tpu_torch.ops import bitstream as bs
-from dct_tpu_torch.tables import PACKED_N2, CodecOperators
+from dct_tpu_torch.tables import CodecOperators
 
 KERNEL_N2 = (16, 64, 256)
 KERNEL_MODES = ("category", "direct", "none")
@@ -71,10 +73,6 @@ def _check_operands(pixels: torch.Tensor, cfg: CodecConfig, n_stripes: int,
                            or ops.run_lengths.numel() != RUN_TABLE_ENTRIES):
         raise ValueError(f"coded_runs requires a {RUN_TABLE_ENTRIES}-entry "
                          "run table")
-    p = 128 if cfg.n2 in PACKED_N2 else cfg.n2
-    if ops.m0.shape != (p, p) or ops.bias.shape != (1, p):
-        raise ValueError(f"n2={cfg.n2} requires the ({p}, {p}) operator "
-                         f"parts, got {tuple(ops.m0.shape)}")
 
 
 def encode_stripes_fused(
@@ -119,13 +117,13 @@ def encode_stripes_fused(
     block_bits = torch.empty(n_stripes, bps, dtype=torch.int32, device=dev)
     n_val = TABLE_ENTRIES[mode]
     coded = cfg.coded_runs
-    m0, m1, m2 = transform_cuda.row_major(ops)
+    frag, cert, parts_t, bias = transform_cuda.integer_operands(
+        ops, cfg.n2, dev, "encode_stripes")
     lib = _build.library("fused_encode")
     with torch.cuda.device(dev):
         rc = lib.dct_encode_stripes(
-            pixels.data_ptr(), m0.data_ptr(), m1.data_ptr(),
-            m2.data_ptr(), ops.bias.data_ptr(), m0.shape[1],
-            _build.ptr(recip),
+            pixels.data_ptr(), frag.data_ptr(), cert.data_ptr(),
+            parts_t.data_ptr(), bias.data_ptr(), _build.ptr(recip),
             _build.ptr(ops.cat_lengths if n_val else None),
             _build.ptr(ops.cat_codes if n_val else None), n_val,
             _build.ptr(ops.run_lengths if coded else None),
@@ -133,7 +131,9 @@ def encode_stripes_fused(
             bs.run_field_bits(cfg.n2), KERNEL_MODES.index(mode),
             int(cfg.dc_prediction), cfg.n2, n_stripes, bps,
             words.data_ptr(), n_words, bits.data_ptr(),
-            block_bits.data_ptr(), torch.cuda.current_stream().cuda_stream,
+            block_bits.data_ptr(),
+            _build.rescue_counter("encode_stripes", dev).data_ptr(),
+            torch.cuda.current_stream().cuda_stream,
         )
     _build.check(lib, rc, f"encode_stripes (n2={cfg.n2}, {mode})")
     _build.LAUNCHES["encode_stripes"] += 1

@@ -5,9 +5,12 @@
 ``decode_blocks_kernel`` replaces ``decode_blocks_pallas``. For a tensor on
 the CPU each wrapper runs the plain version (ops/transform.py); for a CUDA
 tensor it checks its operands, launches the kernel and counts the launch,
-and never falls back. Kernel A takes n2 in {4, 16, 64, 256} (ENCODE_N2):
-at 256 it runs kernel B's 16x16 chain, so the analyze pass and B give the
-same integers. Kernel C takes n2 in {4, 16, 64} (DECODE_N2): 16x16 decode
+and never falls back. Kernel A takes n2 in {4, 16, 64, 256} (ENCODE_N2),
+on kernel B's tensor-core tile (csrc/transform_core.cuh: integer products
+over the operator's byte planes, a rounding certificate, the float32
+chain for the coefficients it leaves open), so the analyze pass and B
+give the same integers, those of testing.encode_fma_chain. Kernel C
+takes n2 in {4, 16, 64} (DECODE_N2): 16x16 decode
 has no TPU kernel, and the codec sends it to the plain float32 product
 (models/codec.py decode_transform), as the reference sends it to XLA.
 Any other n2 raises NotImplementedError.
@@ -17,6 +20,7 @@ from __future__ import annotations
 
 import torch
 
+from dct_tpu_torch import tables
 from dct_tpu_torch.config import CodecConfig
 from dct_tpu_torch.ops import _build, transform
 from dct_tpu_torch.tables import PACKED_N2, CodecOperators
@@ -46,12 +50,33 @@ def _check_launch(x: torch.Tensor, cfg: CodecConfig, operator: torch.Tensor,
                          f"operators, got {tuple(operator.shape)}")
 
 
-def row_major(ops: CodecOperators) -> tuple:
-    """The encode operator parts as the kernels read them, row-major: the
-    packed forms already are; the (256, 256) parts of 16x16 blocks come
-    transposed in memory from tables.encode_operator_split and are
-    copied."""
-    return tuple(m.contiguous() for m in (ops.m0, ops.m1, ops.m2))
+def integer_operands(ops: CodecOperators, n2: int, device,
+                     what: str) -> tuple:
+    """(int_planes, int_cert, parts_t, bias) as kernels A and B read them,
+    each checked: on `device`, of its dtype and shape, contiguous, and
+    16-byte aligned."""
+    p = tables.mma_width(n2)
+    want = {
+        "int_planes": (ops.int_planes, torch.uint8, (p // 8, p // 32, 32, 32)),
+        "int_cert": (ops.int_cert, torch.float64, (3, p)),
+        "parts_t": (ops.parts_t, torch.float32, (3, n2, n2)),
+        "bias": (ops.bias, torch.float32, (1, ops.bias.shape[-1])),
+    }
+    for name, (t, dtype, shape) in want.items():
+        if t is None:
+            raise ValueError(f"{what}: operators carry no {name}")
+        if t.device != device:
+            raise ValueError(f"{what}: {name} on {t.device}, input on "
+                             f"{device}")
+        if t.dtype != dtype or tuple(t.shape) != shape:
+            raise ValueError(f"{what}: {name} must be {dtype} {shape}, got "
+                             f"{t.dtype} {tuple(t.shape)}")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{what}: {name} must be contiguous and "
+                             "16-byte aligned")
+    if ops.bias.shape[-1] < n2:
+        raise ValueError(f"{what}: the bias has fewer than {n2} entries")
+    return ops.int_planes, ops.int_cert, ops.parts_t, ops.bias
 
 
 def _aligned(x: torch.Tensor) -> torch.Tensor:
@@ -81,20 +106,44 @@ def encode_blocks_kernel(
         recip = transform.reciprocal_scale(adaptive_scale.reshape(-1))
         if recip.shape[0] != n_blocks or recip.device != pixels.device:
             raise ValueError("adaptive_scale must hold one scale per block")
+    frag, cert, parts_t, bias = integer_operands(ops, cfg.n2, pixels.device,
+                                                 "encode_blocks")
     out = torch.empty(pixels.shape, dtype=torch.int32, device=pixels.device)
     if n_blocks == 0:
         return out
-    m0, m1, m2 = row_major(ops)
     lib = _build.library("transform")
     with torch.cuda.device(pixels.device):
         rc = lib.dct_encode_blocks(
-            pixels.data_ptr(), m0.data_ptr(), m1.data_ptr(),
-            m2.data_ptr(), ops.bias.data_ptr(), m0.shape[1],
-            _build.ptr(recip), out.data_ptr(), n_blocks, cfg.n2,
+            pixels.data_ptr(), frag.data_ptr(), cert.data_ptr(),
+            parts_t.data_ptr(), bias.data_ptr(), _build.ptr(recip),
+            out.data_ptr(), n_blocks, cfg.n2,
+            _build.rescue_counter("encode_blocks", pixels.device).data_ptr(),
             torch.cuda.current_stream().cuda_stream,
         )
     _build.check(lib, rc, "encode_blocks")
     _build.LAUNCHES["encode_blocks"] += 1
+    return out
+
+
+def mma_products(px: torch.Tensor, ops: CodecOperators,
+                 n2: int) -> torch.Tensor:
+    """The tensor-core tile's integer products alone, for testing it: (R,
+    P) u8 packed rows on the card (P = tables.mma_width(n2)) -> (R, P)
+    int64 x @ W over the block-diagonal integer operator. Not a codec
+    path: nothing counts it."""
+    p = tables.mma_width(n2)
+    if px.dtype != torch.uint8 or px.dim() != 2 or px.shape[1] != p:
+        raise ValueError(f"expected (R, {p}) uint8 rows, got "
+                         f"{tuple(px.shape)} {px.dtype}")
+    px = _aligned(px.contiguous())
+    frag = integer_operands(ops, n2, px.device, "mma_products")[0]
+    out = torch.empty(px.shape, dtype=torch.int64, device=px.device)
+    lib = _build.library("transform")
+    with torch.cuda.device(px.device):
+        rc = lib.dct_mma_products(px.data_ptr(), frag.data_ptr(),
+                                  out.data_ptr(), px.shape[0], p,
+                                  torch.cuda.current_stream().cuda_stream)
+    _build.check(lib, rc, "mma_products")
     return out
 
 

@@ -9,6 +9,12 @@ as the reference's ``ml_dtypes`` one, so the parts are bit-identical); the
 packed block-diagonal forms the reference's kernels take; and the torch
 tensors on a device.
 
+Beside the bf16 parts the bundle carries their exact integer form, which
+kernels A and B multiply on the tensor cores: each column k of m0 + m1 +
+m2 is an int32 column W[:, k] times 2^-e_k, split into four byte planes,
+with the per-column constants of the rounding certificate
+(integer_operator, byte_planes, mma_fragments, certificate_constants).
+
 All of it is gathered in one :class:`CodecOperators` bundle per (config,
 chroma, device): the codec's "parameters". The codec has no weights and no
 randomness; the bundle is a pure function of the config and the tables.
@@ -176,6 +182,8 @@ def adaptive_scale_mask(cfg: CodecConfig) -> np.ndarray:
 
 
 PACKED_N2 = (4, 16, 64)  # block sizes whose n2 divides the 128-lane row
+MMA_N2 = (4, 16, 64, 256)  # block sizes kernels A and B take on the tensor cores
+U32 = 2.0 ** -24  # float32's unit roundoff
 
 
 @dataclasses.dataclass(frozen=True)
@@ -194,6 +202,14 @@ class CodecOperators:
         "none" mode.
     run_lengths, run_codes: (65,) int32 canonical run table under
         cfg.coded_runs, else None (fixed run field).
+    int_planes: (P/8, P/32, 32, 32) uint8, the integer operator's four
+        byte planes in the B-fragment order of mma.m16n8k32 (mma_fragments);
+        P = mma_width(n2). None for n2 outside MMA_N2.
+    int_cert: (3, P) float64 per packed column: 2^-e_k, the bias, and the
+        certificate's error constant (certificate_constants).
+    parts_t: (3, n2, n2) float32, the bf16 parts transposed (row k =
+        coefficient k): the rescue's operand, one coefficient's chain
+        reading contiguous memory.
     """
 
     m0: torch.Tensor
@@ -206,6 +222,9 @@ class CodecOperators:
     cat_codes: torch.Tensor
     run_lengths: torch.Tensor | None = None
     run_codes: torch.Tensor | None = None
+    int_planes: torch.Tensor | None = None
+    int_cert: torch.Tensor | None = None
+    parts_t: torch.Tensor | None = None
 
     @property
     def device(self) -> torch.device:
@@ -256,7 +275,7 @@ def encode_operator_split(cfg: CodecConfig, chroma: bool = False):
 
 
 def _block_diag(m: np.ndarray, copies: int) -> np.ndarray:
-    """copies x copies block-diagonal tiling of m (n2 x n2) -> 128 x 128."""
+    """copies x copies block-diagonal tiling of m (n2 x n2)."""
     n2 = m.shape[0]
     out = np.zeros((copies * n2, copies * n2), m.dtype)
     for i in range(copies):
@@ -294,6 +313,110 @@ def packed_ac_mask(n2: int) -> np.ndarray:
     return mask
 
 
+def mma_width(n2: int) -> int:
+    """P, the packed row the tensor-core tile takes: n2, or 32 (the mma's
+    K) for n2 below it, 32 // n2 blocks a row under a block-diagonal
+    operator."""
+    return max(n2, 32)
+
+
+def _lowest_bit(a: np.ndarray) -> np.ndarray:
+    """Exponent of the lowest set bit of each nonzero float64 value (a
+    large sentinel for zeros): a == (odd integer) * 2^result."""
+    mant, ex = np.frexp(a)
+    mi = np.abs(np.ldexp(mant, 53).astype(np.int64))  # |a| = mi 2^(ex - 53)
+    low = np.frexp((mi & -mi).astype(np.float64))[1] - 1
+    return np.where(mi != 0, ex - 53 + low, np.iinfo(np.int32).max)
+
+
+def integer_operator(m0, m1, m2):
+    """(W, e): int64 (n2, n2) and (n2,) with W[:, k] * 2^-e[k] equal to
+    m0 + m1 + m2 (the bf16 parts) exactly, e[k] the least exponent that
+    makes every part's column k integral. Raises if a column needs more
+    than 31 bits (two's complement int32)."""
+    parts = [np.asarray(m, np.float64) for m in (m0, m1, m2)]
+    lsb = np.min([_lowest_bit(p).min(axis=0) for p in parts], axis=0)
+    e = -np.where(lsb == np.iinfo(np.int32).max, 0, lsb).astype(np.int64)
+    w = sum(np.ldexp(p, e[None, :]).astype(np.int64) for p in parts)
+    if np.abs(w).max() >= 2 ** 31:
+        raise ValueError("an operator column spans more than 31 bits")
+    return w, e
+
+
+def byte_planes(w: np.ndarray) -> np.ndarray:
+    """(4, ...) int64 planes of int32 values w: bits 0-7, 8-15 and 16-23
+    unsigned, bits 24-31 signed (two's complement), so that w = sum_l
+    2^(8 l) plane_l. A u8 pixel times a plane value is a u8 x u8 or u8 x s8
+    product, and 255 * 255 * 256 < 2^31 keeps every int32 sum exact."""
+    w = np.asarray(w, np.int64)
+    return np.stack([(w >> 8 * l) & 0xFF for l in range(3)] + [w >> 24])
+
+
+def mma_fragments(planes: np.ndarray) -> np.ndarray:
+    """(4, P, P) planes (row j = input pixel, column k = output) in the
+    order the tile reads them: (P/8, P/32, 32, 32) uint8, for n-tile nt,
+    k-step ks and lane (group g = lane / 4, thread t = lane % 4) 32 bytes,
+    plane l's two B-fragment registers of mma.m16n8k32 (rows ks*32 + 4t +
+    i, then ks*32 + 16 + 4t + i, of column nt*8 + g; byte i little-endian),
+    planes in order: one 16-byte load gives planes 0-1, the next 2-3."""
+    p = planes.shape[1]
+    nt = np.arange(p // 8)[:, None, None, None, None, None]
+    ks = np.arange(p // 32)[None, :, None, None, None, None]
+    lane = np.arange(32)[None, None, :, None, None, None]
+    pl = np.arange(4)[None, None, None, :, None, None]
+    h = np.arange(2)[None, None, None, None, :, None]
+    i = np.arange(4)[None, None, None, None, None, :]
+    rows = ks * 32 + 16 * h + 4 * (lane % 4) + i
+    cols = nt * 8 + lane // 4
+    frag = (np.asarray(planes, np.int64) & 0xFF)[pl, rows, cols]
+    return frag.astype(np.uint8).reshape(p // 8, p // 32, 32, 32)
+
+
+def certificate_constants(m0, m1, m2, b, e) -> np.ndarray:
+    """(3, n2) float64 per coefficient k: 2^-e_k, the bias b_k, and E_k =
+    gamma_{n2+3} (255 sum_i sum_j |m_i[j, k]| + |b_k|), with slack for this
+    float64 arithmetic, gamma_n = n u / (1 - n u), u = 2^-24.
+
+    E_k bounds how far the float32 chain (three part sums, each a
+    sequential sum of n2 exact products from 0 — at n2 = 256 two halves
+    of 128 and their sum —, then ((a0 + a1) + a2) + b) can lie from the
+    exact value: every term passes at most n2 + 3 roundings of relative
+    size u, so the chain is within gamma_{n2+3} of the sum of the terms'
+    magnitudes, and a u8 pixel is at most 255. The certificate
+    (csrc/transform_core.cuh certify, testing.encode_certified) adds the
+    rounding of the adaptive multiply and of round_half_away's add."""
+    n2 = np.asarray(m0).shape[0]
+    absum = sum(np.abs(np.asarray(m, np.float64)).sum(axis=0)
+                for m in (m0, m1, m2))
+    gamma = (n2 + 3) * U32 / (1.0 - (n2 + 3) * U32)
+    b = np.asarray(b, np.float64).reshape(-1)[:n2]
+    err = (gamma * (255.0 * absum + np.abs(b)) * (1.0 + 3 * U32)
+           * (1.0 + 2.0 ** -40))
+    return np.stack([np.ldexp(1.0, -np.asarray(e)), b, err])
+
+
+def integer_operands(m0, m1, m2, b, n2: int, device="cpu") -> dict:
+    """The tensor-core operands of CodecOperators (int_planes, int_cert,
+    parts_t) from the split parts (top-left n2 x n2 block of the packed
+    forms) and the bias, or None each for n2 outside MMA_N2. The parts are
+    read through a row-major copy: the (256, 256) ones come transposed in
+    memory from encode_operator_split."""
+    if n2 not in MMA_N2:
+        return dict(int_planes=None, int_cert=None, parts_t=None)
+    parts = [np.ascontiguousarray(np.asarray(m, np.float32)[:n2, :n2])
+             for m in (m0, m1, m2)]
+    w, e = integer_operator(*parts)
+    cert = certificate_constants(*parts, b, e)
+    copies = mma_width(n2) // n2
+    planes = np.stack([_block_diag(p, copies) for p in byte_planes(w)])
+    return dict(
+        int_planes=torch.as_tensor(mma_fragments(planes), device=device),
+        int_cert=torch.as_tensor(np.tile(cert, copies), device=device),
+        parts_t=torch.as_tensor(np.ascontiguousarray(
+            np.stack([p.T for p in parts])), device=device),
+    )
+
+
 def from_numpy(
     m0, m1, m2, bias, m_dec, cat_lengths, cat_codes,
     run_lengths=None, run_codes=None, *, n2: int, device="cpu",
@@ -319,6 +442,7 @@ def from_numpy(
         cat_codes=i32(cat_codes),
         run_lengths=None if run_lengths is None else i32(run_lengths),
         run_codes=None if run_codes is None else i32(run_codes),
+        **integer_operands(m0, m1, m2, bias, n2, device),
     )
 
 

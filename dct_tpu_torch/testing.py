@@ -12,6 +12,15 @@ criterion of tests/test_parity.py), decode to DECODE_TIE_TOL.
 Kernels A and C also promise an exact float32 chain for every output
 value; encode_fma_chain and decode_fma_chain compute that chain with torch
 ops on any device, so a kernel can be held to it bit for bit.
+
+Kernels A and B reach the encode chain's integers without running it for
+most coefficients: they form the exact product on the integer tensor
+cores, prove that the chain must round to round(Y*) for the float64 value
+Y* (a rounding certificate), and run the chain itself only for the
+coefficients the proof leaves open. encode_certified is that arithmetic in
+torch: the float64 product, the same certificate, the rescue by
+encode_fma_chain. The chain stays the contract; the certificate only
+decides where it has to run.
 """
 
 from __future__ import annotations
@@ -158,6 +167,49 @@ def encode_fma_chain(pixels: torch.Tensor, cfg: CodecConfig,
     if recip is not None:
         y[:, 1:] = y[:, 1:] * recip.reshape(-1, 1).to(torch.float32)
     return transform.round_half_away(y).to(torch.int32)
+
+
+CERT_REL = 2 * dct_tables.U32 + 2.0 ** -40  # times |Y*| in the certificate
+
+
+def certify(s: torch.Tensor, cert: torch.Tensor,
+            recip: torch.Tensor | None = None):
+    """The rounding certificate of csrc/transform_core.cuh (certify), in
+    the same float64 operations: (B, n2) exact integer products s = x @ W
+    (float64 or int64) and the (3, n2) int_cert constants -> (round(Y*) as
+    int32, certified mask). Y* = s 2^-e + b (the scaling exact, the add
+    rounded once), times the float32 recip on AC under adaptive
+    quantization. A coefficient is certified when no .5 boundary lies
+    within delta = E_k r + (2u + 2^-40) |Y*| + u of Y*: the chain then
+    rounds to round(Y*) (the proof is at certify in transform_core.cuh)."""
+    y = s.to(torch.float64) * cert[0] + cert[1]
+    rr = torch.ones_like(y)
+    if recip is not None:
+        rr[:, 1:] = recip.reshape(-1, 1).to(torch.float64)
+        y = y * rr
+    delta = (cert[2] * rr + CERT_REL * y.abs()) + dct_tables.U32
+    fl = torch.floor(y)
+    frac = y - fl
+    ok = (frac - 0.5).abs() > delta
+    return (fl + (frac > 0.5).to(torch.float64)).to(torch.int32), ok
+
+
+def encode_certified(pixels: torch.Tensor, cfg: CodecConfig,
+                     ops: dct_tables.CodecOperators,
+                     recip: torch.Tensor | None = None):
+    """Kernels A's and B's transform arithmetic on pixels' device: (B, n2)
+    u8 blocks -> ((B, n2) int32, (B, n2) bool rescued). The exact product
+    x @ W (float64 holds it: |x @ W| < 2^47), the certificate, and
+    encode_fma_chain's integer for every coefficient the certificate leaves
+    open (the rescue). recip: (B,) float32 reciprocal scales, or None."""
+    n2 = cfg.n2
+    w, _ = dct_tables.integer_operator(
+        *(m[:n2, :n2].cpu().numpy() for m in (ops.m0, ops.m1, ops.m2)))
+    x = pixels.reshape(-1, n2).to(torch.float64)
+    s = x @ torch.from_numpy(w).to(x.device, torch.float64)
+    q, ok = certify(s, ops.int_cert[:, :n2].to(x.device), recip)
+    chain = encode_fma_chain(pixels, cfg, ops, recip)
+    return torch.where(ok, q, chain), ~ok
 
 
 def decode_fma_chain(zz: torch.Tensor, cfg: CodecConfig,

@@ -9,7 +9,9 @@ suite's conftest.py imports jax). Shapes are small; the full-size
 comparison at 8 x 1088 x 1920 is chip_smoke.py's.
 
 Tolerances: kernel B is held bit-exact against the plain staged pipeline
-fed kernel A's integers (A and B share one float32 chain at every n2),
+fed kernel A's integers (A and B share one tensor-core tile, whose
+integers are the float32 chain's at every n2; the tile's integer products
+are held equal to int64 products first),
 in every mode at 4x4, 8x8 and 16x16 blocks and on a stripe wider than
 shared memory could hold. A and C are held bit-exact against the float32
 chains they promise (dct_tpu_torch.testing encode_fma_chain /
@@ -153,7 +155,7 @@ def test_transform_kernels_on_ragged_batches(cuda, n, n_blocks):
 @pytest.mark.cuda
 @pytest.mark.parametrize("n_blocks", (0, 1, 4099, 40003))
 def test_encode_kernel_256_on_ragged_batches(cuda, n_blocks):
-    """Kernel A at 16x16 blocks (kernel B's chain, the operator read
+    """Kernel A at 16x16 blocks (kernel B's tile, the byte planes read
     through L2): bit-exact against encode_fma_chain's n2 = 256 chain on
     block counts that fill no tile, end in a part tile and give every CTA
     several tiles, from an input one block into its buffer."""
@@ -172,6 +174,48 @@ def test_encode_kernel_256_on_ragged_batches(cuda, n_blocks):
     want = testing.encode_fma_chain(buf[1:], cfg, tables.build(cfg),
                                     transform.reciprocal_scale(scale))
     np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", (2, 4, 8, 16))
+def test_tile_products_equal_int64_matmul(cuda, n):
+    """The tensor-core tile's integer products (four byte-plane mma
+    products combined in int64) equal x @ W in int64 on random packed rows,
+    the all-255 row and a row count that ends in a part tile, before
+    kernels A and B rely on them."""
+    cfg = CodecConfig(block_size=n, quality=4)  # the widest columns
+    ops = tables.build(cfg, device=cuda)
+    p = tables.mma_width(cfg.n2)
+    w, _ = tables.integer_operator(*(m[:cfg.n2, :cfg.n2].cpu().numpy()
+                                     for m in (ops.m0, ops.m1, ops.m2)))
+    w_bd = torch.block_diag(*[torch.from_numpy(w)] * (p // cfg.n2))
+    rows = torch.from_numpy(np.random.default_rng(n).integers(
+        0, 256, (1000, p), dtype=np.uint8))
+    rows[0] = 255
+    got = transform_cuda.mma_products(rows.to(cuda), ops, cfg.n2)
+    assert torch.equal(got.cpu(), rows.to(torch.int64) @ w_bd)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", (4, 8, 16))
+def test_rescue_counts_of_a_and_b_agree(cuda, image, n):
+    """Kernels A and B run one tile function: on the same blocks they
+    rescue the same coefficients, as many as the CPU emulation of the
+    certificate leaves open, and both give the chain's integers."""
+    cfg = CodecConfig(block_size=n, quality=100, adaptive=True)
+    px, scale = _blocks_and_scale(image, cfg, cuda)
+    px = px.reshape(-1, cfg.n2)
+    ops = tables.build(cfg, device=cuda)
+    n_stripes = codec._padded_grid(*image.shape, cfg)[2]
+    _build.reset_rescued()
+    got = transform_cuda.encode_blocks_kernel(px, cfg, ops, scale)
+    fused_encode_cuda.encode_stripes_fused(px, cfg, n_stripes, ops, scale)
+    ops_h = tables.build(cfg)
+    recip = transform.reciprocal_scale(scale.cpu())
+    want, rescued = testing.encode_certified(px.cpu(), cfg, ops_h, recip)
+    assert torch.equal(got.cpu(), want)
+    assert _build.rescued("encode_blocks") == int(rescued.sum()) > 0
+    assert _build.rescued("encode_stripes") == int(rescued.sum())
 
 
 @pytest.mark.cuda
