@@ -21,7 +21,9 @@ to int64 products at n2 4, 16, 64 and 256, then:
      sum an integer below 2^24), checked equal to the tile's products;
   2. kernel C (decode transform) on those coefficients: against
      testing.decode_fma_chain (ties only, expected 0 mismatches) and its
-     plain version (ties only);
+     plain version (ties only); its library time is one cuBLAS float32
+     call computing its products only (the coefficients as float32 times
+     the 64 x 64 decode operator: no dequant scale, rounding or clamp);
   3. kernel B (fused stripe encode) against the plain staged pipeline
      (codec.encode_pack_plain) fed kernel A's integers — exactly equal
      units, stripe bits and block bits, with B's rescue share — on the
@@ -51,7 +53,10 @@ to int64 products at n2 4, 16, 64 and 256, then:
      coded runs, and on 1080p "none" and "direct" streams from the card's
      staged encoder (kernels A and E);
   8. times of D and its plain version at the batch, its bound, and the
-     1080p q90 decode on both routes, stage by stage;
+     1080p q90 decode on both routes, stage by stage (D's operands as the
+     decode path builds them: the stripe starts and tables on the host, one
+     upload; D scans the index into block starts itself), D alone on the
+     1080p frame among them (the latency case);
   9. kernel E (chunk packer) against its plain version, bit-exact (units
      and stripe bits), on the chunks of the 8-frame batch (1,088 stripes,
      50 M chunks) from kernel A's coefficients at static q50 and at
@@ -72,7 +77,8 @@ to int64 products at n2 4, 16, 64 and 256, then:
  11. video at full width: VideoCodec(cfg, device="cuda") encodes 32 frames
      of 1080p (one chunk: one A and one E launch, no B) at q50 and q90,
      and decodes them (the q90 stack of v2 containers in one D and one C
-     launch), counted; the streams must equal those of chunk_frames=8
+     launch; D is also timed alone on the q90 stack's operands), counted;
+     the streams must equal those of chunk_frames=8
      (whose pass 2 runs kernel B), the decoded stack per-frame
      ImageCodec decode and the host route exactly, and a 2-frame stack the
      CPU path's (ties excepted; pixels within 1). Times of encode, decode
@@ -637,6 +643,15 @@ def main() -> int:
         f"(64, 256), float32 out; products only, equal to the tile's): "
         f"{a_library_ms:.4f} ms")
     del lib_prod, lib_s, tile_s, px_bf
+    # C's library time, on the same footing: one cuBLAS float32 product of
+    # the coefficients (as float32) and the 64 x 64 decode operator, TF32
+    # off; products only (no dequant scale, +128, rounding or clamp)
+    zz_f32 = zz_main16.to(torch.float32)
+    m_dec = ops.m_dec[:64, :64].contiguous()
+    c_library_ms = cuda_ms(lambda: torch.mm(zz_f32, m_dec), 20)
+    log(f"time decode_blocks library (cuBLAS float32 ({zz_f32.shape[0]}, 64) "
+        f"@ (64, 64); products only): {c_library_ms:.4f} ms")
+    del zz_f32
     c32_ms = cuda_ms(lambda: transform_cuda.decode_blocks_kernel(
         zz_main, static, ops), 20)
     log(f"time decode_blocks on A's int32 coefficients (the wrapper narrows "
@@ -766,7 +781,7 @@ def main() -> int:
         cuda_ms(lambda: ed.decode_blocks_plain(**ops_d), 3))
     log(f"time entropy_decode: kernel {times['entropy_decode'][0]:.4f} ms, "
         f"plain {times['entropy_decode'][1]:.4f} ms (8 x {H}x{W}, static "
-        f"q90, {ops_d['block_start'].numel()} blocks)")
+        f"q90, {ops_d['block_bits'].numel()} blocks)")
     routes = {
         "decode": host_ms(lambda: gpu90.decode(data90), 10),
         "decode_to_device": host_ms(lambda: (gpu90.decode_to_device(data90),
@@ -780,9 +795,6 @@ def main() -> int:
     c90 = cont.deserialize(data90)
     p90 = c90.planes[0]
     table90 = codec.hf.CanonicalTable(p90.table_lengths)
-    host_in = [np.frombuffer(b"".join(p90.stripes), np.uint8),
-               np.asarray(p90.block_bits, np.uint16),
-               ed.table_inputs(table90, None, "category", codec.DIRECT_VMIN)]
     ops90 = codec.indexed_operands(p90.stripes, p90.block_bits, table90,
                                      None, "category", 64, dev)
     zz90 = entropy_decode_cuda.decode_blocks_kernel(**ops90)
@@ -790,11 +802,13 @@ def main() -> int:
     ops_q90 = tables.build(q90, device=dev)
     stages90 = {
         "parse": host_ms(lambda: cont.deserialize(data90), 10),
-        "upload payload+index+tables": host_ms(
-            lambda: (codec._upload(host_in, dev), torch.cuda.synchronize()),
-            10),
-        "block starts": cuda_ms(lambda: ed.block_starts(
-            ops90["block_bits"].reshape(len(p90.stripes), -1)), 20),
+        # D's operands as the decode path builds them: the stripe starts and
+        # the packed tables on the host, then one upload (D scans the
+        # index into block starts itself)
+        "operands (stripe starts, tables, upload)": host_ms(
+            lambda: (codec.indexed_operands(
+                p90.stripes, p90.block_bits, table90, None, "category", 64,
+                dev), torch.cuda.synchronize()), 10),
         "kernel D": cuda_ms(lambda: entropy_decode_cuda.decode_blocks_kernel(
             **ops90), 20),
         "kernel C": cuda_ms(lambda: transform_cuda.decode_blocks_kernel(
@@ -1006,6 +1020,21 @@ def main() -> int:
         if cfg.quality == 90:
             check(versions == [2] and dec_counts["entropy_decode"] == 1,
                   f"video {name}: the v2 stack did not decode in one D launch")
+            # kernel D alone on the stack's operands, as decode_planes_device
+            # builds them (one launch over every frame's stripes)
+            pv = [cont.deserialize(d).planes[0] for d in streams]
+            ops_v90 = codec.indexed_operands(
+                [s for p in pv for s in p.stripes],
+                np.concatenate([p.block_bits for p in pv]),
+                codec.hf.CanonicalTable(pv[0].table_lengths), None,
+                "category", 64, dev)
+            d_stack_ms = cuda_ms(
+                lambda: entropy_decode_cuda.decode_blocks_kernel(**ops_v90), 10)
+            log(f"time entropy_decode {name} {VIDEO_FRAMES}-frame stack: "
+                f"kernel {d_stack_ms:.4f} ms "
+                f"({ops_v90['block_bits'].numel()} blocks, "
+                f"{ops_v90['payload'].numel()} B)")
+            del ops_v90
         _build.reset_launch_counts()
         chunked = video.VideoCodec(cfg, chunk_frames=8, device=dev).encode(
             vframes)
@@ -1157,10 +1186,11 @@ def main() -> int:
             a_b_ops(nb, 64), INT8_OPS),
         "decode_blocks": bound_ms(nb * 64 * 2 + nb * 64 + op_bytes,
                                   mm_flops, F32_FLOPS),
+        # payload, index, stripe starts, tables and coefficients, once each
         "entropy_decode": bound_ms(
             sum(t.numel() * t.element_size() for t in ops_d.values()
                 if isinstance(t, torch.Tensor))
-            + ops_d["block_start"].numel() * 64 * 2),
+            + ops_d["block_bits"].numel() * 64 * 2),
         # the int32 chunks as E reads them, the units and bits it writes
         "pack_chunks": bound_ms(
             2 * e_inputs[0].numel() * e_inputs[0].element_size()
@@ -1178,8 +1208,8 @@ def main() -> int:
          "max_abs_err": results[k][1], "ms": round(times[k][0], 4),
          "plain_ms": round(times[k][1], 4),
          "bound_ms": round(bounds[k][0], 5), "bound_by": bounds[k][1],
-         "library_ms": (round(a_library_ms, 4) if k == "encode_blocks"
-                        else None)}
+         "library_ms": ({"encode_blocks": round(a_library_ms, 4),
+                         "decode_blocks": round(c_library_ms, 4)}.get(k))}
         for k in sources
     ]
     print(json.dumps({"kernels": table}))

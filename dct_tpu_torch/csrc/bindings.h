@@ -63,20 +63,22 @@ DCT_EXPORT int dct_encode_stripes(const void* px, const void* frag,
                                   void* block_bits, void* rescued,
                                   void* stream);
 
-// Kernel D: entropy decode of indexed (v2) stripes, one thread per block.
-// payload: (payload_bytes,) u8, the stripes concatenated (bytes past the
-// end read as zero). block_start: (n_blocks,) int64 first bit of each
-// block; block_bits: (n_blocks,) u16 bit lengths. tabs: int32 packed
-// tables (TABLE_FIELDS of ops/entropy_decode.py) followed by n_vtab direct
-// values. out: (n_blocks, n2) int16 zigzag coefficients. mode: 0 category,
-// 1 direct, 2 none; run_bits: the fixed run field's width, 0 for coded
-// runs.
+// Kernel D: entropy decode of indexed (v2) stripes, one lane per block, a
+// warp per 32 consecutive blocks. payload: (payload_bytes,) u8, the stripes
+// concatenated, 16-byte aligned (bytes past the end read as zero).
+// stripe_start: (n_stripes,) int64 first bit of each stripe; block_bits:
+// (n_stripes, bps) u16 bit lengths, which the kernel scans into block
+// starts. tabs: int32 packed tables (TABLE_FIELDS of
+// ops/entropy_decode.py) followed by n_vtab direct values. out: (n_blocks,
+// n2) int16 zigzag coefficients, n_blocks = n_stripes * bps, n2 4, 16, 64
+// or 256. mode: 0 category, 1 direct, 2 none; run_bits: the fixed run
+// field's width, 0 for coded runs.
 DCT_EXPORT int dct_entropy_decode(const void* payload, long long payload_bytes,
-                                  const void* block_start,
-                                  const void* block_bits, const void* tabs,
-                                  int n_vtab, void* out, long long n_blocks,
-                                  int n2, int mode, int run_bits,
-                                  void* stream);
+                                  const void* stripe_start,
+                                  const void* block_bits, int bps,
+                                  const void* tabs, int n_vtab, void* out,
+                                  long long n_blocks, int n2, int mode,
+                                  int run_bits, void* stream);
 
 // Kernel E: chunk packing, one CTA per stripe. cv/cl: (n_stripes,
 // n_chunks) int32 chunk values and bit lengths (0..16; a value holds no bit

@@ -447,18 +447,20 @@ def indexed_decode_ok(p: cont.PlaneData, cfg: CodecConfig, table,
 def indexed_operands(stripes: list[bytes], block_bits: np.ndarray, table,
                      run_table, mode: str, n2: int, device) -> dict:
     """Kernel D's operands for an indexed stream, on ``device``: one
-    upload of the payload (the stripes concatenated), the index and the
-    packed tables, then the block starts by cumsum on the device. ->
-    keyword arguments of entropy_decode_cuda.decode_blocks_kernel (and of
-    its plain version)."""
-    payload, bits, tabs = _upload(
+    upload of the payload (the stripes concatenated, first, so at offset 0
+    of a fresh allocation: 16-byte aligned), the stripe start bits (from
+    the stripe byte lengths, on the host), the (n_stripes, bps) index and
+    the packed tables. -> keyword arguments of
+    entropy_decode_cuda.decode_blocks_kernel (and of its plain version),
+    which scans the index into block starts itself."""
+    payload, starts, bits, tabs = _upload(
         [np.frombuffer(b"".join(stripes), np.uint8),
-         np.asarray(block_bits, np.uint16),
+         ed.stripe_starts([len(s) for s in stripes]),
+         np.asarray(block_bits, np.uint16).reshape(len(stripes), -1),
          ed.table_inputs(table, run_table, mode, DIRECT_VMIN)], device)
     return dict(
-        payload=payload,
-        block_start=ed.block_starts(bits.reshape(len(stripes), -1)),
-        block_bits=bits, n2=n2, mode=mode, tabs=tabs,
+        payload=payload, stripe_start=starts, block_bits=bits, n2=n2,
+        mode=mode, tabs=tabs,
         run_bits=0 if run_table is not None else bs.run_field_bits(n2))
 
 

@@ -44,8 +44,8 @@ _SIGNATURES = {
                                _p],
     },
     "entropy_decode": {
-        "dct_entropy_decode": [_p, _ll, _p, _p, _p, _i, _p, _ll, _i, _i, _i,
-                               _p],
+        "dct_entropy_decode": [_p, _ll, _p, _p, _i, _p, _i, _p, _ll, _i, _i,
+                               _i, _p],
     },
     "pack": {
         "dct_pack_chunks": [_p, _p, _i, _ll, _ll, _p, _ll, _p, _p],

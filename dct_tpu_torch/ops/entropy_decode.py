@@ -3,10 +3,12 @@ host preparation and the plain PyTorch version.
 
 Port of ``dct_tpu.ops.entropy_decode_pallas``. With the per-block decode
 index every block is an independent substream, so the unit of parallelism
-is the block: block b's bits start at its stripe's byte offset x 8 plus the
-exclusive sum of the bit lengths before it in its stripe
-(:func:`block_starts`). Each block then decodes on its own, symbol by
-symbol, with the semantics of the reference kernel's lanes:
+is the block: block b's bits start at its stripe's first bit (the stripe's
+byte offset x 8, built on the host from the stripe byte lengths:
+:func:`stripe_starts`) plus the exclusive sum of the bit lengths before it
+in its stripe (:func:`block_starts`; kernel D does that scan itself). Each
+block then decodes on its own, symbol by symbol, with the semantics of the
+reference kernel's lanes:
 
   value:  a canonical code of at most 16 bits, then the mode's payload —
           category: ``cat`` extra bits (JPEG sign rule); direct: the
@@ -26,8 +28,8 @@ or direct values outside int16, are for the host decoder
 (:func:`tables_supported`).
 
 The table operands travel as one int32 vector (:func:`table_inputs`), laid
-out as TABLE_FIELDS, which kernel D (csrc/entropy_decode.cu) copies into
-shared memory as it is.
+out as TABLE_FIELDS; kernel D (csrc/entropy_decode.cu) copies the fixed
+fields into shared memory and builds its lookahead tables from them.
 """
 
 from __future__ import annotations
@@ -111,16 +113,25 @@ def table_inputs(table: hf.CanonicalTable | None,
     return np.concatenate([f[name] for name, _ in TABLE_FIELDS] + [vtab])
 
 
-def block_starts(block_bits: torch.Tensor) -> torch.Tensor:
+def stripe_starts(stripe_bytes) -> np.ndarray:
+    """Byte lengths of the concatenated stripes -> (n_stripes,) int64 first
+    bit of each: the exclusive sum of the lengths, times 8. Stripes are
+    byte-aligned; a container's stripe lengths are ceil(stripe_bits / 8),
+    and container.deserialize checks that the index sums to stripe_bits."""
+    n = np.asarray(stripe_bytes, np.int64)
+    return (np.cumsum(n) - n) * 8
+
+
+def block_starts(block_bits: torch.Tensor,
+                 stripe_start: torch.Tensor) -> torch.Tensor:
     """(n_stripes, bps) per-block bit lengths (u16 entries, int16 bit
-    patterns accepted) -> (NB,) int64 first bit of every block in the
-    concatenated payload, on block_bits' device. Stripes are byte-aligned:
-    stripe s starts at byte sum_{t<s} ceil(bits_t / 8)."""
+    patterns accepted) and (n_stripes,) int64 stripe start bits -> (NB,)
+    int64 first bit of every block in the concatenated payload: its
+    stripe's first bit plus the exclusive sum of the lengths before it in
+    its stripe (the scan kernel D runs)."""
     bb = block_bits.to(torch.int64) & 0xFFFF
-    stripe_bytes = (bb.sum(dim=1) + 7) // 8
-    stripe_start = (torch.cumsum(stripe_bytes, 0) - stripe_bytes) * 8
     within = torch.cumsum(bb, dim=1) - bb
-    return (stripe_start[:, None] + within).reshape(-1)
+    return (stripe_start.to(torch.int64)[:, None] + within).reshape(-1)
 
 
 def _bits(window: torch.Tensor, off: torch.Tensor, n) -> torch.Tensor:
@@ -155,7 +166,7 @@ def _lookup(tab: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 def decode_blocks_plain(
     payload: torch.Tensor,
-    block_start: torch.Tensor,
+    stripe_start: torch.Tensor,
     block_bits: torch.Tensor,
     n2: int,
     mode: str,
@@ -163,10 +174,11 @@ def decode_blocks_plain(
     run_bits: int,
 ) -> torch.Tensor:
     """Plain version of kernel D: (P,) uint8 payload (the stripes
-    concatenated; bytes past its end read as zero), (NB,) int64 block
-    start bits, (NB,) u16 block bit lengths (int16 bit patterns), the
-    packed int32 table vector, the fixed run field's width (0: coded
-    runs) -> (NB, n2) int16 zigzag coefficients.
+    concatenated; bytes past its end read as zero), (n_stripes,) int64
+    stripe start bits, (n_stripes, bps) u16 block bit lengths (int16 bit
+    patterns), the packed int32 table vector, the fixed run field's width
+    (0: coded runs) -> (n_stripes * bps, n2) int16 zigzag coefficients.
+    Block starts are :func:`block_starts`.
 
     Vectorised over blocks: every step decodes one symbol of each block
     that is still active, and the loop runs while any block is. A step
@@ -182,10 +194,10 @@ def decode_blocks_plain(
         t[name] = tabs[o:o + n].to(torch.int64)
         o += n
     vtab = tabs[o:].to(torch.int64)
-    nb = block_start.numel()
+    cur = block_starts(block_bits, stripe_start)
+    nb = cur.numel()
     out = torch.zeros(nb, n2, dtype=torch.int16, device=dev)
-    cur = block_start.to(torch.int64)
-    end = cur + (block_bits.to(torch.int64) & 0xFFFF)
+    end = cur + (block_bits.reshape(-1).to(torch.int64) & 0xFFFF)
     live = torch.nonzero(end > cur).flatten()
     cur, end = cur[live], end[live]
     pos = torch.zeros_like(cur)

@@ -6,8 +6,17 @@ CPU it runs the plain version (ops/entropy_decode.py); for a CUDA payload
 it checks its operands, launches the kernel on the current stream and
 counts the launch, and never falls back. The kernel takes n2 in
 {4, 16, 64, 256}, all three modes, fixed and coded runs, and any direct
-alphabet (one longer than the kernel's shared-memory table is read from
+alphabet (values of codes longer than its lookahead tables are read from
 device memory).
+
+Operands: the payload (the stripes concatenated), each stripe's first bit
+(host-built from the stripe byte lengths, ``ed.stripe_starts``), the
+(n_stripes, bps) block bit lengths of the decode index, which the kernel
+scans itself into block starts, and the packed tables. The kernel reads
+the payload in aligned 32-bit words, so the payload's ``data_ptr()`` must
+be 16-byte aligned: the wrapper raises otherwise. ``codec.indexed_operands``
+uploads the payload first, at offset 0 of a fresh allocation, so its
+payload always is.
 """
 
 from __future__ import annotations
@@ -18,9 +27,10 @@ from dct_tpu_torch.ops import _build
 from dct_tpu_torch.ops import entropy_decode as ed
 
 KERNEL_N2 = (4, 16, 64, 256)
+PAYLOAD_ALIGN = 16  # bytes
 
 
-def _check_launch(payload, block_start, block_bits, n2, mode, tabs,
+def _check_launch(payload, stripe_start, block_bits, n2, mode, tabs,
                   run_bits) -> None:
     if n2 not in KERNEL_N2:
         raise NotImplementedError(
@@ -30,20 +40,25 @@ def _check_launch(payload, block_start, block_bits, n2, mode, tabs,
     if not 0 <= run_bits <= 16:
         raise ValueError(f"run_bits must be in [0, 16], got {run_bits}")
     for name, t, dtype, ndim in (("payload", payload, torch.uint8, 1),
-                                 ("block_start", block_start, torch.int64, 1),
-                                 ("block_bits", block_bits, torch.int16, 1),
+                                 ("stripe_start", stripe_start, torch.int64, 1),
+                                 ("block_bits", block_bits, torch.int16, 2),
                                  ("tabs", tabs, torch.int32, 1)):
         if t.device != payload.device:
             raise ValueError(f"entropy_decode: {name} on {t.device}, payload "
                              f"on {payload.device}")
         if t.dtype != dtype or t.dim() != ndim:
-            raise TypeError(f"entropy_decode: {name} must be a 1-D {dtype} "
-                            f"tensor, got {t.dim()}-D {t.dtype}")
+            raise TypeError(f"entropy_decode: {name} must be a {ndim}-D "
+                            f"{dtype} tensor, got {t.dim()}-D {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"entropy_decode: {name} must be contiguous")
-    if block_bits.numel() != block_start.numel():
-        raise ValueError("entropy_decode: block_start and block_bits differ "
-                         "in length")
+    if block_bits.shape[0] != stripe_start.numel():
+        raise ValueError(f"entropy_decode: block_bits has "
+                         f"{block_bits.shape[0]} stripes, stripe_start "
+                         f"{stripe_start.numel()}")
+    if payload.data_ptr() % PAYLOAD_ALIGN:
+        raise ValueError(f"entropy_decode: the payload must be "
+                         f"{PAYLOAD_ALIGN}-byte aligned (data_ptr "
+                         f"{payload.data_ptr():#x})")
     if tabs.numel() < ed.TABLE_FIXED:
         raise ValueError(f"entropy_decode: tabs holds {tabs.numel()} values, "
                          f"fewer than {ed.TABLE_FIXED}")
@@ -51,30 +66,32 @@ def _check_launch(payload, block_start, block_bits, n2, mode, tabs,
 
 def decode_blocks_kernel(
     payload: torch.Tensor,
-    block_start: torch.Tensor,
+    stripe_start: torch.Tensor,
     block_bits: torch.Tensor,
     n2: int,
     mode: str,
     tabs: torch.Tensor,
     run_bits: int,
 ) -> torch.Tensor:
-    """(P,) u8 payload, (NB,) int64 block starts, (NB,) int16 (u16 bit
-    patterns) block bit lengths, the packed int32 tables, the run field's
-    width (0: coded runs) -> (NB, n2) int16 zigzag coefficients;
+    """(P,) u8 payload (16-byte aligned on CUDA), (n_stripes,) int64 stripe
+    start bits, (n_stripes, bps) int16 (u16 bit patterns) block bit
+    lengths, the packed int32 tables, the run field's width (0: coded
+    runs) -> (n_stripes * bps, n2) int16 zigzag coefficients;
     entropy_decode.decode_blocks_plain on the CPU, kernel D on CUDA."""
     if payload.device.type == "cpu":
-        return ed.decode_blocks_plain(payload, block_start, block_bits, n2,
+        return ed.decode_blocks_plain(payload, stripe_start, block_bits, n2,
                                       mode, tabs, run_bits)
-    _check_launch(payload, block_start, block_bits, n2, mode, tabs, run_bits)
-    n_blocks = block_start.numel()
+    _check_launch(payload, stripe_start, block_bits, n2, mode, tabs, run_bits)
+    n_stripes, bps = block_bits.shape
+    n_blocks = n_stripes * bps
     out = torch.empty((n_blocks, n2), dtype=torch.int16, device=payload.device)
     if n_blocks == 0:
         return out
     lib = _build.library("entropy_decode")
     with torch.cuda.device(payload.device):
         rc = lib.dct_entropy_decode(
-            payload.data_ptr(), payload.numel(), block_start.data_ptr(),
-            block_bits.data_ptr(), tabs.data_ptr(),
+            payload.data_ptr(), payload.numel(), stripe_start.data_ptr(),
+            block_bits.data_ptr(), bps, tabs.data_ptr(),
             tabs.numel() - ed.TABLE_FIXED, out.data_ptr(), n_blocks, n2,
             ed.MODE_IDS[mode], run_bits,
             torch.cuda.current_stream().cuda_stream,

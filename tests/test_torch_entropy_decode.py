@@ -48,6 +48,12 @@ CASES = {
     "n16": ((48, 115), dict(block_size=16, quality=40)),
     # 256 blocks per stripe: the JAX kernel's cells past the first 128
     "wide": ((16, 2048), dict(quality=50)),
+    # n2 = 4 (2x2 blocks) in both Huffman modes, n2 = 256 without Huffman
+    "n2_runs": ((10, 38), dict(block_size=2, quality=40, coded_runs=True)),
+    "n2_direct": ((10, 38), dict(block_size=2, quality=40,
+                                 huffman_mode="direct")),
+    "n16_none": ((32, 70), dict(block_size=16, quality=40,
+                                huffman_mode="none")),
 }
 
 
@@ -99,6 +105,11 @@ def test_plain_matches_jax_kernel_and_host_decoders(case):
     assert p.block_bits is not None
     ops = codec.indexed_operands(p.stripes, p.block_bits, table, run_table,
                                    mode, cfg.n2, "cpu")
+    # the stripe starts from the stripe byte lengths are the index's own
+    stripe_bits = (ops["block_bits"].to(torch.int64) & 0xFFFF).sum(dim=1)
+    np.testing.assert_array_equal(
+        ops["stripe_start"].numpy(),
+        ed.stripe_starts(-(-stripe_bits.numpy() // 8)))
     got = ed.decode_blocks_plain(**ops)
     assert got.dtype == torch.int16 and got.shape == (p.block_bits.size,
                                                       cfg.n2)
@@ -211,13 +222,41 @@ def test_table_inputs_match_the_jax_kernels_tables(case):
     assert not vtab[got.size - o:].any()
 
 
+# (n_stripes, bps): blocks a stripe that are not multiples of a warp's 32
+# or the JAX kernel's 128-block cells, and the 4x4 / stripe_rows=4 widths
+SCAN_SHAPES = ((3, 7), (5, 130), (2, 257), (2, 480), (1, 960))
+
+
+@pytest.mark.parametrize("shape", SCAN_SHAPES)
+def test_block_scan_matches_jax_plan_cells(shape):
+    """The plain version's scan of the index (the scan kernel D runs)
+    against the JAX package's host plan: block offsets within a stripe,
+    plus the stripe's first bit."""
+    rng = np.random.default_rng(shape[1])
+    bits = rng.integers(0, 2000, shape).astype(np.uint16)
+    bits[0, : shape[1] // 3] = 0  # empty blocks
+    starts = ed.stripe_starts(-(-bits.astype(np.int64).sum(axis=1) // 8))
+    got = ed.block_starts(torch.from_numpy(bits.view(np.int16)),
+                          torch.from_numpy(starts)).numpy()
+    boff = edp.plan_cells(bits, shape[0])[0][:, : shape[1]]
+    np.testing.assert_array_equal(got.reshape(shape) - starts[:, None], boff)
+
+
+def _byte_aligned_starts(bits: torch.Tensor) -> np.ndarray:
+    """ed.block_starts of an index whose stripes are byte-aligned, their
+    byte lengths ceil(bits / 8), as a container's are."""
+    stripe_bits = (bits.to(torch.int64) & 0xFFFF).sum(dim=1).numpy()
+    starts = ed.stripe_starts(-(-stripe_bits // 8))
+    return ed.block_starts(bits, torch.from_numpy(starts)).numpy()
+
+
 def test_block_starts_follow_byte_aligned_stripes():
     bits = torch.tensor([[3, 0, 9], [1, 1, 1], [16, 0, 0]], dtype=torch.int16)
-    np.testing.assert_array_equal(ed.block_starts(bits).numpy(),
+    np.testing.assert_array_equal(_byte_aligned_starts(bits),
                                   [0, 3, 3, 16, 17, 18, 24, 40, 40])
     # u16 entries arrive as int16 bit patterns
     big = torch.tensor([[40000 - 65536, 5]], dtype=torch.int16)
-    np.testing.assert_array_equal(ed.block_starts(big).numpy(), [0, 40000])
+    np.testing.assert_array_equal(_byte_aligned_starts(big), [0, 40000])
 
 
 def test_hostile_index_never_reads_past_the_payload():
@@ -227,7 +266,7 @@ def test_hostile_index_never_reads_past_the_payload():
     ops = codec.indexed_operands(p.stripes, p.block_bits, table, run_table,
                                    mode, cfg.n2, "cpu")
     past = ops["payload"].numel() * 8
-    ops["block_start"] = ops["block_start"] + past
+    ops["stripe_start"] = ops["stripe_start"] + past
     out = ed.decode_blocks_plain(**ops)
     zero_payload = dict(ops, payload=torch.zeros(past // 8 + 64,
                                                  dtype=torch.uint8))

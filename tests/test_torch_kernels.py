@@ -24,11 +24,15 @@ plain versions run on the card here with TF32 off, so their float32
 products stay float32; 16x16 blocks, whose decode no kernel takes, are
 decoded once more with TF32 on, which the codec's route must override. Kernel D
 is held bit-exact against its plain version and the host decoder in every
-mode, and against its plain version on random bits under a random index;
-the codec's indexed decode on the card gives exactly the pixels of the host
-route on the same container. Kernel E is held bit-exact (units and stripe
-bits) against its plain version, and the staged encode path and the video
-codec on the card give the CPU path's bytes.
+mode, against its plain version on random bits under a random index (long
+direct tables too), and against the coefficients on stripes whose width
+its 32-block tiles do not divide and at n2 = 256; a payload that is not
+16-byte aligned raises; the codec's indexed decode on the card gives
+exactly the pixels of the host route on the same container. Kernel E is
+held bit-exact (units and stripe bits) against its plain version, also on
+rows of a chunk count not a multiple of 4, at tile boundaries and with the
+capacity cut inside a tile and at its last unit, and the staged encode
+path and the video codec on the card give the CPU path's bytes.
 
 This file imports only the port: the machine with the card has no jax.
 """
@@ -470,13 +474,59 @@ def test_entropy_decode_kernel_matches_plain(cuda, image, case):
                               table, codec.DIRECT_VMIN, run_table=run_table))
 
 
+def _random_coefficients(n_blocks, n2, seed):
+    """Laplace-distributed zigzag coefficients, ~30 % nonzero, a few far
+    outside the direct alphabet (ESC in direct mode)."""
+    rng = np.random.default_rng(seed)
+    zz = (rng.laplace(0, 4, (n_blocks, n2))
+          * (rng.random((n_blocks, n2)) < 0.3)).astype(np.int32)
+    zz[rng.integers(0, n_blocks, 5), rng.integers(0, n2, 5)] = 3000
+    return torch.from_numpy(zz)
+
+
+# blocks a stripe, block size, config: stripes whose width is not a multiple
+# of a warp's 32 blocks or a CTA's 256 (a warp's 32 rows then straddle
+# stripes; at 9 blocks a stripe, several), and n2 = 256, the largest tile
+STAGED_STREAMS = {
+    "bps9_category": (9, 8, dict()),
+    "bps37_direct_runs": (37, 8, dict(huffman_mode="direct",
+                                      coded_runs=True)),
+    "bps300_none_runs": (300, 8, dict(use_huffman=False, coded_runs=True)),
+    "bps45_n256_category": (45, 16, dict()),
+    "bps45_n256_direct": (45, 16, dict(huffman_mode="direct")),
+    "bps45_n256_none": (45, 16, dict(use_huffman=False)),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(STAGED_STREAMS))
+def test_entropy_decode_kernel_on_ragged_stripes(cuda, case):
+    """Kernel D against its plain version and the coefficients themselves
+    on streams of 7 stripes whose width the kernel's tiles do not divide,
+    and at n2 = 256."""
+    bps, n, kw = STAGED_STREAMS[case]
+    cfg = CodecConfig(block_size=n, decode_index=True, **kw)
+    zz = _random_coefficients(7 * bps, cfg.n2, bps)
+    stripes, bits, table, run_table = testing.indexed_stream(zz, cfg, 7)
+    mode = cfg.huffman_mode if cfg.use_huffman else "none"
+    args = (stripes, bits, table, run_table, mode, cfg.n2)
+    got = entropy_decode_cuda.decode_blocks_kernel(
+        **codec.indexed_operands(*args, cuda))
+    want = ed.decode_blocks_plain(**codec.indexed_operands(*args, "cpu"))
+    np.testing.assert_array_equal(want.numpy(), zz.numpy())
+    np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
+
+
 # mode, alphabet size, coded runs, n2 of a random stream
 RANDOM_STREAMS = {
     "category_runs_n64": ("category", 16, True, 64),
     "category_n16": ("category", 16, False, 16),
+    "category_n4": ("category", 16, False, 4),
     "direct_n64": ("direct", 512, False, 64),
-    # longer than the kernel's shared-memory copy of the direct table
+    # many codes longer than the kernel's lookahead tables: their values
+    # are read from the direct table in device memory
     "direct_long_runs_n256": ("direct", 3000, True, 256),
+    "direct_long_n64": ("direct", 3000, False, 64),
     "none_runs_n64": ("none", 0, True, 64),
 }
 
@@ -534,37 +584,90 @@ def test_entropy_decode_kernel_refuses_what_it_does_not_take(cuda):
     with pytest.raises(TypeError):
         entropy_decode_cuda.decode_blocks_kernel(
             **dict(ops, block_bits=ops["block_bits"].to(torch.int32)))
+    with pytest.raises(TypeError):
+        entropy_decode_cuda.decode_blocks_kernel(
+            **dict(ops, block_bits=ops["block_bits"].reshape(-1)))
     with pytest.raises(ValueError):
         entropy_decode_cuda.decode_blocks_kernel(
-            **dict(ops, block_start=ops["block_start"].cpu()))
-
-
-# capacity cut: None = the worst case (every chunk fits); an int gives an
-# odd capacity with one stripe filled exactly to it, one past it
-PACK_CASES = {"worst_capacity": None, "full_and_past_capacity": -7}
+            **dict(ops, stripe_start=ops["stripe_start"].cpu()))
+    with pytest.raises(ValueError):
+        entropy_decode_cuda.decode_blocks_kernel(
+            **dict(ops, stripe_start=ops["stripe_start"][:1]))
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", sorted(PACK_CASES))
-def test_pack_kernel_matches_plain(cuda, case):
-    """Random chunks: 60 % dead (junk values), stripes live over uneven
-    lengths, an all-dead stripe."""
-    cut = PACK_CASES[case]
+@pytest.mark.parametrize("offset", (1, 4, 8))
+def test_entropy_decode_kernel_refuses_an_unaligned_payload(cuda, offset):
+    """The kernel reads the payload in aligned words: a view that does not
+    start on 16 bytes raises, and the same bytes aligned decode."""
+    cfg = CodecConfig(decode_index=True)
+    ops = codec.indexed_operands(
+        *testing.indexed_stream(_random_coefficients(32, 64, 1), cfg, 2),
+        "category", 64, cuda)
+    n = ops["payload"].numel()
+    buf = torch.zeros(n + 32, dtype=torch.uint8, device=cuda)
+    buf[offset:offset + n] = ops["payload"]
+    assert buf.data_ptr() % 16 == 0
+    with pytest.raises(ValueError, match="aligned"):
+        entropy_decode_cuda.decode_blocks_kernel(
+            **dict(ops, payload=buf[offset:offset + n]))
+    buf[16:16 + n] = ops["payload"]
+    np.testing.assert_array_equal(
+        entropy_decode_cuda.decode_blocks_kernel(
+            **dict(ops, payload=buf[16:16 + n])).cpu().numpy(),
+        entropy_decode_cuda.decode_blocks_kernel(**ops).cpu().numpy())
+
+
+def _pack_case(case):
+    """(values, lengths, capacity) of a random chunk case: 60 % dead chunks
+    (junk values), stripes live over uneven lengths, an all-dead stripe,
+    and the case's own shape and capacity."""
     rng = np.random.default_rng(3)
-    s, c = 24, 700
+    s, c = (6, 701) if case == "ragged_rows" else (24, 700)
+    if case.startswith(("tile", "capacity")):
+        s, c = 3, 1400  # 4,200 chunks a stripe: two tiles of 2,048 and a tail
     cl = rng.integers(1, 17, (s, c, 3))
     cl[rng.random(cl.shape) < 0.6] = 0
     for st in range(s):
         cl[st, c * (st + 1) // s:] = 0
     cl[0] = 0
-    cap = c * 3 if cut is None else c * 3 + cut
-    if cut is not None:
+    cap = c * 3
+    if case == "full_and_past_capacity":
+        cap = c * 3 - 7
         cl[1] = 16
         cl[2] = 0
         cl[2].reshape(-1)[:cap] = 16
+    elif case.startswith(("tile", "capacity")):
+        # stripe 1: 16-bit chunks, so a tile ends on a word exactly; stripe
+        # 2: one bit fewer in the first tile, so a word straddles into the
+        # second
+        cl[1] = 16
+        cl[2] = 16
+        cl[2].reshape(-1)[5] = 15
+        cap = {"capacity_inside_a_tile": 2048 + 1001,
+               "capacity_at_a_tiles_last_unit": 2047,
+               "capacity_after_a_tiles_last_unit": 2048}.get(case, c * 3)
     cv = rng.integers(0, 1 << 16, cl.shape)
     cv = np.where(cl > 0, cv & ((1 << cl) - 1), cv)
-    cv_h, cl_h = (torch.from_numpy(a).to(torch.int32) for a in (cv, cl))
+    return (*(torch.from_numpy(a).to(torch.int32) for a in (cv, cl)), cap)
+
+
+# the worst-case capacity (every chunk fits) unless the name says else;
+# "ragged_rows": 2,103 chunks a row, not a multiple of 4, so every other
+# row starts off 16 bytes
+PACK_CASES = ("worst_capacity", "full_and_past_capacity", "ragged_rows",
+              "tile_boundary", "capacity_inside_a_tile",
+              "capacity_at_a_tiles_last_unit",
+              "capacity_after_a_tiles_last_unit")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", PACK_CASES)
+def test_pack_kernel_matches_plain(cuda, case):
+    """Kernel E against its plain version, bit for bit (units and stripe
+    bits), on random chunks."""
+    cv_h, cl_h, cap = _pack_case(case)
+    s = cv_h.shape[0]
     before = _build.LAUNCHES["pack_chunks"]
     got = pack_cuda.pack_chunks_kernel(cv_h.to(cuda), cl_h.to(cuda), cap)
     torch.cuda.synchronize()
