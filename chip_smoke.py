@@ -90,11 +90,35 @@ to int64 products at n2 4, 16, 64 and 256, then:
      the plain staged pipeline fed kernel A's integers, and kernel D on
      B's stream against its plain version and the host decoder. This
      drives direct mode's ESC, the 16-bit code cap and B's worst-case
-     buffer (the fullest stripe's share of it is printed).
+     buffer (the fullest stripe's share of it is printed);
+ 13. color at full width: the 1080p frame as RGB (the frame and two
+     shifted copies), its Y/Cb/Cr planes on the card equal to the CPU's
+     bit for bit; kernels A, B and C with the chrominance operators on
+     the Cb plane against the float32 chains and the staged pipeline;
+     ColorImageCodec(cfg, device="cuda") at 4:4:4 and 4:2:0, static q50
+     (v1) and q90 with the decode index (v2), encoding (one B a plane, and
+     one A a plane with dynamic tables) and decoding (decode and
+     decode_to_device: one C a plane, and one D a plane for v2), counted;
+     containers equal to the CPU path's (ties excepted), pixels within 1
+     of it and equal to the host route's; times. Then 32 RGB frames of
+     1080p (seeds 0..31) at 4:2:0 q50 through VideoCodec: one chunk (one A
+     and one E a plane) equal to chunk_frames=8 (pass 2 through B), a
+     2-frame stack equal to the CPU path's; times and peak memory;
+ 14. recovery: the 4:2:0 q90 container of phase 13 with one corrupt
+     stripe a plane: verify reports exactly those, repair and rebuild
+     (one A and one E launch a plane) give the from-scratch bytes, and
+     decode_region of rows 500-700 (host entropy decode, then C) the full
+     decode's rows; counted and timed;
+ 15. rate control: on the RGB frame and on 8 gray 1080p frames, on the
+     ladder q30/50/70/90/97, container_size and video_container_sizes
+     equal to len() of the real containers and psnr_at_quality (RGB, and
+     the first gray frame) to the PSNR of the real encode and decode;
+     encode_to_size, encode_to_psnr and encode_video_to_size meet targets
+     set between two rungs; counted and timed.
 
-Phases 4, 6, 10 and 11 are the main paths: each zeroes the kernels' launch
-counters just before it and reads them just after, and the kernel table's
-launch counts are their sums. A and C may differ from their plain versions
+Phases 4, 6, 10, 11, 13, 14 and 15 are the main paths: each zeroes the
+kernels' launch counters just before it and reads them just after, and
+the kernel table's launch counts are their sums. A and C may differ from their plain versions
 only at ties: at most 1 apart, where the float64 value lies within 1e-6
 (encode) or 1e-3 (decode) of a .5 boundary (the two sum float32 products
 in different orders; dct_tpu_torch.testing). B, D and E are held
@@ -356,6 +380,406 @@ def encode_stages(cfg, frame, dev) -> dict:
         "instead: symbol chunks + E": host_ms(synced(
             lambda: codec.pack_frames(sym, cfg, (), n_stripes, ops_t)), 10),
     }
+
+
+def counted(fn, main_runs):
+    """fn() with the kernels' launch counters zeroed before and read after
+    (synchronised): a main-path run, its counts appended to main_runs.
+    -> (fn's result, the counts)."""
+    import torch
+    from dct_tpu_torch.ops import _build
+
+    _build.reset_launch_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    counts = dict(_build.LAUNCHES)
+    main_runs.append(counts)
+    return out, counts
+
+
+def rgb_of(gray):
+    """RGB from a gray frame (or stack), as the repo's tests build it."""
+    return np.stack([gray, np.roll(gray, 3, -2), np.roll(gray, 5, -1)], -1)
+
+
+def check_chroma_kernels(dev, rgb) -> None:
+    """Kernels A, B and C with the chrominance operators (the Cb plane of
+    the 1080p frame at 4:4:4): A bit-exact to the float32 chain it
+    promises, with its rescue share (the certificate on the chroma
+    operator's integer form); B equal to the staged pipeline fed A's
+    integers; C to decode_fma_chain within decode ties."""
+    import torch
+    from dct_tpu_torch import CodecConfig, tables, testing
+    from dct_tpu_torch.models import codec, color
+    from dct_tpu_torch.ops import _build, blocks, transform, transform_cuda
+
+    cb = color._to_planes(torch.from_numpy(rgb).to(dev), "444")[1]
+    img = codec.pad_plane_for_encode(cb, CodecConfig())
+    for name, cfg in (("static q50", CodecConfig(quality=50,
+                                                 static_tables=True)),
+                      ("adaptive q90", CodecConfig(quality=90,
+                                                   adaptive=True))):
+        ops = tables.build(cfg, chroma=True, device=dev)
+        px = blocks.image_to_blocks(img, 8).reshape(-1, 64)
+        _, scale = codec._adaptive(px, cfg)
+        recip = None if scale is None else transform.reciprocal_scale(scale)
+        _build.reset_rescued()
+        got = transform_cuda.encode_blocks_kernel(px, cfg, ops, scale)
+        share = rescue_share("encode_blocks", got.numel())
+        n_chain = int((got != testing.encode_fma_chain(px, cfg, ops,
+                                                       recip)).sum())
+        log(f"A chroma {name}: {n_chain} mismatches of {got.numel()} "
+            f"against encode_fma_chain; {share}")
+        check(n_chain == 0, "A with the chroma operator differs from its "
+              "float32 chain")
+        ns = img.shape[0] // 8
+        ops_t, _, _ = batch_tables(cfg, px, scale, ns, ops)
+        check_b(f"chroma {name}", cfg, px, scale, ns, ops_t)
+        zz_h = got.cpu().numpy()
+        scale_h = None if scale is None else scale.cpu().numpy()
+        tie_check(f"C chroma {name} vs decode_fma_chain",
+                  transform_cuda.decode_blocks_kernel(got, cfg, ops, scale),
+                  testing.decode_fma_chain(got, cfg, ops, scale),
+                  lambda b: testing.decode_values_f64(
+                      zz_h[b], cfg, None if scale_h is None else scale_h[b],
+                      chroma=True),
+                  testing.DECODE_TIE_TOL)
+
+
+def phase_color(dev, frame, vframes, main_runs) -> dict:
+    """Phase 13: ColorImageCodec at full width (444 and 420, static q50
+    and the default q90) and 32 RGB frames of 1080p through VideoCodec,
+    counted. -> {"420 q90": its container} for phase 14."""
+    import dataclasses
+
+    import torch
+    from dct_tpu_torch import CodecConfig
+    from dct_tpu_torch import container as cont
+    from dct_tpu_torch.models import codec, color, video
+
+    rgb = rgb_of(frame)
+    h, w = frame.shape
+    mpx = h * w / 1e3
+    for mode in ("444", "420"):
+        gpu_planes = color._to_planes(torch.from_numpy(rgb).to(dev), mode)
+        cpu_planes = color._to_planes(torch.from_numpy(rgb), mode)
+        same = all(torch.equal(g.cpu(), c)
+                   for g, c in zip(gpu_planes, cpu_planes))
+        back = color.planes_to_rgb(*gpu_planes, mode, h, w)
+        same_rgb = torch.equal(back.cpu(), color.planes_to_rgb(
+            *cpu_planes, mode, h, w))
+        log(f"color {mode}: planes on the card equal the CPU's: {same}; "
+            f"planes_to_rgb too: {same_rgb}")
+        check(same and same_rgb, f"color {mode}: conversions differ")
+    check_chroma_kernels(dev, rgb)
+    kept = {}
+    # q90 with the decode index: "auto" leaves it out of a 1080p color
+    # container (the chroma planes' index costs more than 6 % of their
+    # payload), and kernel D decodes only indexed planes
+    for mode in ("444", "420"):
+        for q, kw in ((50, dict(static_tables=True)),
+                      (90, dict(decode_index=True))):
+            name = f"{mode} q{q} {'static' if q == 50 else 'index'}"
+            cfg = CodecConfig(quality=q, chroma=mode, **kw)
+            gpu = color.ColorImageCodec(cfg, device=dev)
+            data, enc = counted(lambda: gpu.encode(rgb), main_runs)
+            rec, dec = counted(lambda: gpu.decode(data), main_runs)
+            rec_d, dec_d = counted(lambda: gpu.decode_to_device(data),
+                                   main_runs)
+            log(f"color {name}: {len(data)} B, v{data[4]}; encode launches "
+                f"{enc}, decode {dec}, decode_to_device {dec_d}")
+            check(enc["encode_stripes"] == 3 and enc["pack_chunks"] == 0
+                  and enc["encode_blocks"] == (0 if cfg.static_tables else 3),
+                  f"color {name}: not one B (and one A with dynamic tables) "
+                  "a plane")
+            v2 = data[4] == 2
+            check(v2 == (q == 90), f"color {name}: container v{data[4]}")
+            for counts in (dec, dec_d):
+                check(counts["decode_blocks"] == 3
+                      and counts["entropy_decode"] == (3 if v2 else 0),
+                      f"color {name}: decode launches {counts}")
+            cpu = color.ColorImageCodec(cfg, device="cpu")
+            same_or_ties(f"color {name}", data, cpu.encode(rgb), rgb)
+            check(rec_d.device.type == "cuda"
+                  and np.array_equal(rec, rec_d.cpu().numpy()),
+                  f"color {name}: decode and decode_to_device disagree")
+            err = int(np.abs(rec.astype(int) - cpu.decode(data)).max())
+            c = cont.deserialize(data)
+            host = color.planes_to_rgb(*(codec.decode_plane_device(
+                dataclasses.replace(p, block_bits=None), cfg, dev,
+                chroma=i > 0) for i, p in enumerate(c.planes)), mode, h, w)
+            same_host = np.array_equal(host.cpu().numpy(), rec)
+            mse = float(np.mean((rec.astype(np.float64) - rgb) ** 2))
+            log(f"color {name}: decode max |diff| vs CPU {err}, equal to the "
+                f"host route: {same_host}, PSNR "
+                f"{10 * np.log10(255.0 ** 2 / mse):.2f} dB")
+            check(err <= 1, f"color {name}: pixels differ by {err}")
+            check(same_host, f"color {name}: differs from the host route")
+            c_ms = {"encode": host_ms(lambda: gpu.encode(rgb), 10),
+                    "decode": host_ms(lambda: gpu.decode(data), 10),
+                    "decode_to_device": host_ms(
+                        lambda: (gpu.decode_to_device(data),
+                                 torch.cuda.synchronize()), 10)}
+            log(f"ColorImageCodec 1080p {name} (v{data[4]}): " + ", ".join(
+                f"{k} {v:.3f} ms ({mpx / v:.1f} Mpix/s)"
+                for k, v in c_ms.items()))
+            kept[f"{mode} q{q}"] = data
+
+    # 32 RGB frames of 1080p at 420 q50, one chunk (3 A, 3 E) against
+    # chunk_frames=8 (pass 2 through B)
+    vrgb = rgb_of(vframes)
+    nf, vh, vw = vrgb.shape[:3]
+    vmpx = nf * vh * vw / 1e3
+    cfg = CodecConfig(quality=50, chroma="420")
+    vc = video.VideoCodec(cfg, device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    streams, enc = counted(lambda: vc.encode(vrgb), main_runs)
+    enc_peak = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    rec_d, dec = counted(lambda: vc.decode_to_device(streams), main_runs)
+    dec_peak = torch.cuda.max_memory_allocated()
+    log(f"color video 420 q50: {nf} x {vh}x{vw}, {sum(map(len, streams))} B; "
+        f"encode launches {enc}, peak {enc_peak / 2**30:.3f} GiB; "
+        f"decode_to_device launches {dec}, peak {dec_peak / 2**30:.3f} GiB")
+    check(enc["encode_blocks"] == enc["pack_chunks"] == 3
+          and enc["encode_stripes"] == 0,
+          "color video: not one A and one E launch a plane")
+    check(dec["decode_blocks"] == 3, "color video: not one C a plane")
+    chunked, c8 = counted(lambda: video.VideoCodec(
+        cfg, chunk_frames=8, device=dev).encode(vrgb), main_runs)
+    log(f"color video: chunk_frames=8 launches {c8}; streams equal to one "
+        f"chunk's: {chunked == streams}")
+    check(c8["encode_stripes"] == 3 * nf // 8,
+          "color video: chunked pass 2 did not run kernel B")
+    check(chunked == streams, "color video: bytes depend on chunking")
+    rec = vc.decode(streams)
+    check(np.array_equal(rec, rec_d.cpu().numpy()),
+          "color video: decode and decode_to_device disagree")
+    single = color.ColorImageCodec(cfg, device=dev)
+    check(all(np.array_equal(rec[i], single.decode(streams[i]))
+              for i in (0, nf // 2, nf - 1)),
+          "color video: the stack differs from per-frame decode")
+    two = video.VideoCodec(cfg, device=dev).encode(vrgb[:2])
+    two_cpu = video.VideoCodec(cfg, device="cpu").encode(vrgb[:2])
+    for i in range(2):
+        same_or_ties(f"color video 2-frame stack, frame {i}", two[i],
+                     two_cpu[i], vrgb[i])
+    v_ms = {"encode": host_ms(lambda: vc.encode(vrgb), 3),
+            "decode": host_ms(lambda: vc.decode(streams), 3),
+            "decode_to_device": host_ms(lambda: (vc.decode_to_device(streams),
+                                                 torch.cuda.synchronize()), 3)}
+    log(f"color video 420 q50 {nf} x {vh}x{vw}: " + ", ".join(
+        f"{k} {v:.3f} ms ({vmpx / v:.1f} Mpix/s)" for k, v in v_ms.items()))
+    color_stages(dev, rgb, kept["420 q50"], vrgb, cfg)
+    return kept
+
+
+def color_stages(dev, rgb, data, vrgb, cfg) -> None:
+    """Where the 1080p 420 q50 (v1) decode and the 32-frame RGB video
+    encode go, stage by stage (host clock, synchronised)."""
+    import os
+
+    import torch
+    from dct_tpu_torch import container as cont
+    from dct_tpu_torch import native
+    from dct_tpu_torch.models import codec, color, video
+
+    def synced(fn):
+        def run():
+            out = fn()
+            torch.cuda.synchronize()
+            return out
+        return run
+
+    c = cont.deserialize(data)
+    h, w = rgb.shape[:2]
+    planes = [codec.decode_plane_device(p, c.config, dev, chroma=i > 0)
+              for i, p in enumerate(c.planes)]
+    rec = color.planes_to_rgb(*planes, "420", h, w)
+    threads = len(os.sched_getaffinity(0))
+    log(f"host: os.cpu_count() {os.cpu_count()}, cores this process may run "
+        f"on {threads}; the native decoder takes os.cpu_count() threads")
+
+    def host_decode(p, n_threads=None):
+        bh, bw, ns = codec._padded_grid(p.height, p.width, c.config)
+        table = codec.hf.CanonicalTable(p.table_lengths)
+        return native.unpack_stripes(p.stripes, bh // ns * bw, 64,
+                                     "category", table, codec.DIRECT_VMIN,
+                                     n_threads=n_threads)
+
+    stages = {"parse": host_ms(lambda: cont.deserialize(data), 5)}
+    for name, p in zip(("Y", "Cb", "Cr"), c.planes):
+        stages[f"host entropy decode {name}"] = host_ms(
+            lambda: host_decode(p), 5)
+        stages[f"host entropy decode {name}, {threads} threads"] = host_ms(
+            lambda: host_decode(p, threads), 5)
+    for name, (i, p) in zip(("Y", "Cb", "Cr"), enumerate(c.planes)):
+        stages[f"decode_plane_device {name}"] = host_ms(synced(
+            lambda: codec.decode_plane_device(p, c.config, dev,
+                                              chroma=i > 0)), 5)
+    stages["planes_to_rgb"] = host_ms(synced(
+        lambda: color.planes_to_rgb(*planes, "420", h, w)), 5)
+    stages["download RGB"] = host_ms(lambda: rec.cpu(), 5)
+    log("1080p 420 q50 decode stages: " + ", ".join(
+        f"{k} {v:.3f} ms" for k, v in stages.items()))
+
+    batches = video.rgb_planes(vrgb, "420", None, dev)
+    h, w = vrgb.shape[1:3]
+    per_plane = [video._encode_plane_batch(b, cfg, None, dev, chroma=i > 0)
+                 for i, b in enumerate(batches)]
+    v_stages = {"RGB -> planes (upload, convert, download)": host_ms(
+        lambda: video.rgb_planes(vrgb, "420", None, dev), 3)}
+    for name, (i, b) in zip(("Y", "Cb", "Cr"), enumerate(batches)):
+        v_stages[f"plane stack {name}"] = host_ms(
+            lambda: video._encode_plane_batch(b, cfg, None, dev,
+                                              chroma=i > 0), 3)
+    v_stages["serialize"] = host_ms(lambda: [cont.serialize(cont.Container(
+        config=cfg, width=w, height=h, planes=list(p)))
+        for p in zip(*per_plane)], 3)
+    log(f"color video 420 q50 {vrgb.shape[0]} x {h}x{w} encode stages: "
+        + ", ".join(f"{k} {v:.3f} ms" for k, v in v_stages.items()))
+
+
+def phase_recovery(dev, frame, data, main_runs) -> None:
+    """Phase 14: the 1080p 420 q90 container with one corrupt stripe a
+    plane: verify finds exactly those, repair and rebuild (kernels A and
+    E) give the from-scratch bytes (kernel B's), decode_region (host
+    entropy decode, kernel C) the full decode's rows; counted and timed."""
+    import torch
+    from dct_tpu_torch import container as cont
+    from dct_tpu_torch.models import codec, recovery
+
+    rgb = rgb_of(frame)
+    hit = [(0, 40), (1, 20), (2, 50)]
+    c = cont.deserialize(data)
+    for pi, st in hit:
+        s = bytearray(c.planes[pi].stripes[st])
+        for i in range(8):
+            s[i] ^= 0xA5
+        c.planes[pi].stripes[st] = bytes(s)
+    bad = cont.serialize(c)
+    found = recovery.verify(bad)
+    log(f"recovery 420 q90: corrupted {hit}, verify reports {found}")
+    check(found == hit, "verify did not report exactly the corrupt stripes")
+    check(recovery.verify(data) == [], "verify flags a clean container")
+    fixed, rep = counted(lambda: recovery.repair(bad, rgb, device=dev),
+                         main_runs)
+    rebuilt, reb = counted(lambda: recovery.rebuild(data, rgb, device=dev),
+                           main_runs)
+    log(f"recovery: repair launches {rep}, equal to the from-scratch bytes: "
+        f"{fixed == data}; rebuild launches {reb}, equal: {rebuilt == data}")
+    check(fixed == data, "repair differs from the from-scratch encode")
+    check(rebuilt == data, "rebuild differs from the from-scratch encode")
+    check(rep["encode_blocks"] == rep["pack_chunks"] == 3
+          and rep["encode_stripes"] == 0,
+          "repair: not one A and one E launch a damaged plane")
+    full = codec.decode(data, dev)
+    region, reg = counted(lambda: recovery.decode_region(data, 500, 700,
+                                                          device=dev),
+                          main_runs)
+    log(f"recovery: decode_region rows 500-700 launches {reg}, equal to the "
+        f"full decode's rows: {np.array_equal(region, full[500:700])}")
+    check(np.array_equal(region, full[500:700]),
+          "decode_region differs from the full decode")
+    r_ms = {"verify": host_ms(lambda: recovery.verify(bad), 5),
+            "repair (3 stripes, verify's)": host_ms(
+                lambda: recovery.repair(bad, rgb, device=dev), 5),
+            "repair (the 3 stripes named)": host_ms(
+                lambda: recovery.repair(bad, rgb, stripes=hit, device=dev),
+                5),
+            "rebuild (271 stripes)": host_ms(
+                lambda: recovery.rebuild(data, rgb, device=dev), 5),
+            "decode_region 500-700": host_ms(
+                lambda: recovery.decode_region(data, 500, 700, device=dev),
+                5),
+            "full decode": host_ms(lambda: codec.decode(data, dev), 5)}
+    torch.cuda.synchronize()
+    log("recovery 1080p 420 q90: " + ", ".join(
+        f"{k} {v:.3f} ms" for k, v in r_ms.items()))
+
+
+def phase_rate_control(dev, frame, vframes, main_runs) -> None:
+    """Phase 15: size and PSNR probes on the 1080p RGB frame and on 8 gray
+    1080p frames against real encodes on a 5-rung ladder, the encode_to_*
+    fronts against their targets; counted and timed."""
+    from dct_tpu_torch import CodecConfig
+    from dct_tpu_torch.models import codec, rate_control as rc, video
+
+    rgb = rgb_of(frame)
+    stack = vframes[:8]
+    ladder = (30, 50, 70, 90, 97)
+    sizes, psnrs, vsizes = {}, {}, {}
+    for q in ladder:
+        cfg = CodecConfig(quality=q)
+        sizes[q], c1 = counted(lambda: rc.container_size(rgb, cfg, dev),
+                               main_runs)
+        psnrs[q], c2 = counted(lambda: rc.psnr_at_quality(rgb, cfg, dev),
+                               main_runs)
+        vsizes[q], c3 = counted(lambda: rc.video_container_sizes(
+            stack, cfg, device=dev), main_runs)
+        data = codec.encode(rgb, cfg, dev)
+        rec = codec.decode(data, dev).astype(np.float64)
+        real_psnr = float(10.0 * np.log10(255.0 * 255.0
+                                          / np.mean((rec - rgb) ** 2)))
+        streams = video.VideoCodec(cfg, device=dev).encode(stack)
+        gray_psnr = rc.psnr_at_quality(stack[0], cfg, dev)
+        rec0 = codec.decode(streams[0], dev).astype(np.float64)
+        real_gray = float(10.0 * np.log10(255.0 * 255.0
+                                          / np.mean((rec0 - stack[0]) ** 2)))
+        log(f"rate control q{q}: RGB probe {sizes[q]} B, container "
+            f"{len(data)} B (v{data[4]}); PSNR probe {psnrs[q]!r}, real "
+            f"{real_psnr!r}; 8-frame gray probe {int(vsizes[q].sum())} B, "
+            f"streams {sum(map(len, streams))} B; gray frame PSNR probe "
+            f"{gray_psnr!r}, real {real_gray!r}; probe launches {c1}, {c2}, "
+            f"{c3}")
+        check(sizes[q] == len(data), f"q{q}: RGB size probe is not exact")
+        check(psnrs[q] == real_psnr, f"q{q}: RGB PSNR probe is not exact")
+        check(vsizes[q].tolist() == [len(s) for s in streams],
+              f"q{q}: video size probe is not exact")
+        check(gray_psnr == real_gray, f"q{q}: gray PSNR probe is not exact")
+        check(c1["encode_blocks"] == 3 and c2["encode_blocks"] == 3
+              and c2["decode_blocks"] == 3 and c1["encode_stripes"] == 0,
+              f"q{q}: the probes did not run kernels A and C")
+    budget = (sizes[50] + sizes[70]) // 2
+    (data, q), c4 = counted(lambda: rc.encode_to_size(
+        rgb, budget, qualities=ladder, device=dev), main_runs)
+    log(f"encode_to_size budget {budget} B: q{q}, {len(data)} B; launches "
+        f"{c4}")
+    check(q == 50 and len(data) <= budget, "encode_to_size missed its target")
+    target = (psnrs[50] + psnrs[70]) / 2
+    (data, q), c5 = counted(lambda: rc.encode_to_psnr(
+        rgb, target, qualities=ladder, device=dev), main_runs)
+    rec = codec.decode(data, dev).astype(np.float64)
+    got = float(10.0 * np.log10(255.0 * 255.0 / np.mean((rec - rgb) ** 2)))
+    log(f"encode_to_psnr target {target:.4f} dB: q{q}, {got:.4f} dB; "
+        f"launches {c5}")
+    check(q == 70 and got >= target, "encode_to_psnr missed its target")
+    total = (int(vsizes[70].sum()) + int(vsizes[90].sum())) // 2
+    (streams, q), c6 = counted(lambda: rc.encode_video_to_size(
+        stack, total, qualities=ladder, device=dev), main_runs)
+    log(f"encode_video_to_size budget {total} B: q{q}, "
+        f"{sum(map(len, streams))} B; launches {c6}")
+    check(q == 70 and sum(map(len, streams)) <= total,
+          "encode_video_to_size missed its target")
+    cfg = CodecConfig(quality=90)
+    t_ms = {"container_size RGB": host_ms(
+                lambda: rc.container_size(rgb, cfg, dev), 5),
+            "RGB encode (for comparison)": host_ms(
+                lambda: codec.encode(rgb, cfg, dev), 5),
+            "psnr_at_quality RGB": host_ms(
+                lambda: rc.psnr_at_quality(rgb, cfg, dev), 5),
+            "video_container_sizes 8 gray": host_ms(
+                lambda: rc.video_container_sizes(stack, cfg, device=dev), 3),
+            "8-frame video encode (for comparison)": host_ms(
+                lambda: video.VideoCodec(cfg, device=dev).encode(stack), 3),
+            "encode_to_size RGB (5 rungs)": host_ms(
+                lambda: rc.encode_to_size(rgb, budget, qualities=ladder,
+                                          device=dev), 3),
+            "encode_to_psnr RGB (5 rungs)": host_ms(
+                lambda: rc.encode_to_psnr(rgb, target, qualities=ladder,
+                                          device=dev), 3)}
+    log("rate control 1080p q90: " + ", ".join(
+        f"{k} {v:.3f} ms" for k, v in t_ms.items()))
 
 
 def main() -> int:
@@ -1159,6 +1583,11 @@ def main() -> int:
     check(c_two["encode_stripes"] == 4 and c_two["pack_chunks"] == 0,
           "video 16x16: chunked pass 2 did not run kernel B")
     check(one16 == two16, "video 16x16: bytes depend on chunking")
+
+    # ---- 13-15. color, recovery and rate control, counted -------------
+    kept = phase_color(dev, frame, vframes, main_runs)
+    phase_recovery(dev, frame, kept["420 q90"], main_runs)
+    phase_rate_control(dev, frame, vframes, main_runs)
 
     sources = {
         "encode_blocks": ("dct_tpu_torch/csrc/transform.cu",

@@ -1,9 +1,10 @@
 // bitpack.cpp — the host entropy decoder of dct_tpu_torch (a copy of the
-// reference package's native/bitpack.cpp, cut to the stripe decoder the
-// port calls).
+// reference package's native/bitpack.cpp, cut to the stripe decoder and
+// the integrity scan the port calls).
 //
 // Canonical-Huffman DECODE of stripe substreams, serial within a stripe and
-// parallel across stripes on a thread pool. Built with the host compiler
+// parallel across stripes on a thread pool, and the integrity scan of
+// stripes against their recorded bit lengths. Built with the host compiler
 // on first use and bound with ctypes by dct_tpu_torch/native.py. The wire
 // format is documented in dct_tpu_torch/ops/bitstream.py and
 // dct_tpu_torch/container.py; the result must equal the Python decoder
@@ -177,7 +178,8 @@ inline int32_t value_from_category(int cat, uint32_t extra) {
 void decode_one_stripe(const uint8_t* data, uint64_t nbytes, int bps, int n2,
                        int mode, const CanonicalTable* table, int vmin,
                        int n_alpha, const CanonicalTable* run_table,
-                       int16_t* out, int* err) {
+                       int16_t* out, int* err,
+                       uint64_t* consumed_bits = nullptr) {
   BitReader r{data, nbytes};
   // With the reference-convention fixed run field (8 bits; 9 for 16x16
   // blocks), one peek64 covers the whole symbol (code <=16b + payload
@@ -258,6 +260,7 @@ void decode_one_stripe(const uint8_t* data, uint64_t nbytes, int bps, int n2,
     }
     if (!r.ok()) { *err = 3; return; }
   }
+  if (consumed_bits) *consumed_bits = r.pos;
 }
 
 // Run work(lo, hi) over [0, n) on up to n_threads workers.
@@ -317,6 +320,42 @@ int dctbits_unpack_stripes(const uint8_t* blob, const uint64_t* offsets,
   run_parallel(work, n_stripes, n_threads);
   for (int s = 0; s < n_stripes; ++s)
     if (errs[s]) return errs[s];
+  return 0;
+}
+
+// Integrity scan: decode each stripe into thread-local scratch and report a
+// per-stripe status (0 ok; 2 bad symbol; 3 overrun; 4 consumed-bit count
+// differs from the container's record). Mirrors models/recovery.py's
+// Python scan: the container records each stripe's exact bit length, so
+// byte damage almost surely desynchronizes the position-invariant decoder.
+int dctbits_verify_stripes(const uint8_t* blob, const uint64_t* offsets,
+                           int n_stripes, int bps, int n2, int mode,
+                           const uint8_t* table_lengths, int table_size,
+                           const uint8_t* run_lengths, int run_table_size,
+                           int vmin, const uint32_t* expected_bits,
+                           int32_t* status_out, int n_threads) {
+  CanonicalTable table;
+  int n_alpha = table_size - 1;
+  if (mode != kNone) table.build(table_lengths, table_size);
+  CanonicalTable run_table;
+  if (run_table_size > 0) run_table.build(run_lengths, run_table_size);
+  const CanonicalTable* run_ptr = run_table_size > 0 ? &run_table : nullptr;
+
+  auto work = [&](int lo, int hi) {
+    // decode_one_stripe zeroes each block itself, so the scratch needs no
+    // per-stripe refill
+    std::vector<int16_t> scratch((size_t)bps * n2);
+    for (int s = lo; s < hi; ++s) {
+      int err = 0;
+      uint64_t consumed = 0;
+      decode_one_stripe(blob + offsets[s], offsets[s + 1] - offsets[s], bps,
+                        n2, mode, &table, vmin, n_alpha, run_ptr,
+                        scratch.data(), &err, &consumed);
+      if (!err && consumed != (uint64_t)expected_bits[s]) err = 4;
+      status_out[s] = err;
+    }
+  };
+  run_parallel(work, n_stripes, n_threads);
   return 0;
 }
 

@@ -24,8 +24,9 @@ decode through the plain float32 product on the card
 The entry points run on the card: with no ``device`` they take ``cuda``,
 and raise where there is none; ``device="cpu"`` runs the plain versions.
 The tensors handed to the step functions decide where the work runs. The
-gray video codec batching these functions over frame stacks is
-models/video.py; color is not ported yet.
+video codec batching these functions over frame stacks is
+models/video.py; color images (one plane each of Y, Cb and Cr, the chroma
+planes against the chrominance quant table) are models/color.py.
 """
 
 from __future__ import annotations
@@ -324,37 +325,48 @@ def encode_staged_step(
     return packed, var_codes, block_bits
 
 
-def encode_step(image: torch.Tensor, cfg: CodecConfig, n_stripes: int):
+def encode_step(image: torch.Tensor, cfg: CodecConfig, n_stripes: int,
+                chroma: bool = False):
     """Full static-table encode of padded plane(s) (..., Hp, Wp) on the
     tensor's device: -> (PackedStripes, var_codes, block_bits-or-None), with
     the leading axes. Kernel B where fused_kernel_ok(cfg), else the staged
-    path (kernel A, then kernel E)."""
+    path (kernel A, then kernel E). chroma: the planes are Cb or Cr
+    (the chrominance quant table)."""
     if not cfg.static_tables:
         raise ValueError("encode_step requires cfg.static_tables")
-    ops = tables.build(cfg, device=image.device)
+    ops = tables.build(cfg, chroma=chroma, device=image.device)
     step = encode_fused_step if fused_kernel_ok(cfg) else encode_staged_step
     return step(image, cfg, n_stripes, ops)
 
 
+def to_device_u8(a, device: torch.device) -> torch.Tensor:
+    """A u8 array (host array or tensor) as a tensor on ``device``: host
+    arrays are copied there, tensors moved (no copy where they are)."""
+    if isinstance(a, torch.Tensor):
+        return a.to(device, torch.uint8)
+    return torch.from_numpy(np.array(a, np.uint8)).to(device)
+
+
 def encode_plane(
-    plane: np.ndarray, cfg: CodecConfig,
+    plane, cfg: CodecConfig,
     device: str | torch.device | None = None,
+    chroma: bool = False,
 ) -> cont.PlaneData:
-    """Encode one u8 gray plane to PlaneData (device compute + host
-    assembly)."""
+    """Encode one (H, W) u8 plane (host array or tensor) to PlaneData
+    (device compute + host assembly). chroma: a Cb or Cr plane, encoded
+    against the chrominance quant table."""
     device = torch.device(device) if device is not None else _default_device()
     h, w = int(plane.shape[0]), int(plane.shape[1])
     _, _, n_stripes = _padded_grid(h, w, cfg)
-    img = pad_plane_for_encode(
-        torch.from_numpy(np.array(plane, np.uint8)).to(device), cfg
-    )
+    img = pad_plane_for_encode(to_device_u8(plane, device), cfg)
 
     if cfg.static_tables:
         table = _build_table(cfg, None)
         run_table = _build_run_table(cfg, None)
-        packed, var_codes, block_bits = encode_step(img, cfg, n_stripes)
+        packed, var_codes, block_bits = encode_step(img, cfg, n_stripes,
+                                                    chroma)
     else:
-        ops = tables.build(cfg, device=device)
+        ops = tables.build(cfg, chroma=chroma, device=device)
         symbols, var_codes, hist, run_hist = encode_analyze(img, cfg, ops)
         table = _build_table(cfg, hist.cpu().numpy())
         run_table = _build_run_table(cfg, run_hist.cpu().numpy())
@@ -467,6 +479,7 @@ def indexed_operands(stripes: list[bytes], block_bits: np.ndarray, table,
 def decode_planes_device(
     planes: list[cont.PlaneData], cfg: CodecConfig,
     device: str | torch.device | None = None,
+    chroma: bool = False,
 ) -> torch.Tensor:
     """PlaneData of F frames that share their size and tables ->
     reconstructed (F, H, W) u8 planes as a tensor on ``device``, one launch
@@ -475,8 +488,9 @@ def decode_planes_device(
     launch over every frame's stripes (payload and index concatenated), so
     only those and the tables cross to it; otherwise each plane is decoded
     on the host and the coefficients are uploaded at once. Then DC
-    un-prediction over frames x stripes, dequant + IDCT (kernel C on CUDA)
-    and the crop run on the device."""
+    un-prediction over frames x stripes, dequant + IDCT (kernel C on CUDA;
+    chroma: against the chrominance quant table) and the crop run on the
+    device."""
     device = torch.device(device) if device is not None else _default_device()
     p0 = planes[0]
     n = cfg.block_size
@@ -505,7 +519,7 @@ def decode_planes_device(
         scale = quant.scale_from_variance_code(torch.from_numpy(np.concatenate(
             [np.asarray(p.variance_codes, np.uint8) for p in planes])
         ).to(device))
-    ops = tables.build(cfg, device=device)
+    ops = tables.build(cfg, chroma=chroma, device=device)
     pixels = decode_transform(zz, cfg, ops, scale)
     # rebuild on the (stripe-padded) encoder grid, then crop to true dims
     return blk.blocks_to_image(pixels.reshape(len(planes), -1, cfg.n2),
@@ -515,31 +529,34 @@ def decode_planes_device(
 def decode_plane_device(
     p: cont.PlaneData, cfg: CodecConfig,
     device: str | torch.device | None = None,
+    chroma: bool = False,
 ) -> torch.Tensor:
     """PlaneData -> reconstructed (H, W) u8 plane as a tensor on
     ``device`` (decode_planes_device of one plane: kernel D for an indexed
     plane, else the host decoder, then kernel C)."""
-    return decode_planes_device([p], cfg, device)[0]
+    return decode_planes_device([p], cfg, device, chroma)[0]
 
 
 def decode_plane(
     p: cont.PlaneData, cfg: CodecConfig,
     device: str | torch.device | None = None,
+    chroma: bool = False,
 ) -> np.ndarray:
     """PlaneData -> reconstructed u8 plane (host array)."""
-    return decode_plane_device(p, cfg, device).cpu().numpy()
+    return decode_plane_device(p, cfg, device, chroma).cpu().numpy()
 
 
 class ImageCodec:
-    """Grayscale single-plane codec on one device."""
+    """Grayscale single-plane codec on one device (color:
+    models/color.py ColorImageCodec)."""
 
     def __init__(self, config: CodecConfig | None = None,
                  device: str | torch.device | None = None):
         self.config = config or CodecConfig()
+        if self.config.chroma != "gray":
+            raise ValueError("ImageCodec is grayscale; use ColorImageCodec")
         self.device = (torch.device(device) if device is not None
                        else _default_device())
-        if self.config.chroma != "gray":
-            raise NotImplementedError("color codecs: not ported yet")
 
     def encode(self, image: np.ndarray) -> bytes:
         if image.ndim != 2:
@@ -557,20 +574,31 @@ class ImageCodec:
         return self.decode_to_device(data).cpu().numpy()
 
     def decode_to_device(self, data: bytes) -> torch.Tensor:
-        """Decode with the reconstruction left on this codec's device."""
+        """Decode with the reconstruction left on this codec's device (of a
+        color container, its luma plane, as the reference's does)."""
         c = cont.deserialize(data)
-        if c.config.chroma != "gray":
-            raise NotImplementedError("color containers: not ported yet")
         return decode_plane_device(c.planes[0], c.config, device=self.device)
 
 
 def encode(image: np.ndarray, config: CodecConfig | None = None,
            device: str | torch.device | None = None) -> bytes:
-    """Module-level convenience: grayscale (H, W) images."""
-    if image.ndim != 2:
-        raise NotImplementedError("color images: not ported yet")
-    return ImageCodec(config or CodecConfig(), device).encode(image)
+    """Module-level convenience: grayscale (H, W) or RGB (H, W, 3) by
+    array rank; RGB with chroma "gray" encodes at "420"."""
+    cfg = config or CodecConfig()
+    if image.ndim == 2:
+        return ImageCodec(cfg, device).encode(image)
+    from dct_tpu_torch.models.color import ColorImageCodec
+
+    if cfg.chroma == "gray":
+        cfg = cfg.replace(chroma="420")
+    return ColorImageCodec(cfg, device).encode(image)
 
 
 def decode(data: bytes, device: str | torch.device | None = None) -> np.ndarray:
-    return ImageCodec(device=device).decode(data)
+    """Container bytes -> (H, W) gray or (H, W, 3) RGB u8 pixels."""
+    c = cont.deserialize(data)
+    if c.config.chroma == "gray":
+        return ImageCodec(device=device).decode(data)
+    from dct_tpu_torch.models.color import ColorImageCodec
+
+    return ColorImageCodec(c.config, device).decode(data)

@@ -1,6 +1,6 @@
-"""Batched-frame gray codec (the "video" model family; port of
-``dct_tpu.models.video``): encode a stack of frames with one launch per
-stage, decode a stack of containers likewise.
+"""Batched-frame codec (the "video" model family; port of
+``dct_tpu.models.video``): encode a stack of gray or RGB frames with one
+launch per stage and plane, decode a stack of containers likewise.
 
 All-intra: every frame is coded independently, but the stack shares one
 canonical table (and run table) built from the stack's summed histograms,
@@ -22,8 +22,12 @@ of the two paths ran. Decode runs one kernel D launch over an
 all-indexed (v2) stack and one kernel C launch (16x16 blocks: the float32
 product).
 
-Only gray stacks are ported: RGB stacks raise NotImplementedError, and
-the reference's ``mesh`` argument (the sharded encode) is not taken.
+RGB stacks (chroma "444" or "420") are converted to Y, Cb and Cr planes
+on the device in chunks of frames (models/color.py) and each plane type
+is encoded as a gray stack is, Cb and Cr against the chrominance quant
+table, with a table of its own; a stack of color containers decodes one
+plane type at a time, then planes_to_rgb over the stack. The reference's
+``mesh`` argument (the sharded encode) is not taken.
 """
 
 from __future__ import annotations
@@ -34,7 +38,7 @@ import torch
 from dct_tpu_torch import container as cont
 from dct_tpu_torch import tables
 from dct_tpu_torch.config import CodecConfig
-from dct_tpu_torch.models import codec
+from dct_tpu_torch.models import codec, color
 from dct_tpu_torch.ops import bitstream as bs
 
 # Pixels per encode (and decode) dispatch. The staged path's peak device
@@ -49,10 +53,11 @@ def _encode_plane_batch(
     cfg: CodecConfig,
     chunk_frames: int | None,
     device: torch.device,
+    chroma: bool = False,
 ) -> list[cont.PlaneData]:
     """(F, h, w) u8 plane stack -> one PlaneData per frame, sharing one
     table (and run table) for the whole stack, the same for every
-    chunking."""
+    chunking. chroma: Cb or Cr planes (the chrominance quant table)."""
     f, h, w = (int(x) for x in planes.shape)
     _, _, n_stripes = codec._padded_grid(h, w, cfg)
     if chunk_frames is None:
@@ -64,7 +69,7 @@ def _encode_plane_batch(
         return codec.pad_plane_for_encode(torch.from_numpy(sub).to(device),
                                           cfg)
 
-    ops = tables.build(cfg, device=device)
+    ops = tables.build(cfg, chroma=chroma, device=device)
     symbols_once = var_once = None
     if cfg.static_tables:
         table = codec._build_table(cfg, None)
@@ -91,7 +96,7 @@ def _encode_plane_batch(
     for i0 in range(0, f, chunk):
         if cfg.static_tables:
             packed, var_codes, block_bits = codec.encode_step(
-                prep(i0), cfg, n_stripes)
+                prep(i0), cfg, n_stripes, chroma)
         elif symbols_once is not None:
             packed, block_bits = codec.pack_frames(symbols_once, cfg, (f,),
                                                    n_stripes, ops)
@@ -129,19 +134,37 @@ def _encode_plane_batch(
 
 
 def _batch_key(c: cont.Container):
-    """What frames decoded as one batch must share: the config, the size
-    and the tables."""
-    p = c.planes[0]
-    return (c.config, p.height, p.width,
-            None if p.table_lengths is None else p.table_lengths.tobytes(),
-            None if p.run_table_lengths is None
-            else p.run_table_lengths.tobytes())
+    """What frames decoded as one batch must share: the config, and every
+    plane's size and tables."""
+    return (c.config,) + tuple(
+        (p.height, p.width,
+         None if p.table_lengths is None else p.table_lengths.tobytes(),
+         None if p.run_table_lengths is None
+         else p.run_table_lengths.tobytes())
+        for p in c.planes)
+
+
+def rgb_planes(frames: np.ndarray, mode: str, chunk_frames: int | None,
+               device: torch.device) -> list[np.ndarray]:
+    """(F, H, W, 3) u8 RGB -> [Y, Cb, Cr] (F, h, w) u8 host plane stacks,
+    converted on ``device`` in chunks of frames (chunk_frames, else from
+    CHUNK_PIXEL_BUDGET): the float32 intermediates of a whole long stack
+    would dwarf the u8 planes they give."""
+    f, h, w = (int(x) for x in frames.shape[:3])
+    cc = chunk_frames or max(1, CHUNK_PIXEL_BUDGET // (h * w))
+    parts = [[], [], []]
+    for i0 in range(0, f, cc):
+        planes = color._to_planes(
+            codec.to_device_u8(frames[i0:i0 + cc], device), mode)
+        for lst, p in zip(parts, planes):
+            lst.append(p.cpu().numpy())
+    return [np.concatenate(lst) for lst in parts]
 
 
 class VideoCodec:
-    """Encode (F, H, W) grayscale u8 frame stacks to one container per
-    frame (each decodable with models.codec.decode), and decode such
-    stacks, on one device."""
+    """Encode (F, H, W) gray or (F, H, W, 3) RGB u8 frame stacks (by the
+    config's chroma) to one container per frame (each decodable with
+    models.codec.decode), and decode such stacks, on one device."""
 
     def __init__(self, config: CodecConfig | None = None,
                  chunk_frames: int | None = None,
@@ -152,43 +175,56 @@ class VideoCodec:
         self.chunk_frames = chunk_frames
         self.device = (torch.device(device) if device is not None
                        else codec._default_device())
-        if self.config.chroma != "gray":
-            raise NotImplementedError("color video: not ported yet")
 
     def encode(self, frames: np.ndarray) -> list[bytes]:
-        if frames.ndim == 4 and frames.shape[-1] == 3:
-            raise NotImplementedError("RGB frame stacks: not ported yet")
-        if frames.ndim != 3:
-            raise ValueError(f"expected (F, H, W), got {frames.shape}")
-        _, h, w = (int(x) for x in frames.shape)
-        planes = _encode_plane_batch(frames, self.config, self.chunk_frames,
-                                     self.device)
-        return [cont.serialize(cont.Container(config=self.config, width=w,
-                                              height=h, planes=[p]))
-                for p in planes]
+        cfg, ck = self.config, self.chunk_frames
+        if cfg.chroma == "gray":
+            if frames.ndim != 3:
+                raise ValueError(f"expected (F, H, W), got {frames.shape}")
+            batches = [frames]
+        else:
+            if frames.ndim != 4 or frames.shape[-1] != 3:
+                raise ValueError(
+                    f"expected (F, H, W, 3) RGB for chroma={cfg.chroma}, "
+                    f"got {frames.shape}")
+            batches = rgb_planes(frames, cfg.chroma, ck, self.device)
+        h, w = int(frames.shape[1]), int(frames.shape[2])
+        per_plane = [_encode_plane_batch(b, cfg, ck, self.device,
+                                         chroma=i > 0)
+                     for i, b in enumerate(batches)]
+        return [cont.serialize(cont.Container(config=cfg, width=w, height=h,
+                                              planes=list(planes)))
+                for planes in zip(*per_plane)]
 
     def decode(self, streams: list[bytes]) -> np.ndarray:
         return self.decode_to_device(streams).cpu().numpy()
 
     def decode_to_device(self, streams: list[bytes]) -> torch.Tensor:
-        """(F, H, W) u8 frames left on this codec's device. Frames that
-        share config, size and tables decode as one batch per chunk of
-        frames (models.codec.decode_planes_device); a mixed batch decodes
-        frame by frame."""
+        """(F, H, W) gray or (F, H, W, 3) RGB u8 frames left on this
+        codec's device. Frames that share config, sizes and tables decode
+        as one batch per chunk of frames (models.codec.decode_planes_device
+        for each plane type); a mixed batch decodes frame by frame."""
         if not streams:
             raise ValueError("decode requires at least one stream")
         conts = [cont.deserialize(s) for s in streams]
-        if any(c.config.chroma != "gray" for c in conts):
-            raise NotImplementedError("color containers: not ported yet")
         c0 = conts[0]
         if any(_batch_key(c) != _batch_key(c0) for c in conts[1:]):
-            return torch.stack([
-                codec.decode_plane_device(c.planes[0], c.config, self.device)
-                for c in conts])
+            return torch.cat([self._decode_batch([c]) for c in conts])
         # symmetric with encode: long stacks decode in chunks of frames
         ck = max(1, self.chunk_frames
                  or CHUNK_PIXEL_BUDGET // (c0.height * c0.width))
-        parts = [codec.decode_planes_device(
-            [c.planes[0] for c in conts[i0:i0 + ck]], c0.config, self.device)
-            for i0 in range(0, len(conts), ck)]
+        parts = [self._decode_batch(conts[i0:i0 + ck])
+                 for i0 in range(0, len(conts), ck)]
         return parts[0] if len(parts) == 1 else torch.cat(parts)
+
+    def _decode_batch(self, conts: list[cont.Container]) -> torch.Tensor:
+        """Containers that share _batch_key -> (F, H, W) or (F, H, W, 3)
+        u8 frames: one decode_planes_device per plane type."""
+        c0 = conts[0]
+        cfg = c0.config
+        planes = [codec.decode_planes_device([c.planes[i] for c in conts],
+                                             cfg, self.device, chroma=i > 0)
+                  for i in range(len(c0.planes))]
+        if cfg.chroma == "gray":
+            return planes[0]
+        return color.planes_to_rgb(*planes, cfg.chroma, c0.height, c0.width)

@@ -1,5 +1,5 @@
-"""ctypes binding of the port's host entropy decoder
-(csrc/host/bitpack.cpp).
+"""ctypes binding of the port's host entropy decoder and stripe integrity
+scan (csrc/host/bitpack.cpp).
 
 The decode of a stripe is serial; stripes are independent, so the C++
 decoder runs them on a thread pool. The library is compiled with the host
@@ -84,6 +84,23 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         i,  # n_threads
     ]
     lib.dctbits_unpack_stripes.restype = i
+    lib.dctbits_verify_stripes.argtypes = [
+        p,  # concatenated stripe bytes
+        p,  # per-stripe byte offsets, uint64 (n_stripes + 1)
+        i,  # n_stripes
+        i,  # blocks per stripe
+        i,  # n2
+        i,  # mode id
+        p,  # table lengths, uint8
+        i,  # table size
+        p,  # run-table lengths, uint8 (coded runs)
+        i,  # run-table size (0: the fixed run field)
+        i,  # vmin
+        p,  # expected bits per stripe, uint32
+        p,  # status out, int32 (n_stripes)
+        i,  # n_threads
+    ]
+    lib.dctbits_verify_stripes.restype = i
     return lib
 
 
@@ -105,6 +122,32 @@ def available() -> bool:
     return _load() is not None
 
 
+def _marshal(stripes: list[bytes], table, run_table):
+    """(blob, uint64 offsets, table lengths, run-table lengths, run-table
+    size) as the C functions take them."""
+    blob = b"".join(stripes)
+    buf = np.frombuffer(blob, np.uint8) if blob else np.zeros(1, np.uint8)
+    offsets = np.zeros(len(stripes) + 1, np.uint64)
+    np.cumsum([len(s) for s in stripes], out=offsets[1:])
+    lengths = (np.ascontiguousarray(table.lengths, np.uint8)
+               if table is not None else np.zeros(1, np.uint8))
+    if run_table is not None:
+        run_lengths = np.ascontiguousarray(run_table.lengths, np.uint8)
+        return buf, offsets, lengths, run_lengths, len(run_lengths)
+    return buf, offsets, lengths, np.zeros(1, np.uint8), 0
+
+
+def _threads(n_threads: int | None) -> int:
+    return (os.cpu_count() or 1) if n_threads is None else n_threads
+
+
+def _require() -> ctypes.CDLL:
+    lib = _load()
+    if lib is None:
+        raise RuntimeError("the native decoder did not build")
+    return lib
+
+
 def unpack_stripes(
     stripes: list[bytes],
     blocks_per_stripe: int,
@@ -119,29 +162,47 @@ def unpack_stripes(
     coefficients (the wire's coefficient type, and kernel C's input).
     table/run_table: CanonicalTable or None. n_threads defaults to the
     host's core count. Raises ValueError on a corrupt stream."""
-    lib = _load()
-    if lib is None:
-        raise RuntimeError("the native decoder did not build")
-    if n_threads is None:
-        n_threads = os.cpu_count() or 1
+    lib = _require()
     n_stripes = len(stripes)
-    blob = b"".join(stripes)
-    buf = np.frombuffer(blob, np.uint8) if blob else np.zeros(1, np.uint8)
-    offsets = np.zeros(n_stripes + 1, np.uint64)
-    np.cumsum([len(s) for s in stripes], out=offsets[1:])
-    lengths = (np.ascontiguousarray(table.lengths, np.uint8)
-               if table is not None else np.zeros(1, np.uint8))
-    if run_table is not None:
-        run_lengths = np.ascontiguousarray(run_table.lengths, np.uint8)
-        run_size = len(run_lengths)
-    else:
-        run_lengths, run_size = np.zeros(1, np.uint8), 0
+    buf, offsets, lengths, run_lengths, run_size = _marshal(
+        stripes, table, run_table)
     out = np.empty((n_stripes * blocks_per_stripe, n2), np.int16)
     rc = lib.dctbits_unpack_stripes(
         buf.ctypes.data, offsets.ctypes.data, n_stripes, blocks_per_stripe,
         n2, _MODE_IDS[mode], lengths.ctypes.data, len(lengths),
-        run_lengths.ctypes.data, run_size, vmin, out.ctypes.data, n_threads,
+        run_lengths.ctypes.data, run_size, vmin, out.ctypes.data,
+        _threads(n_threads),
     )
     if rc != 0:
         raise ValueError(f"native stripe decode failed with code {rc}")
     return out
+
+
+def verify_stripes(
+    stripes: list[bytes],
+    blocks_per_stripe: int,
+    n2: int,
+    mode: str,
+    table,
+    vmin: int,
+    expected_bits: np.ndarray,
+    run_table=None,
+    n_threads: int | None = None,
+) -> np.ndarray:
+    """Integrity scan of stripe substreams -> (n_stripes,) int32 status:
+    0 ok, 2 an invalid symbol, 3 an overrun, 4 the decode consumed another
+    bit count than the container records (expected_bits). The contract of
+    the Python scan in models/recovery.py, on the thread pool."""
+    lib = _require()
+    n_stripes = len(stripes)
+    buf, offsets, lengths, run_lengths, run_size = _marshal(
+        stripes, table, run_table)
+    expected = np.ascontiguousarray(expected_bits, np.uint32)
+    status = np.zeros(n_stripes, np.int32)
+    lib.dctbits_verify_stripes(
+        buf.ctypes.data, offsets.ctypes.data, n_stripes, blocks_per_stripe,
+        n2, _MODE_IDS[mode], lengths.ctypes.data, len(lengths),
+        run_lengths.ctypes.data, run_size, vmin, expected.ctypes.data,
+        status.ctypes.data, _threads(n_threads),
+    )
+    return status

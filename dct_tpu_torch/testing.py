@@ -7,7 +7,10 @@ Two float32 paths that sum the same exact products in different orders may
 round a value that lies within a few ulp of a .5 boundary to neighbouring
 integers. Such a mismatch is a tie: at most 1 apart, with the float64 value
 within ``tol`` of the boundary. Encode holds ties to ENCODE_TIE_TOL (the
-criterion of tests/test_parity.py), decode to DECODE_TIE_TOL.
+criterion of tests/test_parity.py), decode to DECODE_TIE_TOL, the color
+conversions (models/color.py against the reference's XLA) to
+PLANE_TIE_TOL. Color containers are compared plane by plane (``plane``:
+0 for Y, 1 and 2 for Cb and Cr, against the chrominance quant table).
 
 Kernels A and C also promise an exact float32 chain for every output
 value; encode_fma_chain and decode_fma_chain compute that chain with torch
@@ -38,6 +41,37 @@ from dct_tpu_torch.ops import rle, transform
 
 ENCODE_TIE_TOL = 1e-6
 DECODE_TIE_TOL = 1e-3
+PLANE_TIE_TOL = 1e-4
+
+
+def plane_values_f64(rgb: np.ndarray, mode: str) -> list[np.ndarray]:
+    """The float64 values the Y, Cb and Cr planes of (..., H, W, 3) u8 RGB
+    round from (models/color.py _to_planes, the 4:2:0 mean included)."""
+    x = np.asarray(rgb, np.float64)
+    r, g, b = x[..., 0], x[..., 1], x[..., 2]
+    y = 0.299 * r + 0.587 * g + 0.114 * b
+    cb = 128.0 - 0.168736 * r - 0.331264 * g + 0.5 * b
+    cr = 128.0 + 0.5 * r - 0.418688 * g - 0.081312 * b
+    if mode == "420":
+        def sub(p):
+            h, w = p.shape[-2:]
+            pad = [(0, 0)] * (p.ndim - 2) + [(0, h & 1), (0, w & 1)]
+            p = np.pad(p, pad, mode="edge")
+            return (p[..., 0::2, 0::2] + p[..., 0::2, 1::2]
+                    + p[..., 1::2, 0::2] + p[..., 1::2, 1::2]) / 4.0
+        cb, cr = sub(cb), sub(cr)
+    return [y, cb, cr]
+
+
+def rgb_values_f64(y, cb, cr, mode: str, h: int, w: int) -> np.ndarray:
+    """The float64 values the (..., h, w, 3) RGB of u8 planes rounds from
+    (models/color.py planes_to_rgb)."""
+    y, cb, cr = (np.asarray(p, np.float64) for p in (y, cb, cr))
+    if mode == "420":
+        cb, cr = (p.repeat(2, -2).repeat(2, -1)[..., :h, :w] for p in (cb, cr))
+    cb, cr = cb - 128.0, cr - 128.0
+    return np.stack([y + 1.402 * cr, y - 0.344136 * cb - 0.714136 * cr,
+                     y + 1.772 * cb], axis=-1)
 
 
 def _kron_zigzag_f64(cfg: CodecConfig, chroma: bool = False):
@@ -50,11 +84,12 @@ def _kron_zigzag_f64(cfg: CodecConfig, chroma: bool = False):
 
 
 def encode_values_f64(pixels: np.ndarray, cfg: CodecConfig,
-                      recip: np.ndarray | None = None) -> np.ndarray:
+                      recip: np.ndarray | None = None,
+                      chroma: bool = False) -> np.ndarray:
     """The float64 value each encoded coefficient rounds from: (B, n2) u8
     blocks -> (B, n2) ``(x - 128) @ M_enc`` (times the reciprocal scale on
     AC)."""
-    kz, qz = _kron_zigzag_f64(cfg)
+    kz, qz = _kron_zigzag_f64(cfg, chroma)
     y = (np.asarray(pixels, np.float64) - 128.0) @ (kz / qz[:, None]).T
     if recip is not None:
         y[:, 1:] *= np.asarray(recip, np.float64)[:, None]
@@ -62,10 +97,11 @@ def encode_values_f64(pixels: np.ndarray, cfg: CodecConfig,
 
 
 def decode_values_f64(zz: np.ndarray, cfg: CodecConfig,
-                      scale: np.ndarray | None = None) -> np.ndarray:
+                      scale: np.ndarray | None = None,
+                      chroma: bool = False) -> np.ndarray:
     """The float64 pixel values decode rounds from: (B, n2) coefficients
     -> (B, n2) ``z * s @ M_dec + 128`` before rounding and clipping."""
-    kz, qz = _kron_zigzag_f64(cfg)
+    kz, qz = _kron_zigzag_f64(cfg, chroma)
     dq = 1.0 / qz if (cfg.compat_b1 and not cfg.adaptive) else qz
     z = np.asarray(zz, np.float64).copy()
     if scale is not None:
@@ -85,11 +121,11 @@ def tie_mismatches(got, want, values: np.ndarray, tol: float):
     return int(diff.sum()), int(bad.sum())
 
 
-def coefficients(data: bytes) -> np.ndarray:
-    """A gray container's (NB, n2) zigzag coefficients, entropy-decoded on
+def coefficients(data: bytes, plane: int = 0) -> np.ndarray:
+    """A container plane's (NB, n2) zigzag coefficients, entropy-decoded on
     the host (any mode), DC prediction undone."""
     c = cont.deserialize(data)
-    p, cfg = c.planes[0], c.config
+    p, cfg = c.planes[plane], c.config
     bh, bw, n_stripes = codec._padded_grid(p.height, p.width, cfg)
     mode = cfg.huffman_mode if cfg.use_huffman else "none"
     table = hf.CanonicalTable(p.table_lengths) if mode != "none" else None
@@ -107,32 +143,53 @@ def _scale(p: cont.PlaneData) -> torch.Tensor:
         torch.from_numpy(np.asarray(p.variance_codes, np.uint8)))
 
 
-def encode_mismatches(data: bytes, want: bytes, image: np.ndarray):
-    """(mismatches, non-ties) between the coefficients of two gray
-    containers of the same (H, W) u8 image and config, judged against the
-    float64 values they round from at ENCODE_TIE_TOL."""
+def plane_encode_mismatches(data: bytes, want: bytes, planes) -> tuple:
+    """(mismatches, non-ties) between the coefficients of two containers
+    of the same config whose planes were encoded from ``planes`` (one u8
+    array per container plane), judged against the float64 values they
+    round from at ENCODE_TIE_TOL."""
     c = cont.deserialize(want)
-    p, cfg = c.planes[0], c.config
-    px = codec.blk.image_to_blocks(codec.pad_plane_for_encode(
-        torch.from_numpy(np.asarray(image, np.uint8)), cfg),
-        cfg.block_size).reshape(-1, cfg.n2).numpy()
-    recip = (transform.reciprocal_scale(_scale(p)).numpy() if cfg.adaptive
-             else None)
-    return tie_mismatches(coefficients(data), coefficients(want),
-                          encode_values_f64(px, cfg, recip), ENCODE_TIE_TOL)
+    cfg = c.config
+    n_mis = n_bad = 0
+    for i, (p, plane) in enumerate(zip(c.planes, planes)):
+        px = codec.blk.image_to_blocks(codec.pad_plane_for_encode(
+            torch.from_numpy(np.asarray(plane, np.uint8)), cfg),
+            cfg.block_size).reshape(-1, cfg.n2).numpy()
+        recip = (transform.reciprocal_scale(_scale(p)).numpy()
+                 if cfg.adaptive else None)
+        m, b = tie_mismatches(coefficients(data, i), coefficients(want, i),
+                              encode_values_f64(px, cfg, recip, i > 0),
+                              ENCODE_TIE_TOL)
+        n_mis, n_bad = n_mis + m, n_bad + b
+    return n_mis, n_bad
 
 
-def decode_mismatches(got, want, data: bytes):
-    """(mismatches, non-ties) between two decodes of a gray container's
+def encode_mismatches(data: bytes, want: bytes, image: np.ndarray):
+    """plane_encode_mismatches of two containers of the same u8 image:
+    the (H, W) gray image, or the (H, W, 3) RGB of a color container,
+    split into planes by this package's models/color.py _to_planes."""
+    chroma = cont.deserialize(want).config.chroma
+    if chroma == "gray":
+        return plane_encode_mismatches(data, want, [image])
+    from dct_tpu_torch.models import color
+
+    return plane_encode_mismatches(data, want, [p.numpy() for p in (
+        color._to_planes(torch.from_numpy(np.asarray(image, np.uint8)),
+                         chroma))])
+
+
+def decode_mismatches(got, want, data: bytes, plane: int = 0):
+    """(mismatches, non-ties) between two decodes of a container plane's
     pixels, judged against the float64 values of its coefficients (host
     decoder, any mode) at DECODE_TIE_TOL."""
     c = cont.deserialize(data)
-    p, cfg = c.planes[0], c.config
+    p, cfg = c.planes[plane], c.config
     n = cfg.block_size
     bh, bw, _ = codec._padded_grid(p.height, p.width, cfg)
     scale = _scale(p).numpy() if cfg.adaptive else None
     vals = codec.blk.blocks_to_image(
-        torch.from_numpy(decode_values_f64(coefficients(data), cfg, scale)),
+        torch.from_numpy(decode_values_f64(coefficients(data, plane), cfg,
+                                           scale, plane > 0)),
         bh * n, bw * n, n)[: p.height, : p.width].numpy()
     return tie_mismatches(got, want, vals, DECODE_TIE_TOL)
 

@@ -107,15 +107,66 @@ def test_encode_step_frames_equal_single_frames():
         np.testing.assert_array_equal(bb1.numpy(), np.asarray(ref_bb))
 
 
-def test_color_is_not_ported_yet(images):
-    rgb = np.stack([images["odd"]] * 3, axis=-1)
-    with pytest.raises(NotImplementedError):
-        codec.encode(rgb, device="cpu")
-    with pytest.raises(NotImplementedError):
-        codec.ImageCodec(CodecConfig(chroma="420"), device="cpu")
-    color = ref_codec.encode(rgb, RefConfig(quality=50))
-    with pytest.raises(NotImplementedError):
-        codec.decode(color, device="cpu")
+def test_image_codec_rejects_a_color_config():
+    """As the reference's: ImageCodec is gray, color is ColorImageCodec."""
+    for chroma in ("444", "420"):
+        with pytest.raises(ValueError, match="ColorImageCodec"):
+            codec.ImageCodec(CodecConfig(chroma=chroma), device="cpu")
+        with pytest.raises(ValueError, match="ColorImageCodec"):
+            ref_codec.ImageCodec(RefConfig(chroma=chroma))
+
+
+def _rgb(img):
+    return np.stack([img, np.roll(img, 3, 0), np.roll(img, 5, 1)], -1)
+
+
+def test_rgb_dispatch(images):
+    """codec.encode of an RGB array encodes color, at 4:2:0 when the
+    config says "gray"; codec.decode of a color container gives RGB;
+    ImageCodec decodes a color container's luma plane, as the
+    reference's does."""
+    from dct_tpu_torch.models.color import ColorImageCodec
+
+    rgb = _rgb(images["odd"])
+    data = codec.encode(rgb, CodecConfig(quality=50), device="cpu")
+    c = codec.cont.deserialize(data)
+    assert c.config.chroma == "420"
+    assert [(p.height, p.width) for p in c.planes] == [(61, 97)] + [(31, 49)] * 2
+    color420 = ColorImageCodec(CodecConfig(quality=50, chroma="420"),
+                               device="cpu")
+    assert data == color420.encode(rgb)
+    data444 = codec.encode(rgb, CodecConfig(quality=50, chroma="444"),
+                           device="cpu")
+    assert codec.cont.deserialize(data444).config.chroma == "444"
+    out = codec.decode(data, device="cpu")
+    assert out.shape == (61, 97, 3) and out.dtype == np.uint8
+    np.testing.assert_array_equal(out, color420.decode(data))
+    luma = codec.ImageCodec(device="cpu").decode(data)
+    np.testing.assert_array_equal(luma, ref_codec.ImageCodec().decode(data))
+    assert codec.decode(codec.encode(images["odd"], device="cpu"),
+                        device="cpu").shape == (61, 97)
+
+
+@pytest.mark.parametrize("chroma", ("444", "420"))
+def test_reference_color_containers_decode(images, chroma):
+    """The reference's color containers (v1 and v2) through codec.decode:
+    each plane equal to the reference's decode of it but at decode ties,
+    the RGB within 1."""
+    from dct_tpu.models.color import ColorImageCodec as RefColor
+
+    rgb = _rgb(images["even"])
+    for q in (50, 90):
+        kw = dict(quality=q, chroma=chroma)
+        data = RefColor(RefConfig(**kw)).encode(rgb)
+        got = codec.decode(data, device="cpu")
+        want = ref_codec.decode(data)
+        assert got.shape == want.shape == (72, 136, 3)
+        assert int(np.abs(got.astype(int) - want).max()) <= 1
+        c = codec.cont.deserialize(data)
+        for i, p in enumerate(c.planes):
+            mine = codec.decode_plane(p, CodecConfig(**kw), "cpu", chroma=i > 0)
+            ref = ref_codec.decode_plane(p, RefConfig(**kw), chroma=i > 0)
+            assert testing.decode_mismatches(mine, ref, data, plane=i)[1] == 0
 
 
 def test_entry_points_without_a_card_raise(images, monkeypatch):

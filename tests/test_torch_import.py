@@ -36,6 +36,9 @@ PORT_MODULES = (
     "dct_tpu_torch.ops._build",
     "dct_tpu_torch.models.codec",
     "dct_tpu_torch.models.video",
+    "dct_tpu_torch.models.color",
+    "dct_tpu_torch.models.recovery",
+    "dct_tpu_torch.models.rate_control",
     "dct_tpu_torch.utils.image_io",
     "dct_tpu_torch.testing",
 )
