@@ -116,7 +116,32 @@ to int64 products at n2 4, 16, 64 and 256, then:
      encode_to_size, encode_to_psnr and encode_video_to_size meet targets
      set between two rungs; counted and timed.
 
-Phases 4, 6, 10, 11, 13, 14 and 15 are the main paths: each zeroes the
+ 16. sharding at world size 1 over NCCL, in this process:
+     make_mesh() on the card; encode_batch_step on the 8 x 1088x1920
+     batch (units and bit lengths equal to encode_step's, both timed by
+     CUDA events); encode_image_sharded of a 7680x4320 gray "photo" frame
+     (518,400 blocks, 540 stripes) at dynamic q50 and at q90 with the
+     index, and of the 1080p RGB frame at 4:2:0 q90 with the index;
+     decode_image_sharded of the 8K v1 and v2 containers (kernel D) and
+     of the 4:2:0 one; VideoCodec(mesh=...) on 8 frames of 1080p (one
+     chunk: A and E); container_size and psnr_at_quality with mesh= on
+     the RGB frame. Every container equals the unsharded card path's
+     byte for byte, every pixel its decode's, every probe its value;
+     counted (A-E all launched) and timed beside the unsharded paths
+     (host clock, synchronised). At the 8K shapes (960 blocks a stripe)
+     the kernels are held against their plain versions too: A (its
+     float32 chain, and encode ties) and C (decode ties) on the frame, B
+     (the staged pipeline fed A's integers) on its 540 stripes and on
+     the top 270, a (1, 2) rank's band, at both 8K configs, D (its plain
+     version and the host decoder) on the v2 container;
+ 17. world size 2 over gloo, two spawned processes sharing the card
+     (NCCL refuses two ranks on one GPU), at meshes (1, 2) and (2, 1):
+     the 8K dynamic encode, the 4:2:0 frame, the 8-frame video and the
+     probes again; every rank's bytes and values equal phase 16's, and
+     its launches join the counts. A rank that fails, or hangs past its
+     timeout, fails the run.
+
+Phases 4, 6, 10, 11 and 13-17 are the main paths: each zeroes the
 kernels' launch counters just before it and reads them just after, and
 the kernel table's launch counts are their sums. A and C may differ from their plain versions
 only at ties: at most 1 apart, where the float64 value lies within 1e-6
@@ -146,6 +171,7 @@ import numpy as np
 
 FRAMES, H, W = 8, 1088, 1920  # 1080p on the 8-px grid: 136 x 240 blocks
 VIDEO_FRAMES, VH, VW = 32, 1080, 1920  # the video phase: 66 Mpix, one chunk
+BIG_H, BIG_W = 4320, 7680  # the sharded phase's 8K frame (BASELINE config 4)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 INT8_OPS = 1979e12
 F32_FLOPS = 67e12
@@ -316,6 +342,33 @@ def check_b(name, cfg, px, scale, n_stripes, ops):
     return got, got_bb, err
 
 
+def check_d(name, stripes, bits, table, run_table, mode, n2, dev):
+    """Kernel D on an indexed stream against its plain version and the
+    host decoder (exactly equal coefficients) -> (D's operands, max |diff|
+    against the plain version)."""
+    import torch
+    from dct_tpu_torch import native
+    from dct_tpu_torch.models import codec
+    from dct_tpu_torch.ops import entropy_decode as ed
+    from dct_tpu_torch.ops import entropy_decode_cuda
+
+    operands = codec.indexed_operands(stripes, bits, table, run_table,
+                                      mode, n2, dev)
+    got = entropy_decode_cuda.decode_blocks_kernel(**operands)
+    want = ed.decode_blocks_plain(**operands)
+    host = native.unpack_stripes(stripes, len(bits) // len(stripes), n2,
+                                 mode, table, codec.DIRECT_VMIN,
+                                 run_table=run_table)
+    err = int((got.to(torch.int32) - want.to(torch.int32)).abs().max())
+    same = torch.equal(got, want)
+    same_host = np.array_equal(got.cpu().numpy(), host)
+    log(f"D {name}: {len(bits)} blocks, {len(stripes)} stripes, "
+        f"{sum(map(len, stripes))} B; equal to plain: {same}, to the "
+        f"host decoder: {same_host}")
+    check(same and same_host, f"D {name} differs")
+    return operands, err
+
+
 def same_or_ties(name: str, data: bytes, cpu_data: bytes, image) -> None:
     """A card container against the CPU path's for the same image: equal,
     or every differing coefficient is an encode tie."""
@@ -362,7 +415,8 @@ def encode_stages(cfg, frame, dev) -> dict:
         return (codec._build_table(cfg, hist_h),
                 codec._build_run_table(cfg, run_h))
 
-    ops_t = ops.with_tables(*build_tables())
+    table, run_table = build_tables()
+    ops_t = ops.with_tables(table, run_table)
     packed, _, _ = codec.encode_fused_step(img, cfg, n_stripes, ops_t)
     fetched = bs.fetch_packed(packed)
     plane = codec.encode_plane(frame, cfg, dev)
@@ -782,6 +836,293 @@ def phase_rate_control(dev, frame, vframes, main_runs) -> None:
         f"{k} {v:.3f} ms" for k, v in t_ms.items()))
 
 
+def sharded_plane_stages(mesh, plane, cfg, dev) -> dict:
+    """Milliseconds of each stage of a sharded dynamic-table plane encode
+    (shard_encode.encode_plane_sharded; host clock, synchronised), beside
+    the whole call and the unsharded codec.encode_plane."""
+    import torch
+    from dct_tpu_torch import tables
+    from dct_tpu_torch.models import codec
+    from dct_tpu_torch.parallel import shard_encode as se
+
+    def synced(fn):
+        def run():
+            out = fn()
+            torch.cuda.synchronize()
+            return out
+        return run
+
+    h, w = plane.shape
+    bh, bw, n_stripes, n_p, bh_real = se._mesh_stripe_grid(h, w, cfg, mesh)
+    band = synced(lambda: se._sharded_padded_plane(plane, cfg, mesh, bh, bw))
+    img = band()
+    ops = tables.build(cfg, device=dev)
+    analyze = synced(lambda: codec.encode_analyze(img, cfg, ops))
+    sym = analyze()[0]
+
+    def build_tables():
+        return se._dynamic_tables_sharded(sym, cfg, mesh, bh_real * bw)
+
+    table, run_table = build_tables()
+    ops_t = ops.with_tables(table, run_table)
+    fused = synced(lambda: codec.encode_fused_step(img, cfg, n_p, ops_t))
+    packed, var, bb = fused()
+
+    def gather():
+        return se._gather_outputs(packed, var, bb, mesh, frames=False)
+
+    bits, units, var_h, bb_h = gather()
+    return {
+        "band upload + pad": host_ms(band, 10),
+        "analyze (A, RLE)": host_ms(analyze, 10),
+        "masked histograms + all-reduce + tables": host_ms(build_tables, 10),
+        "B": host_ms(fused, 10),
+        "gathers (bits, units, block bits) to the host": host_ms(gather, 10),
+        "PlaneData (stripe bytes)": host_ms(lambda: se._plane_data(
+            w, h, table, run_table, bits, units, var_h, bb_h, n_stripes,
+            bh_real * bw), 10),
+        "encode_plane_sharded": host_ms(
+            lambda: se.encode_plane_sharded(plane, cfg, mesh), 10),
+        "encode_plane (unsharded)": host_ms(
+            lambda: codec.encode_plane(plane, cfg, dev), 10),
+    }
+
+
+def check_kernels_8k(dev, big, containers) -> dict:
+    """Kernels A, B, C and D at the 8K frame's shapes (518,400 blocks, 540
+    stripes of 960 blocks; B also on the top 270 stripes, the band a rank
+    of phase 17's (1, 2) mesh encodes), at the two 8K configs of phase 16:
+    A bit-exact to its float32 chain and within encode ties of its plain
+    version, B equal to the staged pipeline fed A's integers, C within
+    decode ties of its plain version, D on the sharded v2 container equal
+    to its plain version and the host decoder. -> {kernel: max |diff|}."""
+    import torch
+    from dct_tpu_torch import CodecConfig, container as cont, tables, testing
+    from dct_tpu_torch.models import codec
+    from dct_tpu_torch.ops import blocks, transform, transform_cuda
+
+    errs = dict.fromkeys(("encode_blocks", "encode_stripes", "decode_blocks",
+                          "entropy_decode"), 0)
+    img = torch.from_numpy(big).to(dev)
+    px = blocks.image_to_blocks(img, 8).reshape(-1, 64)
+    px_h = px.cpu().numpy()
+    n_stripes = BIG_H // 8
+    band = n_stripes // 2
+    for name, cfg in (("8K q50", CodecConfig(quality=50, decode_index=False)),
+                      ("8K q90 index", CodecConfig(quality=90,
+                                                   decode_index=True))):
+        ops = tables.build(cfg, device=dev)
+        got = transform_cuda.encode_blocks_kernel(px, cfg, ops)
+        n_chain = int((got != testing.encode_fma_chain(px, cfg, ops)).sum())
+        log(f"A {name}: {n_chain} mismatches of {got.numel()} against "
+            "encode_fma_chain")
+        check(n_chain == 0, f"A {name} differs from its float32 chain")
+        _, err_a = tie_check(
+            f"A {name}", got, transform.encode_blocks(px, cfg, ops),
+            lambda b: testing.encode_values_f64(px_h[b], cfg, None),
+            testing.ENCODE_TIE_TOL)
+        zz_h = got.cpu().numpy()
+        _, err_c = tie_check(
+            f"C {name}", transform_cuda.decode_blocks_kernel(got, cfg, ops),
+            transform.decode_blocks(got, cfg, ops),
+            lambda b: testing.decode_values_f64(zz_h[b], cfg, None),
+            testing.DECODE_TIE_TOL)
+        del got, zz_h
+        ops_t, _, _ = batch_tables(cfg, px, None, n_stripes, ops)
+        err_b = max(check_b(name, cfg, px, None, n_stripes, ops_t)[2],
+                    check_b(f"{name} top {band} stripes", cfg,
+                            px[:band * BIG_W // 8], None, band, ops_t)[2])
+        for k, e in (("encode_blocks", err_a), ("decode_blocks", err_c),
+                     ("encode_stripes", err_b)):
+            errs[k] = max(errs[k], e)
+    p = cont.deserialize(containers["8K q90 index"]).planes[0]
+    _, errs["entropy_decode"] = check_d(
+        "8K q90 index container", p.stripes, p.block_bits,
+        codec.hf.CanonicalTable(p.table_lengths), None, "category", 64, dev)
+    return errs
+
+
+def phase_sharded(dev, frame, vframes, main_runs) -> dict:
+    """Phase 16: the sharded paths at world size 1 over NCCL in this
+    process, against the unsharded card path, counted and timed. -> the
+    inputs and outputs phase 17 holds its ranks to."""
+    import datetime
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+    from dct_tpu_torch import CodecConfig
+    from dct_tpu_torch.models import codec, color, rate_control as rc, video
+    from dct_tpu_torch.parallel import mesh as meshlib
+    from dct_tpu_torch.parallel import shard_encode as se
+    from dct_tpu_torch.utils import image_io
+
+    init_dir = tempfile.TemporaryDirectory()
+    dist.init_process_group(
+        "nccl", init_method=f"file://{init_dir.name}/init", rank=0,
+        world_size=1, timeout=datetime.timedelta(seconds=300))
+    mesh = meshlib.make_mesh()
+    log(f"sharded: NCCL world size {dist.get_world_size()}, mesh "
+        f"{meshlib.shape(mesh)} on {meshlib.device(mesh)}")
+    t_ms = {}
+
+    def synced(fn):
+        def run():
+            out = fn()
+            torch.cuda.synchronize()
+            return out
+        return run
+
+    # the batch step against encode_step, bit for bit
+    static = CodecConfig(quality=50, static_tables=True, use_pallas=True)
+    frames_d = torch.from_numpy(np.stack([
+        image_io.synthetic_image(H, W, "photo", seed=s)
+        for s in range(FRAMES)])).to(dev)
+    n_stripes = H // 8
+    got, c = counted(lambda: se.encode_batch_step(frames_d, static, n_stripes,
+                                                  mesh), main_runs)
+    want = codec.encode_step(frames_d, static, n_stripes)[0]
+    same = (torch.equal(got.units, want.units)
+            and torch.equal(got.bit_lengths, want.bit_lengths))
+    log(f"sharded encode_batch_step {FRAMES} x {H}x{W}: units and bits "
+        f"equal to encode_step: {same}; launches {c}")
+    check(same and c["encode_stripes"] == 1,
+          "encode_batch_step differs from encode_step")
+    t_ms["encode_batch_step (CUDA events)"] = cuda_ms(
+        lambda: se.encode_batch_step(frames_d, static, n_stripes, mesh), 10)
+    t_ms["encode_step (CUDA events)"] = cuda_ms(
+        lambda: codec.encode_step(frames_d, static, n_stripes), 10)
+    del frames_d, got, want
+
+    # where a sharded plane encode's time goes, beside the unsharded one
+    stages = sharded_plane_stages(mesh, frame, CodecConfig(
+        quality=90, decode_index=True), dev)
+    log("sharded 1080p q90 index plane encode stages: " + ", ".join(
+        f"{k} {v:.3f} ms" for k, v in stages.items()))
+
+    big = image_io.synthetic_image(BIG_H, BIG_W, "photo", seed=8)
+    rgb = rgb_of(frame)
+    stack = vframes[:8]
+    out = {"big": big, "rgb": rgb, "stack": stack}
+    cases = (("8K q50", CodecConfig(quality=50, decode_index=False), big),
+             ("8K q90 index", CodecConfig(quality=90, decode_index=True), big),
+             ("1080p 420 q90 index", CodecConfig(quality=90, chroma="420",
+                                                 decode_index=True), rgb))
+    for name, cfg, src in cases:
+        data, c = counted(lambda: se.encode_image_sharded(src, cfg, mesh),
+                          main_runs)
+        want = codec.encode(src, cfg, dev)
+        log(f"sharded encode {name}: {len(data)} B (v{data[4]}), equal to "
+            f"the unsharded card path: {data == want}; launches {c}")
+        check(data == want, f"sharded encode {name} differs")
+        check(c["encode_stripes"] >= 1 and c["encode_blocks"] >= 1,
+              f"sharded encode {name} did not run kernels A and B")
+        rec, c = counted(lambda: se.decode_image_sharded(data, mesh),
+                         main_runs)
+        unsharded = (color.ColorImageCodec(cfg, dev) if src.ndim == 3
+                     else codec.ImageCodec(cfg, dev))
+        ref = unsharded.decode_to_device(data)
+        log(f"sharded decode {name}: pixels equal to the unsharded "
+            f"decode: {torch.equal(rec, ref)}; launches {c}")
+        check(rec.device.type == "cuda" and torch.equal(rec, ref),
+              f"sharded decode {name} differs")
+        check(c["decode_blocks"] >= 1
+              and (c["entropy_decode"] >= 1) == (data[4] == 2),
+              f"sharded decode {name} did not run kernels C (and D)")
+        out[name] = data
+        t_ms[f"encode {name}: sharded"] = host_ms(
+            lambda: se.encode_image_sharded(src, cfg, mesh), 3)
+        t_ms[f"encode {name}: unsharded"] = host_ms(
+            lambda: codec.encode(src, cfg, dev), 3)
+        t_ms[f"decode {name}: sharded"] = host_ms(synced(
+            lambda: se.decode_image_sharded(data, mesh)), 3)
+        t_ms[f"decode {name}: unsharded"] = host_ms(synced(
+            lambda: unsharded.decode_to_device(data)), 3)
+        del rec, ref
+
+    # the kernels at the 8K shapes these paths gave them, against their
+    # plain versions (launches here are not counted)
+    out["8K errors"] = check_kernels_8k(dev, big, out)
+
+    cfg = CodecConfig()
+    streams, c = counted(lambda: video.VideoCodec(cfg, mesh=mesh).encode(
+        stack), main_runs)
+    want = video.VideoCodec(cfg, device=dev).encode(stack)
+    log(f"sharded VideoCodec 8 x 1080p q50: streams equal to the unsharded "
+        f"card path: {streams == want}; launches {c}")
+    check(streams == want, "sharded video differs")
+    check(c["encode_blocks"] == 1 and c["pack_chunks"] == 1,
+          "the sharded one-chunk video did not run one A and one E launch")
+    out["video"] = streams
+    t_ms["VideoCodec 8 x 1080p: sharded"] = host_ms(
+        lambda: video.VideoCodec(cfg, mesh=mesh).encode(stack), 3)
+    t_ms["VideoCodec 8 x 1080p: unsharded"] = host_ms(
+        lambda: video.VideoCodec(cfg, device=dev).encode(stack), 3)
+
+    cfg = CodecConfig(quality=70)
+    for name, fn in (("container_size", rc.container_size),
+                     ("psnr_at_quality", rc.psnr_at_quality)):
+        val, c = counted(lambda: fn(rgb, cfg, mesh=mesh), main_runs)
+        want = fn(rgb, cfg, dev)
+        log(f"sharded {name} RGB q70: {val!r}, unsharded {want!r}; "
+            f"launches {c}")
+        check(val == want, f"sharded {name} differs")
+        out[name] = val
+        t_ms[f"{name} RGB: sharded"] = host_ms(
+            lambda: fn(rgb, cfg, mesh=mesh), 3)
+        t_ms[f"{name} RGB: unsharded"] = host_ms(lambda: fn(rgb, cfg, dev), 3)
+
+    dist.destroy_process_group()
+    init_dir.cleanup()
+    log("sharded (NCCL, world size 1): " + ", ".join(
+        f"{k} {v:.3f} ms" for k, v in t_ms.items()))
+    return out
+
+
+def phase_two_ranks(kept, main_runs) -> None:
+    """Phase 17: world size 2 over gloo, two spawned processes on the one
+    card, at meshes (1, 2) and (2, 1): every rank's bytes and probe values
+    equal phase 16's; their launches join the counts."""
+    import tempfile
+
+    from dct_tpu_torch import CodecConfig, testing
+    from dct_tpu_torch.models import rate_control as rc
+    from dct_tpu_torch.parallel import shard_encode as se
+
+    jobs = [
+        ("8K q50", se.encode_image_sharded,
+         (kept["big"], CodecConfig(quality=50, decode_index=False)), {}),
+        ("1080p 420 q90 index", se.encode_image_sharded,
+         (kept["rgb"], CodecConfig(quality=90, chroma="420",
+                                   decode_index=True)), {}),
+        ("video", se.encode_video_sharded, (kept["stack"], CodecConfig()),
+         {}),
+        ("container_size", rc.container_size,
+         (kept["rgb"], CodecConfig(quality=70)), {}),
+        ("psnr_at_quality", rc.psnr_at_quality,
+         (kept["rgb"], CodecConfig(quality=70)), {}),
+    ]
+    for shape in ((1, 2), (2, 1)):
+        with tempfile.TemporaryDirectory() as d:
+            t0 = time.perf_counter()
+            ranks = testing.run_mesh_jobs(2, shape, jobs, d, backend="gloo",
+                                          device_type="cuda", timeout=600)
+            wall = time.perf_counter() - t0
+        for rank, res in enumerate(ranks):
+            for name, r in res.items():
+                main_runs.append(r["launches"])
+                check(r["value"] == kept[name],
+                      f"gloo mesh {shape} rank {rank}: {name} differs from "
+                      "phase 16")
+            log(f"gloo mesh {shape} rank {rank} (coordinate "
+                f"{res['8K q50']['coordinate']}): every output equal to "
+                "phase 16's; " + ", ".join(
+                    f"{k} {1e3 * r['seconds']:.3f} ms {r['launches']}"
+                    for k, r in res.items()))
+        log(f"gloo mesh {shape}: two ranks on the card, {wall:.1f} s with "
+            "start-up")
+
+
 def main() -> int:
     import torch
 
@@ -1154,23 +1495,6 @@ def main() -> int:
     check(err <= 1, f"e2e q90: decoded pixels differ by {err}")
 
     # ---- 7. kernel D against its plain version and the host decoder ----
-    def check_d(name, stripes, bits, table, run_table, mode, n2):
-        operands = codec.indexed_operands(stripes, bits, table, run_table,
-                                            mode, n2, dev)
-        got = entropy_decode_cuda.decode_blocks_kernel(**operands)
-        want = ed.decode_blocks_plain(**operands)
-        host = native.unpack_stripes(stripes, len(bits) // len(stripes), n2,
-                                     mode, table, codec.DIRECT_VMIN,
-                                     run_table=run_table)
-        err = int((got.to(torch.int32) - want.to(torch.int32)).abs().max())
-        same = torch.equal(got, want)
-        same_host = np.array_equal(got.cpu().numpy(), host)
-        log(f"D {name}: {len(bits)} blocks, {len(stripes)} stripes, "
-            f"{sum(map(len, stripes))} B; equal to plain: {same}, to the "
-            f"host decoder: {same_host}")
-        check(same and same_host, f"D {name} differs")
-        return operands, err
-
     d_operands = {}
     for name, cfg in (
             ("static q90", CodecConfig(quality=90, static_tables=True,
@@ -1184,7 +1508,7 @@ def main() -> int:
         d_operands[name] = check_d(
             f"batch {name}", bs.stripes_to_bytes(bs.fetch_packed(packed)),
             bb.cpu().numpy().reshape(-1).astype(np.uint16), table, run_table,
-            "category", 64)
+            "category", 64, dev)
     results["entropy_decode"] = (0, d_operands["static q90"][1])
     # streams in the staged modes, from the card encoder (kernels A, E)
     for mode, cfg in (("none", CodecConfig(use_huffman=False,
@@ -1195,7 +1519,7 @@ def main() -> int:
             frame)).planes[0]
         check_d(f"1080p {mode}", p_s.stripes, p_s.block_bits,
                 None if mode == "none" else codec.hf.CanonicalTable(
-                    p_s.table_lengths), None, mode, 64)
+                    p_s.table_lengths), None, mode, 64, dev)
 
     # ---- 8. times of the indexed decode ---------------------------------
     ops_d = d_operands["static q90"][0]
@@ -1407,7 +1731,7 @@ def main() -> int:
             check_d(f"dense {fname} {mode}",
                     bs.stripes_to_bytes(bs.fetch_packed(packed)),
                     bb.cpu().numpy().reshape(-1).astype(np.uint16), table,
-                    run_table, mode, 64)
+                    run_table, mode, 64, dev)
 
     # ---- 11. video at full width -----------------------------------------
     vframes = np.stack([image_io.synthetic_image(VH, VW, "photo", seed=s)
@@ -1589,17 +1913,28 @@ def main() -> int:
     phase_recovery(dev, frame, kept["420 q90"], main_runs)
     phase_rate_control(dev, frame, vframes, main_runs)
 
+    # ---- 16-17. the sharded paths, counted -----------------------------
+    n_unsharded = len(main_runs)
+    kept = phase_sharded(dev, frame, vframes, main_runs)
+    for k, err in kept["8K errors"].items():
+        results[k] = (results[k][0], max(results[k][1], err))
+    phase_two_ranks(kept, main_runs)
+    for k in ("encode_blocks", "encode_stripes", "decode_blocks",
+              "entropy_decode", "pack_chunks"):
+        check(any(run[k] for run in main_runs[n_unsharded:]),
+              f"{k} not launched on the sharded paths")
+
     sources = {
         "encode_blocks": ("dct_tpu_torch/csrc/transform.cu",
-                          "dct_tpu/ops/transform_pallas.py:106"),
+                          "dct_tpu/ops/transform_pallas.py:227"),
         "encode_stripes": ("dct_tpu_torch/csrc/fused_encode.cu",
-                           "dct_tpu/ops/fused_encode_pallas.py:218"),
+                           "dct_tpu/ops/fused_encode_pallas.py:825"),
         "decode_blocks": ("dct_tpu_torch/csrc/transform.cu",
-                          "dct_tpu/ops/transform_pallas.py:126"),
+                          "dct_tpu/ops/transform_pallas.py:293"),
         "entropy_decode": ("dct_tpu_torch/csrc/entropy_decode.cu",
-                           "dct_tpu/ops/entropy_decode_pallas.py:124"),
+                           "dct_tpu/ops/entropy_decode_pallas.py:535"),
         "pack_chunks": ("dct_tpu_torch/csrc/pack.cu",
-                        "dct_tpu/ops/pack_pallas.py:46"),
+                        "dct_tpu/ops/pack_pallas.py:121"),
     }
     # bounds at the shapes timed above: 8 x 1088x1920, static q50 for A,
     # B, C and static q90 for D; operators and tables count as inputs

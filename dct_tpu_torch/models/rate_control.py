@@ -1,7 +1,9 @@
 """Rate-distortion control: encode to a byte budget or a PSNR target by
 probing EXACT container sizes and distortions on the device (port of
-``dct_tpu.models.rate_control``, one device; the reference's ``mesh``
-probes wait for the port of its sharding).
+``dct_tpu.models.rate_control``). With ``mesh=`` (parallel/mesh.py) the
+probes, and the final encodes, run sharded over its ranks
+(parallel/shard_encode.py) and return the same integers, the same PSNR
+and the same bytes as without it, for every mesh shape.
 
 A size probe is the encode without the bit pack: the analyze pass
 (kernel A, DC prediction, positional RLE, histograms), the canonical
@@ -35,15 +37,27 @@ from dct_tpu_torch.config import CodecConfig
 from dct_tpu_torch.models import codec as _codec
 from dct_tpu_torch.models import color as _color
 from dct_tpu_torch.models import video as _video
+from dct_tpu_torch.parallel import mesh as meshlib
+from dct_tpu_torch.parallel import shard_encode as _se
 
 # Quality rungs for the encode_to_* ladders: dense where the size/quality
 # curve is steep (high quality), sparse where it is flat.
 DEFAULT_LADDER = (1, 5, 10, 15, 20, 30, 40, 50, 60, 70, 80, 85, 90, 95, 97, 100)
 
 
-def _device(device) -> torch.device:
+def _device(device, mesh=None) -> torch.device:
+    """The entry point's device: the mesh's when it is given one."""
+    if mesh is not None:
+        return meshlib.entry_device(mesh, device)
     return (torch.device(device) if device is not None
             else _codec._default_device())
+
+
+def _encode(image: np.ndarray, cfg: CodecConfig, device, mesh) -> bytes:
+    """The final encode of the encode_to_* fronts, sharded with a mesh."""
+    if mesh is not None:
+        return _se.encode_image_sharded(image, cfg, mesh)
+    return _codec.encode(image, cfg, device)
 
 
 def _normalize_chroma(ndim: int, cfg: CodecConfig) -> CodecConfig:
@@ -109,12 +123,12 @@ def _plane_tables(cfg: CodecConfig, hist, run_hist):
 def _chunk_bits(symbols, cfg: CodecConfig, frames: int, n_stripes: int,
                 ops: tables.CodecOperators):
     """((frames, n_stripes) int64 payload bits a stripe, (frames, NB)
-    int64 bits a block) of stacked symbols: the chunk lengths of the
-    dispatch the packers take (codec.symbol_chunks_for), summed."""
+    int64 bits a block) of stacked symbols, tensors on their device: the
+    chunk lengths of the dispatch the packers take
+    (codec.symbol_chunks_for), summed."""
     _, cl = _codec.symbol_chunks_for(symbols, cfg, ops)
     bb = cl.sum(dim=(1, 2), dtype=torch.int64).reshape(frames, -1)
-    bits = bb.reshape(frames, n_stripes, -1).sum(dim=2)
-    return bits.cpu().numpy(), bb.cpu().numpy()
+    return bb.reshape(frames, n_stripes, -1).sum(dim=2), bb
 
 
 def _probe_skeleton(
@@ -144,13 +158,20 @@ def _probe_skeleton(
     )
 
 
-def _plane_size(plane: torch.Tensor, cfg: CodecConfig, chroma: bool
-                ) -> tuple[np.ndarray, cont.PlaneData]:
+def _plane_size(plane: torch.Tensor, cfg: CodecConfig, chroma: bool,
+                mesh=None) -> tuple[np.ndarray, cont.PlaneData]:
     """(per-stripe bit counts, empty-stripe skeleton) of one (H, W) u8
     plane tensor at cfg.quality, on its device: codec.encode_plane up to
-    (not including) the pack."""
+    (not including) the pack. With a mesh, the analyze pass and the
+    chunk-length sums run sharded, with the tables of
+    shard_encode.encode_plane_sharded: the same counts for every mesh."""
     h, w = int(plane.shape[0]), int(plane.shape[1])
     _, _, n_stripes = _codec._padded_grid(h, w, cfg)
+    if mesh is not None:
+        bits, bb, vc, table, run_table = _se.plane_probe_bits_sharded(
+            plane, cfg, mesh, chroma)
+        return bits, _probe_skeleton(w, h, cfg, n_stripes, table, run_table,
+                                     vc, bits, bb)
     img = _codec.pad_plane_for_encode(plane, cfg)
     ops = tables.build(cfg, chroma=chroma, device=img.device)
     symbols, var_codes, hist, run_hist = _codec.encode_analyze(img, cfg, ops)
@@ -159,8 +180,8 @@ def _plane_size(plane: torch.Tensor, cfg: CodecConfig, chroma: bool
     else:
         table, run_table = _plane_tables(cfg, hist.cpu().numpy(),
                                          run_hist.cpu().numpy())
-    bits, bb = _chunk_bits(symbols, cfg, 1, n_stripes,
-                           ops.with_tables(table, run_table))
+    bits, bb = (t.cpu().numpy() for t in _chunk_bits(
+        symbols, cfg, 1, n_stripes, ops.with_tables(table, run_table)))
     return bits[0], _probe_skeleton(
         w, h, cfg, n_stripes, table, run_table,
         var_codes.cpu().numpy() if cfg.adaptive else None, bits[0], bb[0],
@@ -181,12 +202,12 @@ def _image_plane_args(image: np.ndarray, cfg: CodecConfig,
 
 def _container_size_from_planes(
     plane_args: list[tuple[torch.Tensor, bool]], cfg: CodecConfig, w: int,
-    h: int,
+    h: int, mesh=None,
 ) -> int:
     payload = 0
     skeletons = []
     for plane, chroma in plane_args:
-        bits, skel = _plane_size(plane, cfg, chroma)
+        bits, skel = _plane_size(plane, cfg, chroma, mesh)
         payload += int(((bits.astype(np.int64) + 7) // 8).sum())
         skeletons.append(skel)
     header = len(cont.serialize(
@@ -195,15 +216,17 @@ def _container_size_from_planes(
 
 
 def container_size(image: np.ndarray, cfg: CodecConfig,
-                   device: str | torch.device | None = None) -> int:
+                   device: str | torch.device | None = None,
+                   mesh=None) -> int:
     """EXACT serialized container size in bytes of encoding ``image``
     under ``cfg``, without packing or materializing the payload: gray
     (H, W) or RGB (H, W, 3) by array rank, with codec.encode's chroma rule
-    (RGB with chroma "gray" encodes at "420")."""
+    (RGB with chroma "gray" encodes at "420"). With a mesh the probe runs
+    stripe-sharded and gives the same integer for every mesh shape."""
     cfg = _normalize_chroma(image.ndim, cfg)
     return _container_size_from_planes(
-        _image_plane_args(image, cfg, _device(device)), cfg,
-        int(image.shape[1]), int(image.shape[0]))
+        _image_plane_args(image, cfg, _device(device, mesh)), cfg,
+        int(image.shape[1]), int(image.shape[0]), mesh)
 
 
 # ---------------------------------------------------------------------------
@@ -217,6 +240,7 @@ def _plane_batch_bits(
     chroma: bool,
     chunk_frames: int | None,
     device: torch.device,
+    mesh=None,
 ):
     """((F, n_stripes) bits a stripe, (F, NB) bits a block, skeleton
     factory frame -> PlaneData) of an (F, h, w) plane stack at
@@ -225,12 +249,35 @@ def _plane_batch_bits(
     analyzed once; a longer one drops each chunk's symbols after its
     histograms (keeping them would unbound the memory CHUNK_PIXEL_BUDGET
     bounds) and analyzes again to count. Skeletons are per frame: the
-    packed decode index's width depends on each frame's block bits."""
+    packed decode index's width depends on each frame's block bits. With a
+    mesh the counts come from shard_encode.video_plane_batch_bits_sharded,
+    the same for every mesh."""
     f, h, w = (int(x) for x in planes.shape)
     bh, bw, n_stripes = _codec._padded_grid(h, w, cfg)
-    if chunk_frames is None:
-        chunk_frames = max(1, _video.CHUNK_PIXEL_BUDGET // (h * w))
-    chunk = max(1, min(int(chunk_frames), f))
+    if mesh is not None:
+        bits, bbs, table, run_table = _se.video_plane_batch_bits_sharded(
+            planes, cfg, mesh, chroma, chunk_frames)
+    else:
+        bits, bbs, table, run_table = _plane_batch_counts(
+            planes, cfg, chroma, chunk_frames, device, n_stripes)
+
+    def skeleton(i: int) -> cont.PlaneData:
+        return _probe_skeleton(
+            w, h, cfg, n_stripes, table, run_table,
+            np.zeros(bh * bw, np.uint8) if cfg.adaptive else None,
+            bits[i], bbs[i],
+        )
+
+    return bits, bbs, skeleton
+
+
+def _plane_batch_counts(planes: np.ndarray, cfg: CodecConfig, chroma: bool,
+                        chunk_frames: int | None, device: torch.device,
+                        n_stripes: int):
+    """_plane_batch_bits on one device -> (bits, block bits, table,
+    run_table)."""
+    f, h, w = (int(x) for x in planes.shape)
+    chunk = _video.frames_per_chunk(f, h, w, chunk_frames)
     ops = tables.build(cfg, chroma=chroma, device=device)
 
     def analyze(i0: int):
@@ -259,19 +306,9 @@ def _plane_batch_bits(
     for i0 in range(0, f, chunk):
         sym = symbols_once if symbols_once is not None else analyze(i0)[0]
         b, bb = _chunk_bits(sym, cfg, min(chunk, f - i0), n_stripes, ops)
-        bits.append(b)
-        bbs.append(bb)
-    bits = np.concatenate(bits)
-    bbs = np.concatenate(bbs)
-
-    def skeleton(i: int) -> cont.PlaneData:
-        return _probe_skeleton(
-            w, h, cfg, n_stripes, table, run_table,
-            np.zeros(bh * bw, np.uint8) if cfg.adaptive else None,
-            bits[i], bbs[i],
-        )
-
-    return bits, bbs, skeleton
+        bits.append(b.cpu().numpy())
+        bbs.append(bb.cpu().numpy())
+    return np.concatenate(bits), np.concatenate(bbs), table, run_table
 
 
 def _video_plane_batches(
@@ -301,13 +338,14 @@ def _video_sizes_from_batches(
     h: int,
     chunk_frames: int | None,
     device: torch.device,
+    mesh=None,
 ) -> np.ndarray:
     f = int(plane_batches[0][0].shape[0])
     per_frame = np.zeros(f, np.int64)
     skel_factories = []
     for batch, chroma in plane_batches:
         bits, _, skel = _plane_batch_bits(batch, cfg, chroma, chunk_frames,
-                                          device)
+                                          device, mesh)
         per_frame += ((bits.astype(np.int64) + 7) // 8).sum(axis=1)
         skel_factories.append(skel)
     # headers are per frame: the packed decode index's width (and the
@@ -325,16 +363,19 @@ def video_container_sizes(
     cfg: CodecConfig,
     chunk_frames: int | None = None,
     device: str | torch.device | None = None,
+    mesh=None,
 ) -> np.ndarray:
     """EXACT per-frame container sizes (bytes) of
     VideoCodec(cfg).encode(frames), without packing: (F,) int64. The
     stack shares one table per plane type, so these differ from per-image
-    container_size wherever tables are dynamic."""
-    device = _device(device)
+    container_size wherever tables are dynamic. With a mesh the probe
+    runs over its data and stripe axes and gives the same integers for
+    every mesh shape."""
+    device = _device(device, mesh)
     batches = _video_plane_batches(frames, cfg, chunk_frames, device)
     h, w = int(frames.shape[1]), int(frames.shape[2])
     return _video_sizes_from_batches(batches, cfg, w, h, chunk_frames,
-                                     device)
+                                     device, mesh)
 
 
 def encode_video_to_size(
@@ -345,12 +386,14 @@ def encode_video_to_size(
     strict: bool = True,
     chunk_frames: int | None = None,
     device: str | torch.device | None = None,
+    mesh=None,
 ) -> tuple[list[bytes], int]:
     """Encode a frame stack into at most ``total_bytes`` over all its
     per-frame containers, at one shared quality (the stack's
     encode_to_size; each frame's stream stays decodable on its own).
-    Returns (streams, quality)."""
-    device = _device(device)
+    Returns (streams, quality). With a mesh the probes and the encode run
+    sharded; the quality and the bytes are the same for every mesh."""
+    device = _device(device, mesh)
     base = config or CodecConfig()
     if frames.ndim == 4 and base.chroma == "gray":
         base = base.replace(chroma="420")
@@ -365,7 +408,7 @@ def encode_video_to_size(
         if q not in totals:
             totals[q] = int(_video_sizes_from_batches(
                 batches, base.replace(quality=q), w, h, chunk_frames,
-                device).sum())
+                device, mesh).sum())
         return totals[q]
 
     best = _ladder_bisect(
@@ -377,8 +420,8 @@ def encode_video_to_size(
         ),
     )
     streams = _video.VideoCodec(base.replace(quality=best),
-                                chunk_frames=chunk_frames,
-                                device=device).encode(frames)
+                                chunk_frames=chunk_frames, device=device,
+                                mesh=mesh).encode(frames)
     return streams, best
 
 
@@ -413,43 +456,61 @@ def _sse(a: torch.Tensor, b: torch.Tensor) -> int:
 
 
 def roundtrip_sse(image: np.ndarray, cfg: CodecConfig,
-                  device: str | torch.device | None = None) -> int:
+                  device: str | torch.device | None = None,
+                  mesh=None) -> int:
     """EXACT sum of squared pixel errors of encode -> decode under
     ``cfg``, without a bitstream. Gray (H, W) only; color goes through
-    psnr_at_quality (its reconstruction crosses planes)."""
+    psnr_at_quality (its reconstruction crosses planes). With a mesh each
+    rank round-trips its band of rows
+    (shard_encode.plane_sse_chunks_sharded): the same integer for every
+    mesh."""
     if image.ndim != 2:
         raise ValueError("roundtrip_sse takes a grayscale (H, W) plane")
+    if mesh is not None:
+        return _se.plane_sse_chunks_sharded(
+            image, cfg, mesh, False, int(image.shape[0]), int(image.shape[1]))
     x = _codec.to_device_u8(image, _device(device))
     return _sse(_plane_roundtrip(x, cfg, False), x)
 
 
-def _rgb_sse(image: np.ndarray, cfg: CodecConfig,
-             device: torch.device) -> int:
+def _rgb_sse(image: np.ndarray, cfg: CodecConfig, device: torch.device,
+             mesh=None) -> int:
     """Exact roundtrip squared error of an RGB image: the YCbCr split,
     each plane's quantize and reconstruct (the chrominance table on Cb
     and Cr, 4:2:0 resampling), the RGB reassembly of
-    ColorImageCodec.decode_to_device."""
+    ColorImageCodec.decode_to_device. With a mesh each plane's roundtrip
+    runs sharded and is gathered (shard_encode.plane_roundtrip_sharded)
+    before the reassembly, whose 4:2:0 chroma rows do not follow the luma
+    bands."""
     rgb = _codec.to_device_u8(image, device)
-    recs = [_plane_roundtrip(p, cfg, chroma=i > 0)
-            for i, p in enumerate(_color._to_planes(rgb, cfg.chroma))]
+    recs = []
+    for i, p in enumerate(_color._to_planes(rgb, cfg.chroma)):
+        if mesh is None:
+            recs.append(_plane_roundtrip(p, cfg, chroma=i > 0))
+        else:
+            recs.append(_se.plane_roundtrip_sharded(
+                p, cfg, mesh, chroma=i > 0)[:p.shape[0], :p.shape[1]])
     h, w = int(image.shape[0]), int(image.shape[1])
     return _sse(_color.planes_to_rgb(*recs, cfg.chroma, h, w), rgb)
 
 
 def psnr_at_quality(image: np.ndarray, cfg: CodecConfig,
-                    device: str | torch.device | None = None) -> float:
+                    device: str | torch.device | None = None,
+                    mesh=None) -> float:
     """EXACT PSNR (dB) of encoding ``image`` under ``cfg``: equal to the
     PSNR of decode(encode(image, cfg)) against image, computed as
     10 log10(255^2 / mse) in float64 over the exact integer SSE, without
-    packing or parsing a bitstream. Only the SSE leaves the device."""
+    packing or parsing a bitstream. Only the SSE leaves the device. With
+    a mesh the roundtrips run sharded; the PSNR is the same float for
+    every mesh."""
     cfg = _normalize_chroma(image.ndim, cfg)
-    device = _device(device)
+    device = _device(device, mesh)
     h, w = int(image.shape[0]), int(image.shape[1])
     if image.ndim == 2:
-        sse = roundtrip_sse(image, cfg, device)
+        sse = roundtrip_sse(image, cfg, device, mesh)
         n_px = h * w
     else:
-        sse = _rgb_sse(image, cfg, device)
+        sse = _rgb_sse(image, cfg, device, mesh)
         n_px = h * w * 3
     if sse == 0:
         return float("inf")
@@ -464,12 +525,15 @@ def encode_to_psnr(
     qualities: tuple[int, ...] = DEFAULT_LADDER,
     strict: bool = True,
     device: str | torch.device | None = None,
+    mesh=None,
 ) -> tuple[bytes, int]:
     """Encode ``image`` at the LOWEST ladder quality whose exact PSNR
     meets ``min_psnr`` dB (the smallest file reaching the distortion
     target). Returns (bytes, quality). If even the highest rung misses:
-    raise ValueError when ``strict``, else return its encode."""
-    device = _device(device)
+    raise ValueError when ``strict``, else return its encode. With a mesh
+    the probes and the encode run sharded; the quality and the bytes are
+    the same for every mesh."""
+    device = _device(device, mesh)
     base = _normalize_chroma(image.ndim, config or CodecConfig())
     ladder = _clean_ladder(qualities)[::-1]  # descending: see _ladder_bisect
 
@@ -477,7 +541,8 @@ def encode_to_psnr(
 
     def psnr_of(q: int) -> float:
         if q not in psnrs:
-            psnrs[q] = psnr_at_quality(image, base.replace(quality=q), device)
+            psnrs[q] = psnr_at_quality(image, base.replace(quality=q), device,
+                                       mesh)
         return psnrs[q]
 
     best = _ladder_bisect(
@@ -489,7 +554,7 @@ def encode_to_psnr(
             f"target {min_psnr}"
         ),
     )
-    return _codec.encode(image, base.replace(quality=best), device), best
+    return _encode(image, base.replace(quality=best), device, mesh), best
 
 
 def encode_to_size(
@@ -499,14 +564,16 @@ def encode_to_size(
     qualities: tuple[int, ...] = DEFAULT_LADDER,
     strict: bool = True,
     device: str | torch.device | None = None,
+    mesh=None,
 ) -> tuple[bytes, int]:
     """Encode ``image`` into at most ``max_bytes`` at the highest ladder
     quality that fits. Returns (container bytes, quality). ``config``
     gives every knob but the quality. If even the lowest rung exceeds the
     budget: raise ValueError when ``strict``, else return its encode (over
     budget). The probes are exact, so the container fits whenever a rung
-    does."""
-    device = _device(device)
+    does. With a mesh the probes and the encode run sharded; the quality
+    and the bytes are the same for every mesh."""
+    device = _device(device, mesh)
     base = _normalize_chroma(image.ndim, config or CodecConfig())
     ladder = _clean_ladder(qualities)
     # the RGB -> YCbCr split does not depend on the quality: once
@@ -518,7 +585,7 @@ def encode_to_size(
     def size_of(q: int) -> int:
         if q not in sizes:
             sizes[q] = _container_size_from_planes(
-                plane_args, base.replace(quality=q), w, h)
+                plane_args, base.replace(quality=q), w, h, mesh)
         return sizes[q]
 
     best = _ladder_bisect(
@@ -527,4 +594,4 @@ def encode_to_size(
         strict,
         lambda q: f"quality {q} needs {size_of(q)} bytes > budget {max_bytes}",
     )
-    return _codec.encode(image, base.replace(quality=best), device), best
+    return _encode(image, base.replace(quality=best), device, mesh), best

@@ -26,8 +26,11 @@ RGB stacks (chroma "444" or "420") are converted to Y, Cb and Cr planes
 on the device in chunks of frames (models/color.py) and each plane type
 is encoded as a gray stack is, Cb and Cr against the chrominance quant
 table, with a table of its own; a stack of color containers decodes one
-plane type at a time, then planes_to_rgb over the stack. The reference's
-``mesh`` argument (the sharded encode) is not taken.
+plane type at a time, then planes_to_rgb over the stack.
+
+With ``mesh`` (parallel/mesh.py) the encode runs over its ranks, frames
+over the data axis and stripes over the stripe axis
+(parallel/shard_encode.py), and writes the same bytes for every mesh.
 """
 
 from __future__ import annotations
@@ -48,6 +51,15 @@ from dct_tpu_torch.ops import bitstream as bs
 CHUNK_PIXEL_BUDGET = 128_000_000
 
 
+def frames_per_chunk(f: int, h: int, w: int,
+                     chunk_frames: int | None) -> int:
+    """Frames per encode dispatch of an (f, h, w) plane stack: chunk_frames,
+    else as many as CHUNK_PIXEL_BUDGET allows, within [1, f]."""
+    if chunk_frames is None:
+        chunk_frames = CHUNK_PIXEL_BUDGET // (h * w)
+    return max(1, min(int(chunk_frames), f))
+
+
 def _encode_plane_batch(
     planes: np.ndarray,
     cfg: CodecConfig,
@@ -60,9 +72,7 @@ def _encode_plane_batch(
     chunking. chroma: Cb or Cr planes (the chrominance quant table)."""
     f, h, w = (int(x) for x in planes.shape)
     _, _, n_stripes = codec._padded_grid(h, w, cfg)
-    if chunk_frames is None:
-        chunk_frames = max(1, CHUNK_PIXEL_BUDGET // (h * w))
-    chunk = max(1, min(int(chunk_frames), f))
+    chunk = frames_per_chunk(f, h, w, chunk_frames)
 
     def prep(i0: int) -> torch.Tensor:
         sub = np.ascontiguousarray(planes[i0:i0 + chunk], np.uint8)
@@ -168,13 +178,23 @@ class VideoCodec:
 
     def __init__(self, config: CodecConfig | None = None,
                  chunk_frames: int | None = None,
-                 device: str | torch.device | None = None):
+                 device: str | torch.device | None = None,
+                 mesh=None):
         """chunk_frames caps the frames per dispatch (None: from
-        CHUNK_PIXEL_BUDGET); the output bytes do not depend on it."""
+        CHUNK_PIXEL_BUDGET); the output bytes do not depend on it. With a
+        torch.distributed DeviceMesh from parallel.mesh.make_mesh, encode
+        runs sharded on the mesh's device (shard_encode) and the bytes do
+        not depend on the mesh either."""
         self.config = config or CodecConfig()
         self.chunk_frames = chunk_frames
-        self.device = (torch.device(device) if device is not None
-                       else codec._default_device())
+        self.mesh = mesh
+        if mesh is not None:
+            from dct_tpu_torch.parallel import mesh as meshlib
+
+            self.device = meshlib.entry_device(mesh, device)
+        else:
+            self.device = (torch.device(device) if device is not None
+                           else codec._default_device())
 
     def encode(self, frames: np.ndarray) -> list[bytes]:
         cfg, ck = self.config, self.chunk_frames
@@ -189,9 +209,16 @@ class VideoCodec:
                     f"got {frames.shape}")
             batches = rgb_planes(frames, cfg.chroma, ck, self.device)
         h, w = int(frames.shape[1]), int(frames.shape[2])
-        per_plane = [_encode_plane_batch(b, cfg, ck, self.device,
-                                         chroma=i > 0)
-                     for i, b in enumerate(batches)]
+        if self.mesh is None:
+            per_plane = [_encode_plane_batch(b, cfg, ck, self.device,
+                                             chroma=i > 0)
+                         for i, b in enumerate(batches)]
+        else:
+            from dct_tpu_torch.parallel import shard_encode
+
+            per_plane = [shard_encode.encode_video_plane_batch_sharded(
+                b, cfg, self.mesh, chroma=i > 0, chunk_frames=ck)
+                for i, b in enumerate(batches)]
         return [cont.serialize(cont.Container(config=cfg, width=w, height=h,
                                               planes=list(planes)))
                 for planes in zip(*per_plane)]

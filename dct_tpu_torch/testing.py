@@ -24,20 +24,37 @@ coefficients the proof leaves open. encode_certified is that arithmetic in
 torch: the float64 product, the same certificate, the rescue by
 encode_fma_chain. The chain stays the contract; the certificate only
 decides where it has to run.
+
+run_mesh_jobs runs the sharded paths (parallel/) on every rank of a mesh
+of spawned processes and brings back each rank's results, its kernel
+launches and the collectives it called. It lives here, not in a test
+file, because a spawned rank imports the module of its function, and the
+test files import jax and the JAX package.
 """
 
 from __future__ import annotations
 
+import datetime
+import multiprocessing
+import os
+import pathlib
+import pickle
+import time
+
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from dct_tpu_torch import container as cont
 from dct_tpu_torch import tables as dct_tables
 from dct_tpu_torch.config import CodecConfig
 from dct_tpu_torch.models import codec
+from dct_tpu_torch.ops import _build
 from dct_tpu_torch.ops import bitstream as bs
 from dct_tpu_torch.ops import huffman as hf
 from dct_tpu_torch.ops import rle, transform
+from dct_tpu_torch.parallel import mesh as meshlib
+from dct_tpu_torch.parallel import shard_encode
 
 ENCODE_TIE_TOL = 1e-6
 DECODE_TIE_TOL = 1e-3
@@ -319,3 +336,155 @@ def indexed_stream(zz: torch.Tensor, cfg: CodecConfig, n_stripes: int):
     return (stripes, block_bits.cpu().numpy().reshape(-1).astype(np.uint16),
             table, run_table)
 
+
+
+# ---------------------------------------------------------------------------
+# The ranks of a mesh
+# ---------------------------------------------------------------------------
+
+
+def run_mesh_jobs(world_size: int, mesh_shape: tuple[int, int], jobs,
+                  out_dir, backend: str = "gloo", device_type: str = "cpu",
+                  timeout: float = 240.0) -> list[dict]:
+    """Run ``jobs`` on every rank of a (n_data, n_stripe) mesh of
+    world_size spawned processes -> each rank's results, by rank.
+
+    A job is (name, fn, args, kwargs): every rank calls
+    fn(*args, mesh=mesh, **kwargs) in the jobs' order. A rank's results
+    are {name: {"value": the result, tensors as host arrays, "launches":
+    the kernels' launch counts, "collectives": the (kind, ..., dtype,
+    shape) of each shard_encode._all_reduce / _all_gather call,
+    "coordinate": the rank's (data, stripe) coordinate, "seconds": host
+    clock, synchronised}}. The process group is initialised through a new
+    file in out_dir (no port), with ``timeout``. A rank that fails, or
+    that still runs ``timeout`` seconds after the start (a hang), fails
+    the call at once: every rank still running is killed (the others may
+    wait in a collective for the failed one), and RuntimeError raised."""
+    out_dir = pathlib.Path(out_dir)
+    init = out_dir / f"init-{os.getpid()}-{time.time_ns()}"
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=_mesh_rank, args=(
+        rank, world_size, str(init), backend, device_type, tuple(mesh_shape),
+        jobs, str(out_dir), timeout)) for rank in range(world_size)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + timeout
+    while (any(p.is_alive() for p in procs)
+           and not any(p.exitcode for p in procs)
+           and time.monotonic() < deadline):
+        time.sleep(0.05)
+    codes = [p.exitcode for p in procs]
+    killed = [p for p in procs if p.is_alive()]
+    for p in killed:
+        p.kill()
+        p.join()
+    if killed or any(codes):
+        raise RuntimeError(
+            f"mesh {mesh_shape} over {backend}: rank exit codes {codes}"
+            + (f"; {len(killed)} killed" if killed else "")
+            + ("" if any(codes) else f" after {timeout} s"))
+    return [pickle.loads((out_dir / f"rank{rank}.pkl").read_bytes())
+            for rank in range(world_size)]
+
+
+def _mesh_rank(rank: int, world_size: int, init_file: str, backend: str,
+               device_type: str, mesh_shape: tuple[int, int], jobs,
+               out_dir: str, timeout: float) -> None:
+    """One rank of run_mesh_jobs (a spawned process)."""
+    torch.set_num_threads(1)
+    # the ranks share this host: gloo pairs them over the loopback device
+    # (the host name need not resolve where there is no network)
+    os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    cuda = device_type == "cuda"
+    if cuda:
+        torch.cuda.set_device(rank % torch.cuda.device_count())
+    dist.init_process_group(backend, init_method=f"file://{init_file}",
+                            rank=rank, world_size=world_size,
+                            timeout=datetime.timedelta(seconds=timeout))
+    mesh = meshlib.make_mesh(*mesh_shape, device_type=device_type)
+    calls = []
+
+    def counted(kind, fn):
+        def collective(x, mesh, *args):
+            calls.append((kind, *args, str(x.dtype), tuple(x.shape)))
+            return fn(x, mesh, *args)
+        return collective
+
+    shard_encode._all_reduce = counted("all_reduce", shard_encode._all_reduce)
+    shard_encode._all_gather = counted("all_gather", shard_encode._all_gather)
+    results = {}
+    for name, fn, args, kwargs in jobs:
+        _build.reset_launch_counts()
+        calls.clear()
+        t0 = time.perf_counter()
+        value = fn(*args, mesh=mesh, **kwargs)
+        if cuda:
+            torch.cuda.synchronize()
+        results[name] = dict(
+            value=_host(value), launches=dict(_build.LAUNCHES),
+            collectives=list(calls), coordinate=meshlib.coordinate(mesh),
+            seconds=time.perf_counter() - t0)
+    (pathlib.Path(out_dir) / f"rank{rank}.pkl").write_bytes(
+        pickle.dumps(results))
+    dist.destroy_process_group()
+
+
+def _host(x):
+    """A job's result with every tensor as a host array."""
+    if isinstance(x, torch.Tensor):
+        return x.cpu().numpy()
+    if isinstance(x, tuple) and hasattr(x, "_fields"):
+        return type(x)(*map(_host, x))
+    if isinstance(x, (list, tuple)):
+        return type(x)(map(_host, x))
+    return x
+
+
+def rank_byte_offsets(bit_lengths: np.ndarray, mesh) -> np.ndarray:
+    """shard_encode.stripe_byte_offsets of this rank's slice of every
+    stripe's bit lengths (a job)."""
+    part = bit_lengths[meshlib.row_slice(mesh, len(bit_lengths))]
+    return shard_encode.stripe_byte_offsets(torch.from_numpy(part), mesh)
+
+
+def rank_histograms(values: np.ndarray, live: np.ndarray, runs: np.ndarray,
+                    mesh):
+    """The global category and run histograms of every rank's slice of
+    (B, S) symbols (a job)."""
+    sl = meshlib.row_slice(mesh, len(values))
+    v, l, r = (torch.from_numpy(a[sl]).to(meshlib.device(mesh))
+               for a in (values, live, runs))
+    return (shard_encode.global_category_histogram(v, l, mesh),
+            shard_encode.global_run_histogram(r, l, mesh))
+
+
+def fail_on_rank(rank: int, mesh) -> None:
+    """Raise on ``rank`` while every other rank waits for it in an
+    all-reduce (a job: the call must end without waiting out its
+    timeout)."""
+    if dist.get_rank() == rank:
+        raise RuntimeError(f"rank {rank} fails")
+    shard_encode._all_reduce(torch.zeros(1), mesh, meshlib.STRIPE_AXIS)
+
+
+def value_error(fn, *args, mesh=None, **kwargs) -> str | None:
+    """The message of the ValueError fn(*args, mesh=mesh, **kwargs)
+    raises, or None (a job)."""
+    try:
+        fn(*args, mesh=mesh, **kwargs)
+    except ValueError as e:
+        return str(e)
+    return None
+
+
+def mesh_shapes(sizes, mesh) -> list:
+    """(n_data, n_stripe) of make_mesh(*size) on mesh's device type for
+    each size, or the ValueError's message (a job)."""
+    out = []
+    for size in sizes:
+        try:
+            out.append(meshlib.shape(meshlib.make_mesh(
+                *size, device_type=mesh.device_type)))
+        except ValueError as e:
+            out.append(str(e))
+    return out

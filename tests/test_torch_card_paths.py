@@ -1,5 +1,6 @@
-"""The color, recovery and rate-control paths of the port on the card,
-through kernels A-E, held to the port's CPU path.
+"""The color, recovery, rate-control and sharded paths of the port on the
+card, through kernels A-E, held to the port's CPU path or its unsharded
+card path.
 
 These need an NVIDIA GPU and skip without one; run them on the card with
 ``python -m pytest --noconftest tests/test_torch_card_paths.py -q`` (the
@@ -15,7 +16,10 @@ pixels are within 1 of it and equal to the host route's. Recovery and
 probes: a repair re-encodes stripes through kernels A and E and must give
 the card's from-scratch bytes (which kernel B wrote: A and B run one
 tile function); size probes equal len() of the card's containers and
-PSNR probes the PSNR of its encode and decode, exactly.
+PSNR probes the PSNR of its encode and decode, exactly. Sharding: at world
+size 1 over NCCL, and at world size 2 over gloo with both ranks on the
+one card, the sharded image, video and decode paths (parallel/) give the
+unsharded card path's bytes and pixels, through the kernels.
 """
 
 import dataclasses
@@ -28,6 +32,7 @@ from dct_tpu_torch import CodecConfig, testing
 from dct_tpu_torch import container as cont
 from dct_tpu_torch.models import codec, color, rate_control, recovery, video
 from dct_tpu_torch.ops import _build
+from dct_tpu_torch.parallel import shard_encode
 from dct_tpu_torch.utils import image_io
 
 
@@ -245,3 +250,108 @@ def test_video_size_probe_on_cuda_is_exact(cuda):
                                        device=cuda).encode(src)
             sizes = rate_control.video_container_sizes(src, cfg, ck, cuda)
             assert sizes.tolist() == [len(s) for s in streams]
+
+
+SHARD_CASES = {
+    "gray_static_q50": dict(quality=50, static_tables=True),
+    "gray_dynamic_adaptive_q50": dict(quality=50, adaptive=True,
+                                      coded_runs=True),
+    "gray_q90_v2": dict(quality=90, decode_index=True, dc_prediction=True),
+    "gray_n16_v2": dict(quality=90, block_size=16, decode_index=True),
+    "420_q90_v2": dict(quality=90, chroma="420", decode_index=True),
+    "444_q50": dict(quality=50, chroma="444"),
+}
+SHARD_VIDEO = {"dynamic_one_chunk": (dict(quality=50), None),
+               "dynamic_chunked": (dict(quality=50, adaptive=True), 2),
+               "static_420": (dict(quality=50, static_tables=True,
+                                   chroma="420"), None)}
+
+
+def _shard_src(rgb, cfg):
+    return rgb if cfg.chroma != "gray" else rgb[..., 0]
+
+
+@pytest.fixture(scope="module")
+def sharded_ranks(cuda, rgb, tmp_path_factory):
+    """{(backend, mesh shape): every rank's results} of the sharded paths
+    on the card: world size 1 over NCCL, and 2 over gloo, both ranks on
+    the one card (NCCL refuses two ranks on one GPU)."""
+    frames = np.stack([_rgb(image_io.synthetic_image(72, 136, "photo",
+                                                     seed=s))
+                       for s in range(3)])
+    jobs = []
+    for case, kw in SHARD_CASES.items():
+        cfg = CodecConfig(**kw)
+        src = _shard_src(rgb, cfg)
+        jobs += [(f"enc_{case}", shard_encode.encode_image_sharded,
+                  (src, cfg), {}),
+                 (f"dec_{case}", shard_encode.decode_image_sharded,
+                  (codec.encode(src, cfg, cuda),), {})]
+    for case, (kw, ck) in SHARD_VIDEO.items():
+        cfg = CodecConfig(**kw)
+        jobs.append((f"video_{case}", shard_encode.encode_video_sharded,
+                     (_shard_src(frames, cfg), cfg), dict(chunk_frames=ck)))
+    cfg = CodecConfig(quality=70, chroma="420")
+    jobs += [("size", rate_control.container_size, (rgb, cfg), {}),
+             ("psnr", rate_control.psnr_at_quality, (rgb, cfg), {})]
+    out = {}
+    for backend, shape in (("nccl", (1, 1)), ("gloo", (1, 2))):
+        out[backend, shape] = testing.run_mesh_jobs(
+            shape[0] * shape[1], shape, jobs,
+            tmp_path_factory.mktemp(backend), backend=backend,
+            device_type="cuda", timeout=600)
+    return out, frames
+
+
+SHARD_RUNS = (("nccl", (1, 1)), ("gloo", (1, 2)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("run", SHARD_RUNS, ids=("nccl_1", "gloo_2"))
+@pytest.mark.parametrize("case", sorted(SHARD_CASES))
+def test_sharded_image_on_cuda_equals_the_card(cuda, rgb, sharded_ranks,
+                                               run, case):
+    ranks, _ = sharded_ranks
+    cfg = CodecConfig(**SHARD_CASES[case])
+    src = _shard_src(rgb, cfg)
+    data = codec.encode(src, cfg, cuda)
+    rec = codec.decode(data, cuda)
+    for r in ranks[run]:
+        enc, dec = r[f"enc_{case}"], r[f"dec_{case}"]
+        assert enc["value"] == data
+        assert enc["launches"]["encode_stripes"] >= 1
+        np.testing.assert_array_equal(dec["value"], rec)
+        assert dec["launches"]["entropy_decode"] == (
+            0 if data[4] == 1 else len(cont.deserialize(data).planes))
+        assert dec["launches"]["decode_blocks"] == (
+            0 if cfg.n2 == 256 else len(cont.deserialize(data).planes))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("run", SHARD_RUNS, ids=("nccl_1", "gloo_2"))
+@pytest.mark.parametrize("case", sorted(SHARD_VIDEO))
+def test_sharded_video_on_cuda_equals_the_card(cuda, sharded_ranks, run,
+                                               case):
+    ranks, frames = sharded_ranks
+    kw, ck = SHARD_VIDEO[case]
+    cfg = CodecConfig(**kw)
+    want = video.VideoCodec(cfg, chunk_frames=ck, device=cuda).encode(
+        _shard_src(frames, cfg))
+    for r in ranks[run]:
+        assert r[f"video_{case}"]["value"] == want
+        launches = r[f"video_{case}"]["launches"]
+        assert launches["encode_stripes"] + launches["pack_chunks"] >= 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("run", SHARD_RUNS, ids=("nccl_1", "gloo_2"))
+def test_sharded_probes_on_cuda_equal_the_card(cuda, rgb, sharded_ranks,
+                                               run):
+    ranks, _ = sharded_ranks
+    cfg = CodecConfig(quality=70, chroma="420")
+    size = rate_control.container_size(rgb, cfg, cuda)
+    psnr = rate_control.psnr_at_quality(rgb, cfg, cuda)
+    for r in ranks[run]:
+        assert r["size"]["value"] == size
+        assert r["psnr"]["value"] == psnr
+        assert r["psnr"]["launches"]["decode_blocks"] == 3

@@ -39,6 +39,9 @@ PORT_MODULES = (
     "dct_tpu_torch.models.color",
     "dct_tpu_torch.models.recovery",
     "dct_tpu_torch.models.rate_control",
+    "dct_tpu_torch.parallel",
+    "dct_tpu_torch.parallel.mesh",
+    "dct_tpu_torch.parallel.shard_encode",
     "dct_tpu_torch.utils.image_io",
     "dct_tpu_torch.testing",
 )
