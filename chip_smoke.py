@@ -140,8 +140,25 @@ to int64 products at n2 4, 16, 64 and 256, then:
      probes again; every rank's bytes and values equal phase 16's, and
      its launches join the counts. A rank that fails, or hangs past its
      timeout, fails the run.
+ 18. the CLI on the card: dct_tpu_torch.cli.main(argv) in this process,
+     with no --device (the card): the four real PGMs of tests/data
+     (hopper 600x512, dem 344x403, mri 256x256, topobathy 91x120)
+     encoded at static q50 (B), dynamic q50 (A then B) and q90 with
+     --decode-index on, each container equal to the same command's with
+     --device cpu (ties excepted), decode's pixels equal to the card
+     library's decode (v2 through D, then C) and within 1 of the CPU's,
+     roundtrip's PSNR that of that decode, and the library's encode and
+     decode timed; hopper's q90 container with one stripe's bytes
+     flipped: verify reports exactly that stripe (rc 1), repair writes
+     the from-scratch bytes, info parses them; encode-video of 8 frames
+     of 1080p (seeds 0..7, q50, a .npy) equal to VideoCodec's stream,
+     decode-video equal to its decode, and --max-total-bytes between the
+     q50 and q60 rungs choosing q50's stream; bench --size 1920x1088
+     --frames 8 beside phase 5's encode_step; then python -m
+     dct_tpu_torch.cli encode in a fresh process, equal to this one's.
+     Kernels A-D must each launch through the CLI.
 
-Phases 4, 6, 10, 11 and 13-17 are the main paths: each zeroes the
+Phases 4, 6, 10, 11 and 13-18 are the main paths: each zeroes the
 kernels' launch counters just before it and reads them just after, and
 the kernel table's launch counts are their sums. A and C may differ from their plain versions
 only at ties: at most 1 apart, where the float64 value lies within 1e-6
@@ -1123,6 +1140,185 @@ def phase_two_ranks(kept, main_runs) -> None:
             "start-up")
 
 
+def run_cli(argv) -> tuple[int, str]:
+    """dct_tpu_torch.cli.main(argv) in this process -> (exit code, what it
+    printed); the printed lines are logged."""
+    import contextlib
+    import io
+
+    from dct_tpu_torch import cli
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main([str(a) for a in argv])
+    out = buf.getvalue()
+    for line in out.splitlines()[:3]:
+        log(f"  cli {argv[0]}: {line}")
+    return rc, out
+
+
+def phase_cli(dev, vframes, main_runs, step_ms: float) -> None:
+    """Phase 18: python -m dct_tpu_torch.cli's subcommands in this process
+    (no --device: the card), counted: the four real PGMs of tests/data
+    encoded at static q50, dynamic q50 and q90 with the index, each
+    container equal to --device cpu's (ties excepted), decoded to the card
+    library's pixels (within 1 of the CPU's), roundtrip's PSNR that of
+    the decode; verify and repair of one flipped stripe; encode-video and
+    decode-video of 8 frames of 1080p against VideoCodec, and
+    --max-total-bytes between two rungs; bench beside phase 5's
+    encode_step; then encode in a fresh process (python -m)."""
+    import os
+    import pathlib
+    import tempfile
+
+    import torch
+    from dct_tpu_torch import CodecConfig
+    from dct_tpu_torch import container as cont
+    from dct_tpu_torch.models import codec, rate_control, video
+    from dct_tpu_torch.utils import image_io, metrics
+
+    t_phase = time.perf_counter()
+    repo = pathlib.Path(__file__).resolve().parent
+    pgms = sorted((repo / "tests" / "data").glob("*.pgm"))
+    check(len(pgms) == 4, f"expected the 4 PGMs of tests/data, got {pgms}")
+    n_before = len(main_runs)
+    configs = {
+        "static q50": (CodecConfig(quality=50, static_tables=True),
+                       ["--quality", "50", "--static-tables"]),
+        "dynamic q50": (CodecConfig(quality=50), ["--quality", "50"]),
+        "q90 index": (CodecConfig(quality=90, decode_index=True),
+                      ["--quality", "90", "--decode-index", "on"]),
+    }
+    with tempfile.TemporaryDirectory() as tmp:
+        d = pathlib.Path(tmp)
+        kept = {}
+        for pgm in pgms:
+            img = image_io.read_image(pgm)
+            for name, (cfg, flags) in configs.items():
+                tag = f"cli {pgm.name} {name}"
+                out, cpu_out = d / "card.tpdc", d / "cpu.tpdc"
+                (rc, _), enc = counted(lambda: run_cli(
+                    ["encode", pgm, out] + flags), main_runs)
+                check(rc == 0, f"{tag}: encode rc {rc}")
+                check(run_cli(["encode", pgm, cpu_out, "--device", "cpu"]
+                              + flags)[0] == 0, f"{tag}: CPU encode failed")
+                data = out.read_bytes()
+                same_or_ties(tag, data, cpu_out.read_bytes(), img)
+                rec_path = d / "rec.pgm"
+                (rc, _), dec = counted(lambda: run_cli(
+                    ["decode", out, rec_path]), main_runs)
+                check(rc == 0, f"{tag}: decode rc {rc}")
+                rec = image_io.read_image(rec_path)
+                lib = codec.decode(data, dev)
+                err = int(np.abs(rec.astype(int)
+                                 - codec.decode(data, "cpu")).max())
+                check(np.array_equal(rec, lib),
+                      f"{tag}: decode differs from the library's")
+                check(err <= 1, f"{tag}: decode {err} from the CPU's")
+                (rc, text), rt = counted(lambda: run_cli(
+                    ["roundtrip", pgm] + flags), main_runs)
+                psnr = metrics.psnr(lib, img)
+                check(rc == 0 and text.startswith(f"PSNR {psnr:.2f} dB"),
+                      f"{tag}: roundtrip does not print {psnr:.2f} dB")
+                enc_ms = host_ms(lambda: codec.encode(img, cfg, dev), 5)
+                dec_ms = host_ms(lambda: codec.decode(data, dev), 5)
+                log(f"{tag}: {img.shape[1]}x{img.shape[0]}, {len(data)} B "
+                    f"v{data[4]}, encode launches {enc}, decode {dec}, "
+                    f"roundtrip {rt}; decode max |diff| vs CPU {err}; "
+                    f"library encode {enc_ms:.3f} ms, decode {dec_ms:.3f} "
+                    "ms (host clock)")
+                if pgm.name == "hopper.pgm" and name == "q90 index":
+                    kept["hopper"] = (pgm, data)
+
+        # verify and repair: one stripe's first 8 bytes flipped
+        pgm, data = kept["hopper"]
+        hit = 40
+        c = cont.deserialize(data)
+        s = bytearray(c.planes[0].stripes[hit])
+        for i in range(8):
+            s[i] ^= 0xA5
+        c.planes[0].stripes[hit] = bytes(s)
+        bad, fixed = d / "bad.tpdc", d / "fixed.tpdc"
+        bad.write_bytes(cont.serialize(c))
+        rc, text = run_cli(["verify", bad])
+        check(rc == 1 and f"CORRUPT stripes [{hit}]" in text,
+              f"verify did not report exactly stripe {hit}")
+        (rc, _), rep = counted(lambda: run_cli(
+            ["repair", bad, pgm, "-o", fixed]), main_runs)
+        check(rc == 0 and fixed.read_bytes() == data,
+              "repair differs from the from-scratch bytes")
+        rc, text = run_cli(["info", fixed])
+        check(rc == 0 and json.loads(text)["planes"][0]["stripes"]
+              == len(c.planes[0].stripes), "info of the repair failed")
+        log(f"cli verify/repair: stripe {hit} flipped, reported, repaired "
+            f"to the from-scratch bytes (launches {rep}); info parses it")
+
+        # video: 8 frames of 1080p (seeds 0..7), q50
+        stack = vframes[:8]
+        npy, tpdv, back = d / "v.npy", d / "v.tpdv", d / "back.npy"
+        np.save(npy, stack)
+        cfg = CodecConfig(quality=50)
+        (rc, _), venc = counted(lambda: run_cli(
+            ["encode-video", npy, tpdv, "--quality", "50"]), main_runs)
+        want = cont.serialize_streams(video.VideoCodec(cfg, device=dev)
+                                      .encode(stack))
+        check(rc == 0 and tpdv.read_bytes() == want,
+              "encode-video differs from VideoCodec")
+        (rc, _), vdec = counted(lambda: run_cli(
+            ["decode-video", tpdv, back]), main_runs)
+        check(rc == 0 and np.array_equal(np.load(back), video.VideoCodec(
+            cfg, device=dev).decode(cont.deserialize_streams(want))),
+            "decode-video differs from VideoCodec")
+        wrapper = 8 + 4 * len(stack)
+        s50, s60 = (int(rate_control.video_container_sizes(
+            stack, cfg.replace(quality=q), device=dev).sum()) for q in (50, 60))
+        budget = wrapper + (s50 + s60) // 2
+        capped = d / "capped.tpdv"
+        (rc, text), vrc = counted(lambda: run_cli(
+            ["encode-video", npy, capped, "--max-total-bytes", budget]),
+            main_runs)
+        check(rc == 0 and "rate control: quality 50" in text
+              and capped.read_bytes() == want,
+              "encode-video --max-total-bytes did not choose q50's stream")
+        log(f"cli video 8 x 1080p q50: {len(want)} B equal to VideoCodec's "
+            f"(launches {venc}), decode-video equal ({vdec}); budget {budget} "
+            f"B between q50 {s50 + wrapper} and q60 {s60 + wrapper}: q50 "
+            f"({vrc})")
+
+        # bench, beside phase 5's encode_step
+        (rc, text), bch = counted(lambda: run_cli(
+            ["bench", "--size", "1920x1088", "--frames", "8"]), main_runs)
+        rate = float(text.split(" Mpix/s")[0])
+        check(rc == 0 and np.isfinite(rate) and rate > 0,
+              f"bench printed no rate: {text!r}")
+        log(f"cli bench 8 x 1920x1088 static q50: {rate:.1f} Mpix/s; "
+            f"phase 5 encode_step {FRAMES * H * W / step_ms / 1e3:.1f} "
+            f"Mpix/s ({step_ms:.4f} ms); launches {bch}")
+
+        # a fresh process: python -m dct_tpu_torch.cli
+        mri = repo / "tests" / "data" / "mri.pgm"
+        sub_out, in_out = d / "sub.tpdc", d / "in.tpdc"
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "dct_tpu_torch.cli", "encode", str(mri),
+             str(sub_out), "--static-tables"], cwd=repo, capture_output=True,
+            text=True, timeout=300,
+            env=dict(os.environ, PYTHONPATH=str(repo)))
+        check(proc.returncode == 0, f"python -m dct_tpu_torch.cli encode: "
+              f"rc {proc.returncode}: {proc.stderr[-2000:]}")
+        run_cli(["encode", mri, in_out, "--static-tables"])
+        check(sub_out.read_bytes() == in_out.read_bytes(),
+              "python -m dct_tpu_torch.cli encode differs in a fresh process")
+        log(f"cli in a fresh process: {proc.stdout.strip()} "
+            f"({time.perf_counter() - t0:.1f} s with start-up)")
+    torch.cuda.synchronize()
+    for k in ("encode_blocks", "encode_stripes", "decode_blocks",
+              "entropy_decode"):
+        check(any(run[k] for run in main_runs[n_before:]),
+              f"{k} not launched through the CLI")
+    log(f"phase 18 (the CLI): {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     import torch
 
@@ -1923,6 +2119,9 @@ def main() -> int:
               "entropy_decode", "pack_chunks"):
         check(any(run[k] for run in main_runs[n_unsharded:]),
               f"{k} not launched on the sharded paths")
+
+    # ---- 18. the CLI on the card, counted -------------------------------
+    phase_cli(dev, vframes, main_runs, step_ms)
 
     sources = {
         "encode_blocks": ("dct_tpu_torch/csrc/transform.cu",

@@ -19,10 +19,14 @@ tile function); size probes equal len() of the card's containers and
 PSNR probes the PSNR of its encode and decode, exactly. Sharding: at world
 size 1 over NCCL, and at world size 2 over gloo with both ranks on the
 one card, the sharded image, video and decode paths (parallel/) give the
-unsharded card path's bytes and pixels, through the kernels.
+unsharded card path's bytes and pixels, through the kernels. The CLI:
+the four real PGMs of tests/data encoded and decoded by
+``python -m dct_tpu_torch.cli`` (in this process) on the card, equal to
+the CPU path (ties excepted) and to the host route.
 """
 
 import dataclasses
+import pathlib
 
 import numpy as np
 import pytest
@@ -355,3 +359,40 @@ def test_sharded_probes_on_cuda_equal_the_card(cuda, rgb, sharded_ranks,
         assert r["size"]["value"] == size
         assert r["psnr"]["value"] == psnr
         assert r["psnr"]["launches"]["decode_blocks"] == 3
+
+
+PGMS = ("dem.pgm", "hopper.pgm", "mri.pgm", "topobathy.pgm")
+PGM_FLAGS = {"q50": ["--quality", "50"],
+             "q90_v2": ["--quality", "90", "--decode-index", "on"]}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("flags", sorted(PGM_FLAGS))
+@pytest.mark.parametrize("name", PGMS)
+def test_real_images_through_the_cli_on_cuda(cuda, tmp_path, name, flags):
+    """The four real PGMs of tests/data encoded and decoded by
+    ``python -m dct_tpu_torch.cli`` on the card (no --device): the
+    containers equal the CPU path's (ties excepted), and the decoded
+    pixels equal the host route's (host entropy decode, then kernel C)."""
+    from dct_tpu_torch import cli
+
+    pgm = pathlib.Path(__file__).resolve().parent / "data" / name
+    img = image_io.read_image(pgm)
+    out, rec = tmp_path / "a.tpdc", tmp_path / "a.pgm"
+    argv = ["encode", str(pgm), str(out)] + PGM_FLAGS[flags]
+    rc, enc = _counted(lambda: cli.main(argv))
+    assert rc == 0 and enc["encode_stripes"] == 1
+    assert enc["encode_blocks"] == 1  # the analyze pass (dynamic tables)
+    data = out.read_bytes()
+    cpu = codec.encode(img, cont.deserialize(data).config, "cpu")
+    if data != cpu:
+        assert testing.encode_mismatches(data, cpu, img)[1] == 0
+    rc, dec = _counted(lambda: cli.main(["decode", str(out), str(rec)]))
+    assert rc == 0 and dec["decode_blocks"] == 1
+    assert dec["entropy_decode"] == (1 if data[4] == 2 else 0)
+    assert (data[4] == 2) == (flags == "q90_v2")
+    c = cont.deserialize(data)
+    host = codec.decode_plane_device(
+        dataclasses.replace(c.planes[0], block_bits=None), c.config, cuda)
+    np.testing.assert_array_equal(image_io.read_image(rec),
+                                  host.cpu().numpy())

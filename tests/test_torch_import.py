@@ -11,6 +11,7 @@ import re
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -43,6 +44,9 @@ PORT_MODULES = (
     "dct_tpu_torch.parallel.mesh",
     "dct_tpu_torch.parallel.shard_encode",
     "dct_tpu_torch.utils.image_io",
+    "dct_tpu_torch.utils.metrics",
+    "dct_tpu_torch.utils.tracing",
+    "dct_tpu_torch.cli",
     "dct_tpu_torch.testing",
 )
 
@@ -130,6 +134,40 @@ def test_import_builds_nothing():
         "print(len(_build._libs), sum(_build.LAUNCHES.values()))"
     )
     assert out.split() == ["0", "0"]
+
+
+@pytest.mark.parametrize("argv", (["--help"], ["info", "{data}"],
+                                  ["info", "{video}"]),
+                         ids=("help", "info", "info_video"))
+def test_cli_module_loads_no_jax_and_builds_nothing(tmp_path, argv):
+    """``python -m dct_tpu_torch.cli`` (run as __main__ by runpy, as -m
+    does) with --help or info: exit code 0, nothing of the JAX package,
+    jax or ml_dtypes loaded, no kernel built or launched."""
+    from dct_tpu_torch import container as cont
+    from dct_tpu_torch.models import codec
+
+    img = np.arange(24 * 40, dtype=np.uint8).reshape(24, 40)
+    data = codec.encode(img, device="cpu")
+    files = {"data": tmp_path / "a.tpdc", "video": tmp_path / "a.tpdv"}
+    files["data"].write_bytes(data)
+    files["video"].write_bytes(cont.serialize_streams([data, data]))
+    argv = [a.format(**files) for a in argv]
+    out = _run(
+        "import json, runpy, sys\n" + _BANNED +
+        f"sys.argv = ['dct_tpu_torch.cli'] + {argv!r}\n"
+        "try:\n"
+        "    runpy.run_module('dct_tpu_torch.cli', run_name='__main__',"
+        " alter_sys=True)\n"
+        "except SystemExit as e:\n"
+        "    rc = e.code\n"
+        "from dct_tpu_torch.ops import _build\n"
+        "print(json.dumps([rc, banned(), len(_build._libs),"
+        " sum(_build.LAUNCHES.values())]))\n"
+    )
+    rc, loaded, built, launched = json.loads(out.splitlines()[-1])
+    assert (rc, loaded, built, launched) == (0, [], 0, 0)
+    assert ("usage: dct-tpu-torch" in out if argv == ["--help"]
+            else '"width": 40' in out)
 
 
 def test_import_leaves_backend_switches_alone():
