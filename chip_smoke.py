@@ -54,9 +54,12 @@ to int64 products at n2 4, 16, 64 and 256, then:
      staged encoder (kernels A and E);
   8. times of D and its plain version at the batch, its bound, and the
      1080p q90 decode on both routes, stage by stage (D's operands as the
-     decode path builds them: the stripe starts and tables on the host, one
-     upload; D scans the index into block starts itself), D alone on the
-     1080p frame among them (the latency case);
+     decode path builds them: the stripe starts, the tables and the zeros
+     of D's status on the host, one upload; D scans the index into block
+     starts itself), D alone on the 1080p frame among them (the latency
+     case); D at the batch with its status and without, each also as the
+     card's work alone (a spin kernel queued first, so the host's launch
+     cost stays outside the events) beside the host's enqueue time a call;
   9. kernel E (chunk packer) against its plain version, bit-exact (units
      and stripe bits), on the chunks of the 8-frame batch (1,088 stripes,
      50 M chunks) from kernel A's coefficients at static q50 and at
@@ -157,8 +160,22 @@ to int64 products at n2 4, 16, 64 and 256, then:
      --frames 8 beside phase 5's encode_step; then python -m
      dct_tpu_torch.cli encode in a fresh process, equal to this one's.
      Kernels A-D must each launch through the CLI.
+ 19. the examples and damaged containers: examples/torch_demo.py and
+     examples/torch_serving.py in this process with their default device
+     (the card), counted, every line they print equal to their --device
+     cpu run's (the backend and ingest's Mpix/s aside), kernels A-E all
+     launched; then damaged v2 containers (testing.damaged_containers, 40
+     a case) of 48x72 "photo" images, gray and 4:2:0, at seven configs
+     (q50; q50 coded runs; q80 direct; q50 "none"; q30 16x16; q90 with
+     the index; q50 adaptive + DC prediction + coded runs with the
+     index): on each v2 plane kernel D's coefficients and per-stripe
+     status equal its plain version's bit for bit, and each container's
+     fate on the card (pixels, or ValueError) equals its --device cpu
+     fate. codec.HOST_REDECODES (planes the host decoder decoded again
+     because D flagged them) must be 0 over phases 4-18 and at least 1
+     here; the counts (containers, flagged, rejected) are printed.
 
-Phases 4, 6, 10, 11 and 13-18 are the main paths: each zeroes the
+Phases 4, 6, 10, 11 and 13-19 are the main paths: each zeroes the
 kernels' launch counters just before it and reads them just after, and
 the kernel table's launch counts are their sums. A and C may differ from their plain versions
 only at ties: at most 1 apart, where the float64 value lies within 1e-6
@@ -218,6 +235,29 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, iters: int, warmup: int = 2) -> float:
+    """Mean milliseconds per call of the card's work alone: a spin kernel
+    queued first keeps the card busy while the host enqueues the calls,
+    so the events bracket their device time, not the host's launch cost.
+    -> (device ms, host ms to enqueue one call)."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(50_000_000)  # ~25 ms of cycles, longer than the enqueue
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    host = (time.perf_counter() - t0) * 1e3 / iters
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters, host
 
 
 def host_ms(fn, iters: int) -> float:
@@ -370,19 +410,22 @@ def check_d(name, stripes, bits, table, run_table, mode, n2, dev):
     from dct_tpu_torch.ops import entropy_decode_cuda
 
     operands = codec.indexed_operands(stripes, bits, table, run_table,
-                                      mode, n2, dev)
-    got = entropy_decode_cuda.decode_blocks_kernel(**operands)
-    want = ed.decode_blocks_plain(**operands)
+                                      mode, n2, dev, status=True)
+    got, status = entropy_decode_cuda.decode_blocks_kernel(**operands)
+    want, want_status = ed.decode_blocks_plain(**dict(
+        operands, status=torch.zeros_like(operands["status"])))
     host = native.unpack_stripes(stripes, len(bits) // len(stripes), n2,
                                  mode, table, codec.DIRECT_VMIN,
                                  run_table=run_table)
     err = int((got.to(torch.int32) - want.to(torch.int32)).abs().max())
-    same = torch.equal(got, want)
+    same = torch.equal(got, want) and torch.equal(status, want_status)
     same_host = np.array_equal(got.cpu().numpy(), host)
+    flagged = int(status.count_nonzero())
     log(f"D {name}: {len(bits)} blocks, {len(stripes)} stripes, "
-        f"{sum(map(len, stripes))} B; equal to plain: {same}, to the "
-        f"host decoder: {same_host}")
-    check(same and same_host, f"D {name} differs")
+        f"{sum(map(len, stripes))} B; coefficients and status equal to "
+        f"plain: {same}, to the host decoder: {same_host}; stripes flagged "
+        f"{flagged}")
+    check(same and same_host and flagged == 0, f"D {name} differs")
     return operands, err
 
 
@@ -1319,6 +1362,143 @@ def phase_cli(dev, vframes, main_runs, step_ms: float) -> None:
     log(f"phase 18 (the CLI): {time.perf_counter() - t_phase:.1f} s")
 
 
+def example_lines(path, argv) -> tuple[list[str], list[str]]:
+    """An example's main(argv) in this process -> (every line it printed,
+    the lines held to the other device's run: the backend line and the
+    ingest rate left out)."""
+    import contextlib
+    import io
+    import runpy
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = runpy.run_path(str(path))["main"](argv)
+    check(rc == 0, f"{path.name} {argv}: rc {rc}")
+    lines = buf.getvalue().splitlines()
+    return lines, [re.sub(r"\s*[\d.]+ Mpix/s wall$", " Mpix/s wall", line)
+                   for line in lines if not line.startswith("backend:")]
+
+
+# Phase 19's damaged containers: (config, gray and 4:2:0); the 4:2:0
+# image is the gray one and two shifted copies (rgb_of's construction).
+DAMAGE_CONFIGS = (
+    dict(quality=50), dict(quality=50, coded_runs=True),
+    dict(quality=80, huffman_mode="direct"), dict(quality=50, use_huffman=False),
+    dict(quality=30, block_size=16), dict(quality=90, decode_index=True),
+    dict(quality=50, adaptive=True, dc_prediction=True, coded_runs=True,
+         decode_index=True))
+DAMAGE_MUTATIONS = 40
+
+
+def phase_examples(dev, main_runs) -> None:
+    """Phase 19: the port's examples on the card against their --device
+    cpu runs, counted; then damaged v2 containers: kernel D's
+    coefficients and status against its plain version on every indexed
+    plane, and each container's fate on the card against the CPU's."""
+    import dataclasses
+    import pathlib
+
+    import torch
+    from dct_tpu_torch import CodecConfig, testing
+    from dct_tpu_torch import container as cont
+    from dct_tpu_torch.models import codec
+    from dct_tpu_torch.ops import entropy_decode as ed
+    from dct_tpu_torch.ops import entropy_decode_cuda
+    from dct_tpu_torch.ops import huffman as hf
+    from dct_tpu_torch.utils import image_io
+
+    t_phase = time.perf_counter()
+    repo = pathlib.Path(__file__).resolve().parent
+    n_before = len(main_runs)
+    for name in ("torch_demo.py", "torch_serving.py"):
+        path = repo / "examples" / name
+        (lines, card), counts = counted(lambda: example_lines(path, []),
+                                        main_runs)
+        _, cpu = example_lines(path, ["--device", "cpu"])
+        for line in lines:
+            log(f"  {name}: {line}")
+        log(f"{name} on the card: launches {counts}; every line equal to "
+            f"--device cpu's: {card == cpu}")
+        check(card == cpu, f"{name} prints other numbers on the card than "
+              f"on the CPU: {card} != {cpu}")
+    for k in ("encode_blocks", "encode_stripes", "decode_blocks",
+              "entropy_decode", "pack_chunks"):
+        check(any(run[k] for run in main_runs[n_before:]),
+              f"{k} not launched by the examples")
+
+    n = {"containers": 0, "v2 planes": 0, "flagged": 0, "rejected": 0}
+    redecodes = codec.HOST_REDECODES["planes"]
+    for ci, kw in enumerate(DAMAGE_CONFIGS):
+        rng = np.random.default_rng(ci)
+        gray = image_io.synthetic_image(48, 72, "photo", seed=ci)
+        for chroma, img in (("gray", gray), ("420", rgb_of(gray))):
+            cfg = CodecConfig(**kw, **({} if chroma == "gray"
+                                       else {"chroma": chroma}))
+            data = codec.encode(img, cfg, dev)
+            for m in testing.damaged_containers(data, rng, DAMAGE_MUTATIONS):
+                n["containers"] += 1
+                try:
+                    c = cont.deserialize(m)
+                    planes = [p for p in c.planes if p.block_bits is not None]
+                except ValueError:
+                    planes = []
+                flagged = False
+                for p in planes:
+                    mode = (c.config.huffman_mode if c.config.use_huffman
+                            else "none")
+                    try:
+                        table = (hf.CanonicalTable(p.table_lengths)
+                                 if mode != "none" else None)
+                        runs = (hf.CanonicalTable(p.run_table_lengths)
+                                if c.config.coded_runs else None)
+                    except ValueError:
+                        continue
+                    if not codec.indexed_decode_ok(p, c.config, table, runs):
+                        continue
+                    n["v2 planes"] += 1
+                    args = (p.stripes, p.block_bits, table, runs, mode,
+                            c.config.n2)
+                    got = entropy_decode_cuda.decode_blocks_kernel(
+                        **codec.indexed_operands(*args, dev, status=True))
+                    want = ed.decode_blocks_plain(
+                        **codec.indexed_operands(*args, "cpu", status=True))
+                    check(all(torch.equal(g.cpu(), w)
+                              for g, w in zip(got, want)),
+                          f"D differs from its plain version on damaged "
+                          f"container {n['containers']} ({ci}, {chroma})")
+                    flagged |= bool(want[1].any())
+                n["flagged"] += flagged
+                card = testing.decode_fate(lambda: codec.decode(m, dev))
+                cpu = testing.decode_fate(lambda: codec.decode(m, "cpu"))
+                what = f"damaged container {n['containers']} ({ci}, {chroma})"
+                check(card[0] == cpu[0],
+                      f"{what}: card {card[0]}, cpu {cpu[0]}: {card[1]!s:.200}"
+                      f" / {cpu[1]!s:.200}")
+                if card[0] != "ok":
+                    n["rejected"] += 1
+                    continue
+                # the card's pixels are its host route's (the host
+                # decoder's coefficients, then kernel C) exactly, and the
+                # CPU's within 1 (decode ties)
+                v1 = cont.deserialize(m)
+                v1 = dataclasses.replace(
+                    v1, config=v1.config.replace(decode_index=False),
+                    planes=[dataclasses.replace(p, block_bits=None)
+                            for p in v1.planes])
+                host = codec.decode(cont.serialize(v1), dev)
+                err = int(np.abs(card[1].astype(int) - cpu[1]).max())
+                check(np.array_equal(card[1], host) and err <= 1,
+                      f"{what}: pixels differ from the card's host route or "
+                      f"by {err} from the CPU's")
+    redecodes = codec.HOST_REDECODES["planes"] - redecodes
+    log(f"damaged containers: {n['containers']} containers, {n['v2 planes']} "
+        f"indexed planes, {n['flagged']} flagged, {n['rejected']} rejected; "
+        f"planes decoded again on the host {redecodes} (card and CPU runs)")
+    check(redecodes >= 1, "no flagged plane went to the host decoder")
+    log(f"phase 19 (examples, damaged containers): "
+        f"{time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     import torch
 
@@ -1399,6 +1579,7 @@ def main() -> int:
     frame = image_io.synthetic_image(1080, 1920, "photo", seed=7)
 
     # ---- 4. the main path, counted -------------------------------------
+    codec.reset_host_redecodes()
     _build.reset_launch_counts()
     containers, recs = {}, {}
     for name, cfg in (("static", static), ("dynamic", dynamic)):
@@ -1719,13 +1900,23 @@ def main() -> int:
 
     # ---- 8. times of the indexed decode ---------------------------------
     ops_d = d_operands["static q90"][0]
+    # with the status, as the decode path calls it (its zeros uploaded with
+    # the operands); without it, the coefficients alone
+    ops_d_bare = {k: v for k, v in ops_d.items() if k != "status"}
     times["entropy_decode"] = (
-        cuda_ms(lambda: entropy_decode_cuda.decode_blocks_kernel(**ops_d),
-                20),
+        cuda_ms(lambda: entropy_decode_cuda.decode_blocks_kernel(**ops_d), 20),
         cuda_ms(lambda: ed.decode_blocks_plain(**ops_d), 3))
-    log(f"time entropy_decode: kernel {times['entropy_decode'][0]:.4f} ms, "
-        f"plain {times['entropy_decode'][1]:.4f} ms (8 x {H}x{W}, static "
+    d_bare_ms = cuda_ms(lambda: entropy_decode_cuda.decode_blocks_kernel(
+        **ops_d_bare), 20)
+    log(f"time entropy_decode: kernel {times['entropy_decode'][0]:.4f} ms "
+        f"with the status, {d_bare_ms:.4f} ms without; plain "
+        f"{times['entropy_decode'][1]:.4f} ms (8 x {H}x{W}, static "
         f"q90, {ops_d['block_bits'].numel()} blocks)")
+    for name, ops in (("with the status", ops_d), ("without", ops_d_bare)):
+        dev_ms, enq_ms = device_ms(
+            lambda: entropy_decode_cuda.decode_blocks_kernel(**ops), 50)
+        log(f"time entropy_decode {name}, the card's work alone: "
+            f"{dev_ms:.4f} ms; host enqueue {enq_ms:.4f} ms a call")
     routes = {
         "decode": host_ms(lambda: gpu90.decode(data90), 10),
         "decode_to_device": host_ms(lambda: (gpu90.decode_to_device(data90),
@@ -1740,8 +1931,8 @@ def main() -> int:
     p90 = c90.planes[0]
     table90 = codec.hf.CanonicalTable(p90.table_lengths)
     ops90 = codec.indexed_operands(p90.stripes, p90.block_bits, table90,
-                                     None, "category", 64, dev)
-    zz90 = entropy_decode_cuda.decode_blocks_kernel(**ops90)
+                                     None, "category", 64, dev, status=True)
+    zz90, _ = entropy_decode_cuda.decode_blocks_kernel(**ops90)
     zz90_h = testing.coefficients(data90)
     ops_q90 = tables.build(q90, device=dev)
     stages90 = {
@@ -1752,9 +1943,9 @@ def main() -> int:
         "operands (stripe starts, tables, upload)": host_ms(
             lambda: (codec.indexed_operands(
                 p90.stripes, p90.block_bits, table90, None, "category", 64,
-                dev), torch.cuda.synchronize()), 10),
-        "kernel D": cuda_ms(lambda: entropy_decode_cuda.decode_blocks_kernel(
-            **ops90), 20),
+                dev, status=True), torch.cuda.synchronize()), 10),
+        "kernel D (with the status)": cuda_ms(
+            lambda: entropy_decode_cuda.decode_blocks_kernel(**ops90), 20),
         "kernel C": cuda_ms(lambda: transform_cuda.decode_blocks_kernel(
             zz90, q90, ops_q90), 20),
         "download pixels": host_ms(lambda: rec90_d.cpu(), 10),
@@ -1971,11 +2162,11 @@ def main() -> int:
                 [s for p in pv for s in p.stripes],
                 np.concatenate([p.block_bits for p in pv]),
                 codec.hf.CanonicalTable(pv[0].table_lengths), None,
-                "category", 64, dev)
+                "category", 64, dev, status=True)
             d_stack_ms = cuda_ms(
                 lambda: entropy_decode_cuda.decode_blocks_kernel(**ops_v90), 10)
             log(f"time entropy_decode {name} {VIDEO_FRAMES}-frame stack: "
-                f"kernel {d_stack_ms:.4f} ms "
+                f"kernel {d_stack_ms:.4f} ms with the status "
                 f"({ops_v90['block_bits'].numel()} blocks, "
                 f"{ops_v90['payload'].numel()} B)")
             del ops_v90
@@ -2123,6 +2314,12 @@ def main() -> int:
     # ---- 18. the CLI on the card, counted -------------------------------
     phase_cli(dev, vframes, main_runs, step_ms)
 
+    # ---- 19. the examples and damaged containers, counted --------------
+    log(f"host re-decodes over phases 4-18: {codec.HOST_REDECODES['planes']}")
+    check(codec.HOST_REDECODES["planes"] == 0,
+          "a clean container of phases 4-18 went to the host decoder")
+    phase_examples(dev, main_runs)
+
     sources = {
         "encode_blocks": ("dct_tpu_torch/csrc/transform.cu",
                           "dct_tpu/ops/transform_pallas.py:227"),
@@ -2149,7 +2346,8 @@ def main() -> int:
             a_b_ops(nb, 64), INT8_OPS),
         "decode_blocks": bound_ms(nb * 64 * 2 + nb * 64 + op_bytes,
                                   mm_flops, F32_FLOPS),
-        # payload, index, stripe starts, tables and coefficients, once each
+        # payload, index, stripe starts, tables, status and coefficients,
+        # once each
         "entropy_decode": bound_ms(
             sum(t.numel() * t.element_size() for t in ops_d.values()
                 if isinstance(t, torch.Tensor))

@@ -72,13 +72,15 @@ DCT_EXPORT int dct_encode_stripes(const void* px, const void* frag,
 // ops/entropy_decode.py) followed by n_vtab direct values. out: (n_blocks,
 // n2) int16 zigzag coefficients, n_blocks = n_stripes * bps, n2 4, 16, 64
 // or 256. mode: 0 category, 1 direct, 2 none; run_bits: the fixed run
-// field's width, 0 for coded runs.
+// field's width, 0 for coded runs. status: (n_blocks / bps,) int32
+// zeros, or NULL; the kernel ORs 1 into the entry of each stripe in which
+// a block contradicts its index.
 DCT_EXPORT int dct_entropy_decode(const void* payload, long long payload_bytes,
                                   const void* stripe_start,
                                   const void* block_bits, int bps,
                                   const void* tabs, int n_vtab, void* out,
                                   long long n_blocks, int n2, int mode,
-                                  int run_bits, void* stream);
+                                  int run_bits, void* status, void* stream);
 
 // Kernel E: chunk packing, one CTA per stripe. cv/cl: (n_stripes,
 // n_chunks) int32 chunk values and bit lengths (0..16; a value holds no bit

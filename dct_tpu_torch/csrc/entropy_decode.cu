@@ -57,6 +57,45 @@
 // longest block. A single 1080p frame (32,400 blocks, ~1,000 warps, under
 // 8 an SM) stays latency-bound whatever the stores do: there the number of
 // dependent steps a symbol takes is what counts, which the tables cut.
+//
+// Blocks that contradict their index (the optional status output). D
+// rejects nothing: it decodes each block for at most its indexed length.
+// The host decoder (csrc/host/bitpack.cpp), which the reference package
+// runs by default, walks a stripe from its first bit, block after block,
+// and fails with error 2 (a value or run code that matches nothing) or 3
+// (the walk ran past the stripe's bytes). A damaged stream can therefore
+// decode to pixels here and fail there, or decode to other pixels. So
+// each lane also says whether its block agrees with the index:
+//   (a) its loop ended because pos >= n2, not because its bits ran out;
+//   (b) it consumed exactly block_bits[b] bits (a 0-bit block never does;
+//       a valid block holds at least one symbol of at least one bit);
+//   (c) no value or run code went unmatched (canon_decode's length 0).
+// One __ballot_sync a warp, and one atomicOr a stripe from its first
+// disagreeing lane, set status[s] = 1. The caller hands in the status
+// zeroed: the decode path uploads its zeros with the other operands, so
+// no memset precedes the launch.
+// Why a stripe whose blocks all agree decodes on the host to the same
+// coefficients and no error. By induction over its blocks: the host's
+// block 0 starts at the stripe's first bit, as D's does. If the host's
+// block b starts where D's does, it reads the same bits with the same
+// rules: the tables are canonical codes of at most 16 bits that the
+// container's Kraft check made prefix-free, so the shortest matching
+// length that canon_decode takes is the one code the host's LUT or walk
+// finds, and it depends only on the bits it consumes; by (c) every code
+// matched, so the host raises no error 2 (category symbols are 0..15,
+// run symbols 0..64 and direct values inside int16 by tables_supported,
+// so its other error-2 checks cannot fire either); the extra bits, the
+// raw values and the fixed run field are read alike, and the expand is
+// the same `pos += run; write if pos < n2; ++pos`. By (a) both stop this
+// block at the same symbol, and by (b) block b + 1 starts, on both sides,
+// block_bits[b] bits later. Every bit consumed lies inside its block's
+// indexed range, so the bits past the stripe (the next stripe's bytes
+// here, zeros on the host) are never consumed. The blocks together
+// consume sum(block_bits) = stripe_bits bits, which container.deserialize
+// checks and which fit the stripe's ceil(stripe_bits / 8) bytes, so the
+// host's overrun check (error 3) cannot fire. A flagged stripe proves
+// nothing either way: the codec then decodes the plane on the host
+// (models/codec.py), whose coefficients or ValueError are the result.
 
 #include "bindings.h"
 
@@ -180,10 +219,13 @@ __device__ void build_lut(int* lut, int table, int mode, const int* s_tab,
 }
 
 // Lookahead decode of the next code: the symbol, and its length in *len.
+// A code that matches nothing (length 0) can only come from the search
+// past the tables, which sets *unmatched there: the hot path pays nothing.
 __device__ __forceinline__ int table_decode(const BitReader& r, const int* lut,
                                             int table, int mode,
                                             const int* s_tab, const int* vtab,
-                                            int n_vtab, int* len) {
+                                            int n_vtab, int* len,
+                                            bool* unmatched) {
   const int e = lut[r.peek(kLutBits)];
   if ((e & 31) != kLong) {
     *len = e & 31;
@@ -192,6 +234,7 @@ __device__ __forceinline__ int table_decode(const BitReader& r, const int* lut,
   const int* t = s_tab + (table ? kRFirst : kVFirst);
   const int idx = canon_decode(r.peek(16), kLutBits + 1, t, t + 17, t + 34,
                                len);
+  *unmatched |= *len == 0;
   return resolve(idx, *len, table, mode, s_tab, vtab, n_vtab);
 }
 
@@ -233,7 +276,7 @@ __global__ void __launch_bounds__(Shape<N2>::kThreads)
                           const uint16_t* __restrict__ block_bits, int bps,
                           const int* __restrict__ tabs, int n_vtab,
                           int16_t* __restrict__ out, long long n_blocks,
-                          int mode, int run_bits) {
+                          int mode, int run_bits, int* __restrict__ status) {
   using S = Shape<N2>;
   extern __shared__ __align__(16) int smem[];
   int* s_vlut = smem;
@@ -278,18 +321,20 @@ __global__ void __launch_bounds__(Shape<N2>::kThreads)
                     (j > lane ? before : 0);
     __syncwarp();
 
+    bool bad = live;  // (a)-(c) above, until the block's decode shows them
     if (live && bits > 0) {
       int16_t* row = tile + lane * S::kRow;
       const long long end = cur + bits;
       BitReader r;
       r.init(payload, payload_bytes, cur);
       int pos = 0;
+      bool unmatched = false;
       while (pos < N2 && cur < end) {
         r.refill();
         int v, gv, ln;
         if (mode == kCategory) {
           const int cat = table_decode(r, s_vlut, 0, mode, s_tab, vtab,
-                                       n_vtab, &ln);
+                                       n_vtab, &ln, &unmatched);
           r.skip(ln);
           v = 0;
           if (cat > 0) {
@@ -299,7 +344,8 @@ __global__ void __launch_bounds__(Shape<N2>::kThreads)
           }
           gv = ln + cat;
         } else if (mode == kDirect) {
-          v = table_decode(r, s_vlut, 0, mode, s_tab, vtab, n_vtab, &ln);
+          v = table_decode(r, s_vlut, 0, mode, s_tab, vtab, n_vtab, &ln,
+                           &unmatched);
           r.skip(ln);
           gv = ln;
           if (v == kEsc) {
@@ -315,7 +361,8 @@ __global__ void __launch_bounds__(Shape<N2>::kThreads)
         r.refill();
         int run, lc;
         if (run_bits == 0) {  // coded runs
-          run = table_decode(r, s_rlut, 1, mode, s_tab, vtab, n_vtab, &lc);
+          run = table_decode(r, s_rlut, 1, mode, s_tab, vtab, n_vtab, &lc,
+                             &unmatched);
         } else {
           run = static_cast<int>(r.peek(run_bits));
           lc = run_bits;
@@ -330,6 +377,14 @@ __global__ void __launch_bounds__(Shape<N2>::kThreads)
           pos = wpos;
         }
       }
+      bad = !(pos >= N2 && cur == end && !unmatched);
+    }
+    if (status != nullptr) {
+      const unsigned m = __ballot_sync(kFull, bad);
+      // lanes of this lane's stripe below it: lane - j .. lane - 1
+      const int lo = lane - min(j, lane);
+      const unsigned below = ((1u << lane) - 1u) & ~((1u << lo) - 1u);
+      if (bad && !(m & below)) atomicOr(status + s, 1);
     }
     __syncwarp();
 
@@ -357,7 +412,7 @@ template <int N2>
 int launch(const void* payload, long long payload_bytes,
            const void* stripe_start, const void* block_bits, int bps,
            const void* tabs, int n_vtab, void* out, long long n_blocks,
-           int mode, int run_bits, cudaStream_t stream) {
+           int mode, int run_bits, void* status, cudaStream_t stream) {
   using S = Shape<N2>;
   auto kernel = entropy_decode_kernel<N2>;
   cudaError_t err = cudaFuncSetAttribute(
@@ -376,7 +431,7 @@ int launch(const void* payload, long long payload_bytes,
       payload, payload_bytes, static_cast<const long long*>(stripe_start),
       static_cast<const uint16_t*>(block_bits), bps,
       static_cast<const int*>(tabs), n_vtab, static_cast<int16_t*>(out),
-      n_blocks, mode, run_bits);
+      n_blocks, mode, run_bits, static_cast<int*>(status));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -387,7 +442,7 @@ DCT_EXPORT int dct_entropy_decode(const void* payload, long long payload_bytes,
                                   const void* block_bits, int bps,
                                   const void* tabs, int n_vtab, void* out,
                                   long long n_blocks, int n2, int mode,
-                                  int run_bits, void* stream) {
+                                  int run_bits, void* status, void* stream) {
   if (mode < kCategory || mode > kNone || run_bits < 0 || run_bits > 16 ||
       bps <= 0 || n_vtab < 0)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -395,7 +450,7 @@ DCT_EXPORT int dct_entropy_decode(const void* payload, long long payload_bytes,
   auto s = static_cast<cudaStream_t>(stream);
 #define DCT_D(N)                                                        \
   return launch<N>(payload, payload_bytes, stripe_start, block_bits, bps, \
-                   tabs, n_vtab, out, n_blocks, mode, run_bits, s)
+                   tabs, n_vtab, out, n_blocks, mode, run_bits, status, s)
   switch (n2) {
     case 4: DCT_D(4);
     case 16: DCT_D(16);

@@ -6,7 +6,9 @@
   decode:  [host] parse container -> [device] entropy decode of indexed
            (v2) containers (kernel D) -> DC un-prediction -> dequant + IDCT
            (kernel C) -> crop; v1 containers are entropy-decoded on the
-           host (dct_tpu_torch.native, or the Python decoder) and uploaded
+           host (dct_tpu_torch.native, or the Python decoder) and uploaded,
+           as is a v2 plane whose blocks kernel D found to contradict the
+           index (a damaged container: the host decoder settles its fate)
 
 Two encode paths, as in the reference. Configs that kernel B takes (4x4,
 8x8 and 16x16 blocks, every entropy mode: ``fused_kernel_ok``) encode
@@ -46,6 +48,15 @@ from dct_tpu_torch.ops import huffman as hf
 from dct_tpu_torch.ops import quant, rle, transform, transform_cuda
 
 DIRECT_VMIN = -255  # direct-mode alphabet [-255, 255] + ESC
+
+# Planes of indexed (v2) containers that kernel D flagged (a block that
+# contradicts its index) and the host decoder then decoded again, counted
+# where decode_planes_device does it; reset with reset_host_redecodes().
+HOST_REDECODES = {"planes": 0}
+
+
+def reset_host_redecodes() -> None:
+    HOST_REDECODES["planes"] = 0
 
 
 def _padded_grid(h: int, w: int, cfg: CodecConfig) -> tuple[int, int, int]:
@@ -457,23 +468,51 @@ def indexed_decode_ok(p: cont.PlaneData, cfg: CodecConfig, table,
 
 
 def indexed_operands(stripes: list[bytes], block_bits: np.ndarray, table,
-                     run_table, mode: str, n2: int, device) -> dict:
+                     run_table, mode: str, n2: int, device,
+                     status: bool = False) -> dict:
     """Kernel D's operands for an indexed stream, on ``device``: one
     upload of the payload (the stripes concatenated, first, so at offset 0
     of a fresh allocation: 16-byte aligned), the stripe start bits (from
-    the stripe byte lengths, on the host), the (n_stripes, bps) index and
-    the packed tables. -> keyword arguments of
+    the stripe byte lengths, on the host), the (n_stripes, bps) index, the
+    packed tables and, with ``status``, the (n_stripes,) int32 zeros of
+    D's status. -> keyword arguments of
     entropy_decode_cuda.decode_blocks_kernel (and of its plain version),
     which scans the index into block starts itself."""
-    payload, starts, bits, tabs = _upload(
-        [np.frombuffer(b"".join(stripes), np.uint8),
-         ed.stripe_starts([len(s) for s in stripes]),
-         np.asarray(block_bits, np.uint16).reshape(len(stripes), -1),
-         ed.table_inputs(table, run_table, mode, DIRECT_VMIN)], device)
-    return dict(
-        payload=payload, stripe_start=starts, block_bits=bits, n2=n2,
-        mode=mode, tabs=tabs,
-        run_bits=0 if run_table is not None else bs.run_field_bits(n2))
+    arrays = [np.frombuffer(b"".join(stripes), np.uint8),
+              ed.stripe_starts([len(s) for s in stripes]),
+              np.asarray(block_bits, np.uint16).reshape(len(stripes), -1),
+              ed.table_inputs(table, run_table, mode, DIRECT_VMIN)]
+    if status:
+        arrays.append(np.zeros(len(stripes), np.int32))
+    uploaded = _upload(arrays, device)
+    ops = dict(zip(("payload", "stripe_start", "block_bits", "tabs",
+                    "status"), uploaded))
+    return dict(ops, n2=n2, mode=mode,
+                run_bits=0 if run_table is not None else bs.run_field_bits(n2))
+
+
+def _reconstruct(zz: torch.Tensor, planes: list[cont.PlaneData],
+                 cfg: CodecConfig, chroma: bool, n_stripes: int,
+                 bh: int, bw: int) -> torch.Tensor:
+    """(F * NB, n2) int16 coefficients of F planes on their device ->
+    (F, H, W) u8 planes: DC un-prediction over frames x stripes, dequant +
+    IDCT (kernel C on CUDA; chroma: the chrominance quant table), the
+    block grid, the crop."""
+    device = zz.device
+    n = cfg.block_size
+    p0 = planes[0]
+    if cfg.dc_prediction:
+        zz = dc_reconstruct(zz, len(planes) * n_stripes)
+    scale = None
+    if cfg.adaptive:
+        scale = quant.scale_from_variance_code(torch.from_numpy(np.concatenate(
+            [np.asarray(p.variance_codes, np.uint8) for p in planes])
+        ).to(device))
+    ops = tables.build(cfg, chroma=chroma, device=device)
+    pixels = decode_transform(zz, cfg, ops, scale)
+    # rebuild on the (stripe-padded) encoder grid, then crop to true dims
+    return blk.blocks_to_image(pixels.reshape(len(planes), -1, cfg.n2),
+                               bh * n, bw * n, n)[:, : p0.height, : p0.width]
 
 
 def decode_planes_device(
@@ -490,10 +529,17 @@ def decode_planes_device(
     on the host and the coefficients are uploaded at once. Then DC
     un-prediction over frames x stripes, dequant + IDCT (kernel C on CUDA;
     chroma: against the chrominance quant table) and the crop run on the
-    device."""
+    device.
+
+    The result is the host decoder's, which the reference package runs by
+    default: D also reports each stripe whose blocks contradict the index
+    (ops/entropy_decode.py), read once after kernel C is queued. A plane
+    with such a stripe is decoded again on the host (HOST_REDECODES):
+    its ValueError propagates, or its coefficients replace D's and kernel
+    C runs again on that plane. Where no stripe is flagged, D's
+    coefficients are the host decoder's (csrc/entropy_decode.cu)."""
     device = torch.device(device) if device is not None else _default_device()
     p0 = planes[0]
-    n = cfg.block_size
     bh, bw, n_stripes = _padded_grid(p0.height, p0.width, cfg)
     bps = (bh // n_stripes) * bw  # blocks per stripe
 
@@ -502,28 +548,29 @@ def decode_planes_device(
     run_table = (
         hf.CanonicalTable(p0.run_table_lengths) if cfg.coded_runs else None
     )
-    if all(indexed_decode_ok(p, cfg, table, run_table) for p in planes):
-        zz = entropy_decode_cuda.decode_blocks_kernel(**indexed_operands(
-            [s for p in planes for s in p.stripes],
-            np.concatenate([p.block_bits for p in planes]), table, run_table,
-            mode, cfg.n2, device))
-    else:
-        zz = torch.from_numpy(np.concatenate([
-            _decode_stripes(p, cfg, table, mode, n_stripes, bps, run_table)
-            for p in planes])).to(device)
-    if cfg.dc_prediction:
-        zz = dc_reconstruct(zz, len(planes) * n_stripes)
 
-    scale = None
-    if cfg.adaptive:
-        scale = quant.scale_from_variance_code(torch.from_numpy(np.concatenate(
-            [np.asarray(p.variance_codes, np.uint8) for p in planes])
-        ).to(device))
-    ops = tables.build(cfg, chroma=chroma, device=device)
-    pixels = decode_transform(zz, cfg, ops, scale)
-    # rebuild on the (stripe-padded) encoder grid, then crop to true dims
-    return blk.blocks_to_image(pixels.reshape(len(planes), -1, cfg.n2),
-                               bh * n, bw * n, n)[:, : p0.height, : p0.width]
+    def host(ps):
+        return torch.from_numpy(np.concatenate([
+            _decode_stripes(p, cfg, table, mode, n_stripes, bps, run_table)
+            for p in ps])).to(device)
+
+    if not all(indexed_decode_ok(p, cfg, table, run_table) for p in planes):
+        return _reconstruct(host(planes), planes, cfg, chroma, n_stripes,
+                            bh, bw)
+    zz, status = entropy_decode_cuda.decode_blocks_kernel(
+        **indexed_operands([s for p in planes for s in p.stripes],
+                           np.concatenate([p.block_bits for p in planes]),
+                           table, run_table, mode, cfg.n2, device,
+                           status=True))
+    out = _reconstruct(zz, planes, cfg, chroma, n_stripes, bh, bw)
+    flagged = np.flatnonzero(
+        status.cpu().numpy().reshape(len(planes), n_stripes).any(axis=1))
+    if flagged.size:
+        HOST_REDECODES["planes"] += int(flagged.size)
+        again = [planes[i] for i in flagged]
+        out[torch.from_numpy(flagged).to(device)] = _reconstruct(
+            host(again), again, cfg, chroma, n_stripes, bh, bw)
+    return out
 
 
 def decode_plane_device(

@@ -85,12 +85,18 @@ def planes_to_rgb(y: torch.Tensor, cb: torch.Tensor, cr: torch.Tensor,
     """Decoded u8 planes -> (..., h, w, 3) u8 RGB on their device: the
     chroma upsample (4:2:0) and YCbCr -> RGB. The reconstruction tail of
     every color decoder (image, video stack, probe), so they agree by
-    construction."""
+    construction. Raises ValueError where the planes, chroma upsampled,
+    do not share one shape (a damaged container's plane sizes), as the
+    reference's stack does."""
     cb = cb.to(torch.float32)
     cr = cr.to(torch.float32)
     if mode == "420":
         cb = upsample_420(cb, h, w)
         cr = upsample_420(cr, h, w)
+    if not y.shape == cb.shape == cr.shape:
+        raise ValueError(f"color planes of shapes {tuple(y.shape)}, "
+                         f"{tuple(cb.shape)}, {tuple(cr.shape)} (chroma "
+                         f"upsampled) do not form one {mode} image")
     return ycbcr_to_rgb(torch.stack([y.to(torch.float32), cb, cr], dim=-1))
 
 

@@ -45,7 +45,7 @@ _SIGNATURES = {
     },
     "entropy_decode": {
         "dct_entropy_decode": [_p, _ll, _p, _p, _i, _p, _i, _p, _ll, _i, _i,
-                               _i, _p],
+                               _i, _p, _p],
     },
     "pack": {
         "dct_pack_chunks": [_p, _p, _i, _ll, _ll, _p, _ll, _p, _p],

@@ -27,6 +27,21 @@ operand — has no counterpart here. Tables with a code longer than 16 bits,
 or direct values outside int16, are for the host decoder
 (:func:`tables_supported`).
 
+Blocks that contradict their index. D decodes each block for at most its
+indexed bit length and rejects nothing, where the host decoder walks the
+stripe from its first bit and rejects a code that matches nothing (error
+2) or a stripe it overruns (error 3). So D also reports, per stripe,
+whether any block disagrees with the index (``status``): a block
+agrees when its decode ended because ``pos >= n2`` (not because its bits
+ran out), it consumed exactly its indexed length (a 0-bit block never
+does: a valid block holds a symbol), and no value or run code went
+unmatched. Where every block of a stripe agrees, the host decoder returns
+the same coefficients and no error: csrc/entropy_decode.cu gives the
+argument. The codec settles a flagged stripe with the host decoder. The
+status is an (n_stripes,) int32 tensor of zeros that the caller hands in
+(``status=``; codec.indexed_operands uploads it with the other operands)
+and into which 1 is ORed for each such stripe.
+
 The table operands travel as one int32 vector (:func:`table_inputs`), laid
 out as TABLE_FIELDS; kernel D (csrc/entropy_decode.cu) copies the fixed
 fields into shared memory and builds its lookahead tables from them.
@@ -172,13 +187,16 @@ def decode_blocks_plain(
     mode: str,
     tabs: torch.Tensor,
     run_bits: int,
-) -> torch.Tensor:
+    status: torch.Tensor | None = None,
+):
     """Plain version of kernel D: (P,) uint8 payload (the stripes
     concatenated; bytes past its end read as zero), (n_stripes,) int64
     stripe start bits, (n_stripes, bps) u16 block bit lengths (int16 bit
     patterns), the packed int32 table vector, the fixed run field's width
-    (0: coded runs) -> (n_stripes * bps, n2) int16 zigzag coefficients.
-    Block starts are :func:`block_starts`.
+    (0: coded runs) -> (n_stripes * bps, n2) int16 zigzag coefficients;
+    with ``status`` ((n_stripes,) int32 zeros), (coefficients, status)
+    with 1 ORed into the entry of each stripe in which a block disagrees
+    with its index. Block starts are :func:`block_starts`.
 
     Vectorised over blocks: every step decodes one symbol of each block
     that is still active, and the loop runs while any block is. A step
@@ -201,6 +219,9 @@ def decode_blocks_plain(
     live = torch.nonzero(end > cur).flatten()
     cur, end = cur[live], end[live]
     pos = torch.zeros_like(cur)
+    # a block disagrees with the index until its decode ends as it should
+    bad = torch.ones(nb, dtype=torch.bool, device=dev)
+    unmatched = torch.zeros_like(cur, dtype=torch.bool)
     byte_k = torch.arange(7, device=dev)
     while live.numel():
         # 56-bit window MSB-first at the cursor: 7 bytes from cur >> 3,
@@ -212,6 +233,7 @@ def decode_blocks_plain(
         t16 = _bits(win, zero, 16)
         if mode == "category":
             idx, ln = _canon_decode(t16, t["vfirst"], t["vlimit"], t["vbase"])
+            unmatched |= ln == 0
             cat = torch.where(ln > 0, _lookup(t["csym"], idx), 0)
             e = torch.where(cat > 0, _bits(win, ln, cat), 0)
             half = torch.ones_like(cat) << (cat - 1).clamp(min=0)
@@ -220,6 +242,7 @@ def decode_blocks_plain(
             gv = ln + cat
         elif mode == "direct":
             idx, ln = _canon_decode(t16, t["vfirst"], t["vlimit"], t["vbase"])
+            unmatched |= ln == 0
             v = _lookup(vtab, idx)
             esc = v == ESC_SENTINEL
             r16 = _bits(win, ln, 16)
@@ -232,6 +255,7 @@ def decode_blocks_plain(
             ridx, lc = _canon_decode(_bits(win, gv, 16), t["rfirst"],
                                      t["rlimit"], t["rbase"])
             run = _lookup(t["rsym"], ridx)
+            unmatched |= lc == 0
         else:
             run = _bits(win, gv, run_bits)
             lc = torch.full_like(cur, run_bits)
@@ -241,5 +265,12 @@ def decode_blocks_plain(
         pos = torch.where(w, wpos + 1, wpos)
         cur = cur + gv + lc
         keep = (pos < n2) & (cur < end)
+        done = ~keep
+        bad[live[done]] = ~((pos[done] >= n2) & (cur[done] == end[done])
+                            & ~unmatched[done])
         live, cur, pos, end = live[keep], cur[keep], pos[keep], end[keep]
-    return out
+        unmatched = unmatched[keep]
+    if status is None:
+        return out
+    status |= bad.reshape(block_bits.shape).any(dim=1).to(torch.int32)
+    return out, status

@@ -17,6 +17,12 @@ the payload in aligned 32-bit words, so the payload's ``data_ptr()`` must
 be 16-byte aligned: the wrapper raises otherwise. ``codec.indexed_operands``
 uploads the payload first, at offset 0 of a fresh allocation, so its
 payload always is.
+
+With ``status`` ((n_stripes,) int32 zeros on the payload's device) it
+returns (coefficients, status), 1 ORed into the entry of each stripe in
+which a block contradicts its index (ops/entropy_decode.py): one atomic a
+stripe and warp. ``codec.indexed_operands(..., status=True)`` uploads the
+zeros with the other operands, so no memset precedes the launch.
 """
 
 from __future__ import annotations
@@ -31,7 +37,7 @@ PAYLOAD_ALIGN = 16  # bytes
 
 
 def _check_launch(payload, stripe_start, block_bits, n2, mode, tabs,
-                  run_bits) -> None:
+                  run_bits, status) -> None:
     if n2 not in KERNEL_N2:
         raise NotImplementedError(
             f"entropy_decode kernel takes n2 in {KERNEL_N2}, got {n2}")
@@ -39,10 +45,16 @@ def _check_launch(payload, stripe_start, block_bits, n2, mode, tabs,
         raise ValueError(f"unknown huffman mode {mode!r}")
     if not 0 <= run_bits <= 16:
         raise ValueError(f"run_bits must be in [0, 16], got {run_bits}")
-    for name, t, dtype, ndim in (("payload", payload, torch.uint8, 1),
-                                 ("stripe_start", stripe_start, torch.int64, 1),
-                                 ("block_bits", block_bits, torch.int16, 2),
-                                 ("tabs", tabs, torch.int32, 1)):
+    operands = [("payload", payload, torch.uint8, 1),
+                ("stripe_start", stripe_start, torch.int64, 1),
+                ("block_bits", block_bits, torch.int16, 2),
+                ("tabs", tabs, torch.int32, 1)]
+    if status is not None:
+        operands.append(("status", status, torch.int32, 1))
+        if status.numel() != stripe_start.numel():
+            raise ValueError(f"entropy_decode: status has {status.numel()} "
+                             f"entries, stripe_start {stripe_start.numel()}")
+    for name, t, dtype, ndim in operands:
         if t.device != payload.device:
             raise ValueError(f"entropy_decode: {name} on {t.device}, payload "
                              f"on {payload.device}")
@@ -72,30 +84,34 @@ def decode_blocks_kernel(
     mode: str,
     tabs: torch.Tensor,
     run_bits: int,
-) -> torch.Tensor:
+    status: torch.Tensor | None = None,
+):
     """(P,) u8 payload (16-byte aligned on CUDA), (n_stripes,) int64 stripe
     start bits, (n_stripes, bps) int16 (u16 bit patterns) block bit
     lengths, the packed int32 tables, the run field's width (0: coded
-    runs) -> (n_stripes * bps, n2) int16 zigzag coefficients;
-    entropy_decode.decode_blocks_plain on the CPU, kernel D on CUDA."""
+    runs), optionally the (n_stripes,) int32 zeroed status -> (n_stripes *
+    bps, n2) int16 zigzag coefficients, or (coefficients, status) with a
+    status; entropy_decode.decode_blocks_plain on the CPU, kernel D on
+    CUDA."""
     if payload.device.type == "cpu":
         return ed.decode_blocks_plain(payload, stripe_start, block_bits, n2,
-                                      mode, tabs, run_bits)
-    _check_launch(payload, stripe_start, block_bits, n2, mode, tabs, run_bits)
+                                      mode, tabs, run_bits, status)
+    _check_launch(payload, stripe_start, block_bits, n2, mode, tabs, run_bits,
+                  status)
     n_stripes, bps = block_bits.shape
     n_blocks = n_stripes * bps
     out = torch.empty((n_blocks, n2), dtype=torch.int16, device=payload.device)
     if n_blocks == 0:
-        return out
+        return out if status is None else (out, status)
     lib = _build.library("entropy_decode")
     with torch.cuda.device(payload.device):
         rc = lib.dct_entropy_decode(
             payload.data_ptr(), payload.numel(), stripe_start.data_ptr(),
             block_bits.data_ptr(), bps, tabs.data_ptr(),
             tabs.numel() - ed.TABLE_FIXED, out.data_ptr(), n_blocks, n2,
-            ed.MODE_IDS[mode], run_bits,
+            ed.MODE_IDS[mode], run_bits, _build.ptr(status),
             torch.cuda.current_stream().cuda_stream,
         )
     _build.check(lib, rc, "entropy_decode")
     _build.LAUNCHES["entropy_decode"] += 1
-    return out
+    return out if status is None else (out, status)

@@ -25,6 +25,10 @@ torch: the float64 product, the same certificate, the rescue by
 encode_fma_chain. The chain stays the contract; the certificate only
 decides where it has to run.
 
+damaged_containers is the recipe of damaged containers the decode's fate
+is held to (the reference package's: the same pixels, or ValueError):
+one bit flipped, one byte XORed, or 1-11 bytes scrambled, past the magic.
+
 run_mesh_jobs runs the sharded paths (parallel/) on every rank of a mesh
 of spawned processes and brings back each rank's results, its kernel
 launches and the collectives it called. It lives here, not in a test
@@ -341,6 +345,35 @@ def indexed_stream(zz: torch.Tensor, cfg: CodecConfig, n_stripes: int):
 # ---------------------------------------------------------------------------
 # The ranks of a mesh
 # ---------------------------------------------------------------------------
+
+
+def damaged_containers(data: bytes, rng: np.random.Generator,
+                       n: int) -> list[bytes]:
+    """n damaged copies of a container, each from the next draws of rng:
+    one bit flipped, one byte XORed with a nonzero byte, or 1-11 bytes
+    replaced by random ones, at an offset >= 4 (past the magic)."""
+    out = []
+    for _ in range(n):
+        m = bytearray(data)
+        kind, i = int(rng.integers(0, 3)), int(rng.integers(4, len(m)))
+        if kind == 0:
+            m[i] ^= 1 << int(rng.integers(0, 8))
+        elif kind == 1:
+            m[i] ^= int(rng.integers(1, 256))
+        else:
+            j = min(len(m), i + int(rng.integers(1, 12)))
+            m[i:j] = rng.integers(0, 256, j - i, dtype=np.uint8).tobytes()
+        out.append(bytes(m))
+    return out
+
+
+def decode_fate(fn):
+    """("ok", what fn() returned) or ("ValueError", its message); any other
+    exception propagates: a damaged container may only raise ValueError."""
+    try:
+        return "ok", fn()
+    except ValueError as e:
+        return "ValueError", str(e)
 
 
 def run_mesh_jobs(world_size: int, mesh_shape: tuple[int, int], jobs,

@@ -70,7 +70,7 @@ def _on_card(out) -> bool:
     return any(t.device.type == "cuda" for t in _tensors(out))
 
 
-def _seconds_per_call(fn, iters: int, on_card: bool) -> float:
+def seconds_per_call(fn, iters: int, on_card: bool) -> float:
     """Mean seconds of ``iters`` calls of fn(): CUDA events around them,
     then a synchronise, on the card; the host clock otherwise."""
     if on_card:
@@ -97,7 +97,7 @@ def measure_throughput(fn, *args, iters: int = 20, warmup: int = 3,
     synchronise; otherwise by the host clock."""
     for _ in range(max(warmup, 1)):
         out = fn(*args)
-    dt = _seconds_per_call(lambda: fn(*args), iters, _on_card(out))
+    dt = seconds_per_call(lambda: fn(*args), iters, _on_card(out))
     return Throughput(
         mpix_per_s=pixels / dt / 1e6 if pixels else 0.0,
         seconds_per_frame=dt,
@@ -124,7 +124,7 @@ def kloop_delta_seconds(make_step, operand, k: int = 9, iters: int = 5):
 
     def timed(fn):
         on_card = _on_card(fn(operand))  # warm-up (builds, caches)
-        return _seconds_per_call(lambda: fn(operand), iters, on_card)
+        return seconds_per_call(lambda: fn(operand), iters, on_card)
 
     t1, tk = timed(r1), timed(rk)
     if tk <= t1:

@@ -22,7 +22,10 @@ one card, the sharded image, video and decode paths (parallel/) give the
 unsharded card path's bytes and pixels, through the kernels. The CLI:
 the four real PGMs of tests/data encoded and decoded by
 ``python -m dct_tpu_torch.cli`` (in this process) on the card, equal to
-the CPU path (ties excepted) and to the host route.
+the CPU path (ties excepted) and to the host route. The examples
+(examples/torch_demo.py, examples/torch_serving.py) with their default
+device print the lines of their --device cpu runs; damaged v2 containers
+have the CPU path's fate.
 """
 
 import dataclasses
@@ -396,3 +399,67 @@ def test_real_images_through_the_cli_on_cuda(cuda, tmp_path, name, flags):
         dataclasses.replace(c.planes[0], block_bits=None), c.config, cuda)
     np.testing.assert_array_equal(image_io.read_image(rec),
                                   host.cpu().numpy())
+
+
+EXAMPLES = ("torch_demo.py", "torch_serving.py")
+
+
+def _example_lines(name: str, argv) -> list[str]:
+    import contextlib
+    import io
+    import runpy
+
+    main = runpy.run_path(str(pathlib.Path(__file__).resolve().parents[1]
+                              / "examples" / name))["main"]
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        assert main(argv) == 0
+    return [line for line in buf.getvalue().splitlines()
+            if not line.startswith(("backend:", "ingest :"))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", EXAMPLES)
+def test_examples_on_cuda_print_the_cpu_numbers(cuda, name):
+    """Each example with its default device (the card) prints the lines of
+    its --device cpu run (the backend and the ingest rate aside), through
+    kernels A, B, C and E, and the demo's v2 decode through D (serving's
+    streams are v1)."""
+    lines, counts = _counted(lambda: _example_lines(name, []))
+    assert lines == _example_lines(name, ["--device", "cpu"])
+    kernels = ["encode_blocks", "encode_stripes", "decode_blocks",
+               "pack_chunks"] + (["entropy_decode"] if "demo" in name else [])
+    assert all(counts[k] > 0 for k in kernels), counts
+
+
+# gray and 4:2:0 at the v2 configs of tests/test_torch_damaged_decode.py
+DAMAGED = {"q90_index": dict(quality=90, decode_index=True),
+           "rich_index": dict(quality=50, adaptive=True, dc_prediction=True,
+                              coded_runs=True, decode_index=True)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chroma", ("gray", "420"))
+@pytest.mark.parametrize("case", sorted(DAMAGED))
+def test_damaged_containers_on_cuda_have_the_cpu_fate(cuda, case, chroma):
+    """Damaged v2 containers (testing.damaged_containers): the card's
+    decode gives the CPU's pixels or raises ValueError where it does;
+    flagged planes go to the host decoder, a clean container never."""
+    g = image_io.synthetic_image(48, 72, "photo", seed=len(case))
+    img = g if chroma == "gray" else _rgb(g)
+    cfg = CodecConfig(**DAMAGED[case],
+                      **({} if chroma == "gray" else {"chroma": chroma}))
+    data = codec.encode(img, cfg, cuda)
+    codec.reset_host_redecodes()
+    assert np.array_equal(codec.decode(data, cuda),
+                          codec.decode(data, "cpu"))
+    assert codec.HOST_REDECODES["planes"] == 0
+    fates = []
+    for m in testing.damaged_containers(data, np.random.default_rng(9), 40):
+        card = testing.decode_fate(lambda: codec.decode(m, cuda))
+        cpu = testing.decode_fate(lambda: codec.decode(m, "cpu"))
+        assert card[0] == cpu[0], (card[1], cpu[1])
+        if card[0] == "ok":
+            np.testing.assert_array_equal(card[1], cpu[1])
+        fates.append(card[0])
+    assert "ok" in fates and codec.HOST_REDECODES["planes"] > 0

@@ -121,10 +121,31 @@ def test_port_sources_name_no_jax_package_module():
     pattern = re.compile(r"^\s*(from|import)\s+(dct_tpu|jax|ml_dtypes)\b"
                          r"(?!_torch)", re.M)
     files = sorted((REPO / "dct_tpu_torch").rglob("*.py")) + [
-        REPO / "chip_smoke.py"]
+        REPO / "chip_smoke.py", *(REPO / "examples" / f for f in EXAMPLES)]
     hits = [f"{f.relative_to(REPO)}: {m.group(0).strip()}"
             for f in files for m in pattern.finditer(f.read_text())]
     assert hits == []
+
+
+EXAMPLES = ("torch_demo.py", "torch_serving.py")
+
+
+@pytest.mark.parametrize("example", EXAMPLES)
+def test_example_loads_no_jax_and_launches_nothing_on_the_cpu(example):
+    """The port's examples, run with --device cpu in a fresh interpreter:
+    exit code 0, nothing of the JAX package, jax or ml_dtypes loaded, no
+    kernel built or launched (the plain versions ran)."""
+    path = REPO / "examples" / example
+    out = _run(
+        "import contextlib, io, json, runpy\n" + _BANNED +
+        f"main = runpy.run_path({str(path)!r})['main']\n"
+        "with contextlib.redirect_stdout(io.StringIO()):\n"
+        "    rc = main(['--device', 'cpu'])\n"
+        "from dct_tpu_torch.ops import _build\n"
+        "print(json.dumps([rc, banned(), len(_build._libs),"
+        " sum(_build.LAUNCHES.values())]))\n"
+    )
+    assert json.loads(out.splitlines()[-1]) == [0, [], 0, 0]
 
 
 def test_import_builds_nothing():

@@ -531,12 +531,9 @@ RANDOM_STREAMS = {
 }
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("case", sorted(RANDOM_STREAMS))
-def test_entropy_decode_kernel_matches_plain_on_random_bits(cuda, case):
-    """Random payload bytes under a random index, the last stripe cut
-    short: the kernel decodes whatever it is given exactly as the plain
-    version does, and reads nothing past the payload."""
+def _random_stream(case):
+    """(stripes, index, tables, mode, n2): random payload bytes under a
+    random index, the last stripe cut short."""
     mode, n_alpha, coded_runs, n2 = RANDOM_STREAMS[case]
     rng = np.random.default_rng(5)
     table = (hf.CanonicalTable.from_frequencies(rng.integers(1, 1000, n_alpha))
@@ -548,11 +545,72 @@ def test_entropy_decode_kernel_matches_plain_on_random_bits(cuda, case):
     bits = rng.integers(0, 600, (8, 40)).astype(np.uint16)
     stripes = [rng.bytes(-(-int(b) // 8)) for b in bits.sum(axis=1)]
     stripes[-1] = stripes[-1][: len(stripes[-1]) // 2]
-    args = (stripes, bits.reshape(-1), table, run_table, mode, n2)
+    return stripes, bits.reshape(-1), table, run_table, mode, n2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(RANDOM_STREAMS))
+def test_entropy_decode_kernel_matches_plain_on_random_bits(cuda, case):
+    """Random payload bytes under a random index, the last stripe cut
+    short: the kernel decodes whatever it is given exactly as the plain
+    version does, and reads nothing past the payload."""
+    args = _random_stream(case)
     got = entropy_decode_cuda.decode_blocks_kernel(
         **codec.indexed_operands(*args, cuda))
     want = ed.decode_blocks_plain(**codec.indexed_operands(*args, "cpu"))
     np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
+
+
+def _d_with_status(args, dev):
+    got = entropy_decode_cuda.decode_blocks_kernel(
+        **codec.indexed_operands(*args, dev, status=True))
+    return tuple(t.cpu().numpy() for t in got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(RANDOM_STREAMS))
+def test_entropy_decode_status_matches_plain_on_random_bits(cuda, case):
+    """Random bits contradict their index: the kernel's coefficients and
+    per-stripe status equal the plain version's, and its coefficients do
+    not depend on whether a status is handed in."""
+    args = _random_stream(case)
+    zz, status = _d_with_status(args, cuda)
+    want_zz, want_status = _d_with_status(args, "cpu")
+    np.testing.assert_array_equal(zz, want_zz)
+    np.testing.assert_array_equal(status, want_status)
+    assert status.shape == (len(args[0]),) and status.any()
+    np.testing.assert_array_equal(
+        entropy_decode_cuda.decode_blocks_kernel(
+            **codec.indexed_operands(*args, cuda)).cpu().numpy(), zz)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(STAGED_STREAMS))
+def test_entropy_decode_status_on_damaged_stripes(cuda, case):
+    """A clean stream's status is 0; with bytes of stripes 1 and 5
+    scrambled, the kernel flags what the plain version flags (tiles that
+    straddle stripes included) and decodes the same coefficients."""
+    bps, n, kw = STAGED_STREAMS[case]
+    cfg = CodecConfig(block_size=n, decode_index=True, **kw)
+    zz = _random_coefficients(7 * bps, cfg.n2, bps)
+    stripes, bits, table, run_table = testing.indexed_stream(zz, cfg, 7)
+    mode = cfg.huffman_mode if cfg.use_huffman else "none"
+    clean = _d_with_status((stripes, bits, table, run_table, mode, cfg.n2),
+                           cuda)
+    assert not clean[1].any()
+    np.testing.assert_array_equal(clean[0], zz.numpy())
+    rng = np.random.default_rng(bps)
+    for s in (1, 5):
+        b = bytearray(stripes[s])
+        at = rng.integers(0, len(b), 3)
+        b[at[0]] ^= 0x40
+        b[at[1]:at[1] + 2] = rng.bytes(len(b[at[1]:at[1] + 2]))
+        stripes[s] = bytes(b)
+    args = (stripes, bits, table, run_table, mode, cfg.n2)
+    got, want = _d_with_status(args, cuda), _d_with_status(args, "cpu")
+    np.testing.assert_array_equal(got[0], want[0])
+    np.testing.assert_array_equal(got[1], want[1])
+    assert got[1].any() and not got[1][[0, 2, 3, 4, 6]].any()
 
 
 @pytest.mark.cuda
@@ -571,6 +629,23 @@ def test_indexed_decode_on_cuda_equals_the_host_route(cuda, image, case):
         dataclasses.replace(c.planes[0], block_bits=None), c.config, cuda)
     assert _build.LAUNCHES["entropy_decode"] == 1
     np.testing.assert_array_equal(rec.cpu().numpy(), host.cpu().numpy())
+
+
+@pytest.mark.cuda
+def test_entropy_decode_kernel_refuses_a_wrong_status(cuda):
+    cfg = CodecConfig(decode_index=True)
+    ops = codec.indexed_operands(
+        *testing.indexed_stream(torch.zeros(16, 64, dtype=torch.int32), cfg,
+                                2), "category", 64, cuda, status=True)
+    with pytest.raises(ValueError, match="status has 1 entries"):
+        entropy_decode_cuda.decode_blocks_kernel(
+            **dict(ops, status=ops["status"][:1]))
+    with pytest.raises(TypeError):
+        entropy_decode_cuda.decode_blocks_kernel(
+            **dict(ops, status=ops["status"].to(torch.int64)))
+    with pytest.raises(ValueError):
+        entropy_decode_cuda.decode_blocks_kernel(
+            **dict(ops, status=ops["status"].cpu()))
 
 
 @pytest.mark.cuda
