@@ -3,9 +3,11 @@
     python3 chip_smoke.py
 
 Run from the repository root on a machine with a CUDA card and the CUDA
-toolkit. It builds the port's kernels from csrc/ into build/torch_kernels/,
+toolkit. It builds the port's kernels from csrc/ into build/torch_kernels/
+(printing each kernel function's registers and spills from ptxas -v),
 counts the integer tensor-core instructions (IMMA, from cuobjdump -sass)
-in kernels A's and B's functions (each must have some), holds the
+in kernels A's and B's functions (each must have some), prints kernel
+B's persistent grid (CTAs an SM, SMs, registers, shared memory), holds the
 tensor-core tile's integer products (transform_cuda.mma_products) equal
 to int64 products at n2 4, 16, 64 and 256, then:
 
@@ -26,7 +28,8 @@ to int64 products at n2 4, 16, 64 and 256, then:
      the 64 x 64 decode operator: no dequant scale, rounding or clamp);
   3. kernel B (fused stripe encode) against the plain staged pipeline
      (codec.encode_pack_plain) fed kernel A's integers — exactly equal
-     units, stripe bits and block bits, with B's rescue share — on the
+     units (the whole worst-case buffer, zeros included), stripe bits and
+     block bits, with B's rescue share — on the
      batch at static q50,
      dynamic-table q50, adaptive + DC prediction + coded runs, and at the
      other configs B takes: 4x4 blocks in category (dynamic),
@@ -40,7 +43,9 @@ to int64 products at n2 4, 16, 64 and 256, then:
      containers must equal the CPU path's byte for byte, or differ only
      in tie coefficients; pixels must agree within 1;
   5. times of each kernel and its plain version at those shapes (CUDA
-     events), end-to-end encode_step and decode rates;
+     events), end-to-end encode_step and decode rates; kernel B's card
+     work alone at the batch (a spin kernel queued first) beside the
+     host's enqueue time a call and 20 back-to-back calls;
   6. the indexed decode (kernel D), the main path of the second slice:
      ImageCodec(CodecConfig(quality=90), device="cuda") encodes the 1080p
      frame to a v2 container (kernels A and B), decodes it (decode and
@@ -93,7 +98,10 @@ to int64 products at n2 4, 16, 64 and 256, then:
      the plain staged pipeline fed kernel A's integers, and kernel D on
      B's stream against its plain version and the host decoder. This
      drives direct mode's ESC, the 16-bit code cap and B's worst-case
-     buffer (the fullest stripe's share of it is printed);
+     buffer (the fullest stripe's share of it is printed). Then the
+     densest stream real pixels give (testing.densest_stream: a 1080p
+     noise frame at q100 in direct mode, every code 16 bits long, coded
+     runs at n2 <= 64) at 4x4, 8x8 and 16x16, through B and D alike;
  13. color at full width: the 1080p frame as RGB (the frame and two
      shifted copies), its Y/Cb/Cr planes on the card equal to the CPU's
      bit for bit; kernels A, B and C with the chrominance operators on
@@ -385,8 +393,11 @@ def check_b(name, cfg, px, scale, n_stripes, ops):
     ref, ref_bb = codec.encode_pack_plain(rle.rle_encode_positional(zz),
                                           cfg, n_stripes, ops)
     g, r = bs.fetch_packed(got), bs.fetch_packed(ref)
+    # the whole buffer too: B writes the zeros past each payload itself
     same = (np.array_equal(g.bit_lengths, r.bit_lengths)
             and np.array_equal(g.units, r.units)
+            and torch.equal(got.units.to(torch.int32) & 0xFFFF,
+                            ref.units.to(torch.int32) & 0xFFFF)
             and torch.equal(got_bb, ref_bb))
     capacity_bits = 16 * got.units.shape[1]
     log(f"B {name}: {px.shape[0]} blocks, {n_stripes} stripes, "
@@ -1545,12 +1556,25 @@ def main() -> int:
                     r"registers", text, re.S):
                 log(f"    {kind} n2={n2} adaptive={ad}: {used} registers, "
                     f"{spill} bytes spill stores")
+        if name == "fused_encode":  # kernel B, one line a template
+            for n2, spill, used in re.findall(
+                    r"entry function '\w*?encode_stripes_kernelILi(\d+)E.*?"
+                    r"(\d+) bytes spill stores.*?Used (\d+) registers", text,
+                    re.S):
+                log(f"    encode_stripes n2={n2}: {used} registers, {spill} "
+                    f"bytes spill stores")
 
     imma = imma_counts(("transform", "fused_encode"))
     for fn, n in imma.items():
         if "encode" in fn:  # kernels A and B (C and D do no integer products)
             log(f"IMMA instructions in {fn}: {n}")
             check(n > 0, f"{fn} has no integer tensor-core instructions")
+    for n2 in fused_encode_cuda.KERNEL_N2:  # kernel B's persistent grid
+        info = fused_encode_cuda.kernel_info(n2, dev)
+        log(f"B n2={n2}: {info['ctas_per_sm']} CTAs an SM x {info['sms']} "
+            f"SMs, {info['registers']} registers a thread, "
+            f"{info['shared_bytes']} B shared memory a CTA, "
+            f"{info['local_bytes']} B local")
     # the tensor-core tile's integer products, before A and B rely on them
     for n in (2, 4, 8, 16):
         cfg = CodecConfig(block_size=n, quality=90)
@@ -1765,6 +1789,12 @@ def main() -> int:
     for k, (ms, plain) in times.items():
         log(f"time {k}: kernel {ms:.4f} ms, plain {plain:.4f} ms "
             f"(8 x {H}x{W})")
+    b_dev_ms, b_enq_ms = device_ms(
+        lambda: fused_encode_cuda.encode_stripes_fused(px, static, s_all, ops),
+        50)
+    log(f"time encode_stripes, the card's work alone: {b_dev_ms:.4f} ms; "
+        f"host enqueue {b_enq_ms:.4f} ms a call; 20 back-to-back calls "
+        f"{times['encode_stripes'][0]:.4f} ms a call")
     # A's library time: one cuBLAS call computing its products only, the
     # pixels as bf16 times the four byte planes side by side as bf16,
     # float32 out (exact: every partial sum is an integer below 2^24)
@@ -2119,6 +2149,20 @@ def main() -> int:
                     bs.stripes_to_bytes(bs.fetch_packed(packed)),
                     bb.cpu().numpy().reshape(-1).astype(np.uint16), table,
                     run_table, mode, 64, dev)
+    # the densest stream real pixels give (testing.densest_stream): q100
+    # noise in direct mode, every code 16 bits, coded runs at n2 <= 64
+    for n in (4, 8, 16):
+        cfg, img, table, run_table = testing.densest_stream(n, 1080, 1920,
+                                                            seed=n)
+        img_d = codec.pad_plane_for_encode(torch.from_numpy(img).to(dev), cfg)
+        pxd = blocks.image_to_blocks(img_d, n).reshape(-1, n * n)
+        nsd = img_d.shape[0] // n
+        ops = tables.build(cfg, device=dev).with_tables(table, run_table)
+        packed, bb, _ = check_b(f"densest {n}x{n}", cfg, pxd, None, nsd, ops)
+        check_d(f"densest {n}x{n}",
+                bs.stripes_to_bytes(bs.fetch_packed(packed)),
+                bb.cpu().numpy().reshape(-1).astype(np.uint16), table,
+                run_table, "direct", n * n, dev)
 
     # ---- 11. video at full width -----------------------------------------
     vframes = np.stack([image_io.synthetic_image(VH, VW, "photo", seed=s)

@@ -41,7 +41,8 @@ DCT_EXPORT int dct_decode_blocks(const void* zz, const void* m_dec, int ld,
                                  const void* scale, void* out,
                                  long long n_blocks, int n2, void* stream);
 
-// Kernel B: one CTA per stripe, n2 16, 64 or 256, stripes of any width.
+// Kernel B: a persistent grid (SMs x CTAs an SM, at most n_stripes CTAs)
+// walking the stripes, n2 16, 64 or 256, stripes of any width.
 // px: (n_stripes * bps, n2) u8 blocks, 16-byte aligned. frag, cert,
 // parts_t, bias, recip, rescued: as kernel A's. mode: 0 category, 1 direct, 2 none.
 // val_len/val_code: the value table's n_val int32 entries (16 categories;
@@ -49,7 +50,8 @@ DCT_EXPORT int dct_decode_blocks(const void* zz, const void* m_dec, int ld,
 // mode). run_len/run_code: (65,) int32 run table, or NULL for the fixed
 // run_bits-wide run field. words: (n_stripes, n_words) int32 output, each
 // word holding two 16-bit units with its halves swapped, so that the
-// buffer read as int16 is the unit stream in order. stripe_bits:
+// buffer read as int16 is the unit stream in order; every word is stored
+// once, zeros past each stripe's payload included. stripe_bits:
 // (n_stripes,) int32; block_bits: (n_stripes, bps) int32.
 DCT_EXPORT int dct_encode_stripes(const void* px, const void* frag,
                                   const void* cert, const void* parts_t,
@@ -62,6 +64,11 @@ DCT_EXPORT int dct_encode_stripes(const void* px, const void* frag,
                                   int n_words, void* stripe_bits,
                                   void* block_bits, void* rescued,
                                   void* stream);
+
+// Kernel B's launch shape on the current device, for n2 16, 64 or 256:
+// out[0..4] = SMs, CTAs an SM, registers a thread, dynamic shared memory
+// bytes a CTA, local (spilled) bytes a thread.
+DCT_EXPORT int dct_encode_stripes_info(int n2, void* out);
 
 // Kernel D: entropy decode of indexed (v2) stripes, one lane per block, a
 // warp per 32 consecutive blocks. payload: (payload_bytes,) u8, the stripes

@@ -1,49 +1,76 @@
 // Kernel B: the fused stripe encode — u8 pixel blocks to packed bitstream
-// units, one CTA per (frame, stripe).
+// units, a persistent grid of CTAs that walk the stripes tile by tile.
 //
-// Replaces dct_tpu/ops/fused_encode_pallas.py `_fused_kernel` (wrapper
-// `encode_stripes_fused`) at every config it takes: 4x4, 8x8 and 16x16
-// blocks (n2 16, 64, 256); the category, direct and "none" entropy
-// modes; the fixed run field, or the coded one at n2 <= 64; adaptive
-// quantization and DC prediction on or off; stripes of any width. It ports
-// the outputs, not the TPU mechanism: the pack-tier ladder, the acc4
-// rungs, lane compaction, the one-hot direct-table gather and the MXU
-// scatter were workarounds for a machine without per-lane gathers,
+// Replaces dct_tpu/ops/fused_encode_pallas.py `_fused_kernel` (:218;
+// wrapper `encode_stripes_fused` :699, pallas_call :825) at every config it
+// takes: 4x4, 8x8 and 16x16 blocks (n2 16, 64, 256); the category, direct
+// and "none" entropy modes; the fixed run field, or the coded one at n2 <=
+// 64; adaptive quantization and DC prediction on or off; stripes of any
+// width. It ports the outputs, not the TPU mechanism: the pack-tier ladder,
+// the acc4 rungs, lane compaction, the one-hot direct-table gather and the
+// MXU scatter were workarounds for a machine without per-lane gathers,
 // scatters or cumsum.
 //
-// What bounds it on an H100: HBM sees n2 bytes of pixels in per block and
-// the worst-case unit buffer out (zeroed by the CTA itself:
-// units_per_block_worst(n2, coded_runs) 16-bit units a block, 80 B at n2
-// 16 (96 B with coded runs), 320 B at 64 (384 B), 1312 B at 256), so bytes
-// are small. The transform runs on the integer tensor cores (4 x n2 x n2
-// int8 multiply-adds a block, a few microseconds at the batch) with a
-// float64 certificate a coefficient and the float32 chain for the few the
-// certificate leaves open; what remains is the serial dependencies of the
-// entropy stage inside a stripe (a scan over the stripe's blocks and one
-// over each block's symbols).
+// What bounds it on an H100. Bytes are few: n2 pixel bytes in per block and
+// the worst-case unit buffer out (units_per_block_worst(n2, coded_runs)
+// 16-bit units a block: 80 B at n2 16, 320 B at 64 (384 B with coded runs),
+// 1312 B at 256), whose zeros past each stripe's payload are most of the
+// bytes. Operations are few too. What bounds it is latency: each CTA walks
+// its stripes through a chain of dependent phases (pixels, tensor-core
+// products, the float64 certificate, the rescue, then the entropy rounds),
+// and a few CTAs an SM overlap those chains. Measured by variants with
+// parts compiled out (PERF.md section 7), the certified transform of
+// transform_core.cuh is now about half of B's time; the rest is, in order,
+// the serial symbol chains of the densest segments, the gather, the
+// rounds' masks, scans and barriers, and the zero tail. The design keeps
+// the entropy chain short and issues each symbol once:
 //
-// The design:
-// - one CTA per stripe walks it in tiles of kTile blocks (128 at n2 16 and
-//   64, 64 at 256; 128 measured faster than 64 at 64), so shared memory
-//   is a constant of n2 (17 KB at 16, 49 KB at 64, 89 KB at 256) and a
-//   stripe may be any width;
-// - per tile: pixels in (16-byte loads into packed rows, transform_core.cuh
-//   MmaTile), the certified tile of transform_core.cuh — kernel A's — to
-//   int16 coefficients in shared memory, the rescue list worked through
-//   by the whole CTA, DC DPCM against the previous block's raw DC (carried
-//   across tile edges), each block's RLE, symbol fields and bit total in
-//   one warp (two 4x4 blocks a warp, one 16-lane segment each) with
-//   ballots and shuffles, an exclusive scan of the block totals on top of
-//   the bits of the tiles before, and placement;
-// - operators: the byte planes' B fragments (4 n2^2 bytes at n2 >= 32,
-//   16 KB at 64 and 256 KB at 256) are read through L1/L2, each once per
-//   tile and warp for all of the warp's blocks (at 256 four m-tiles, 64
-//   blocks, a read: 256 KB per 64 blocks instead of the float32 parts'
-//   768 KB per 8); the transposed float32 parts only by the rescue;
-// - symbols are placed with atomicOr: each field (code | payload | run,
-//   at most 16 + 16 + 9 bits) touches at most three 32-bit words and
-//   fields never share a bit, so the result does not depend on the order
-//   of the atomics.
+// - A persistent grid of (SMs x CTAs an SM) CTAs of 256 threads; CTA c
+//   takes stripes c, c + grid, ... (stripes are equal in size, so a counter
+//   would balance nothing more; a CTA a stripe measured slower). A stripe
+//   is walked in tiles of kTile blocks (256 at n2 16, 128 at 64, 64 at
+//   256), so shared memory is a constant of n2 and a stripe may be any
+//   width. The next tile's pixels (in this
+//   stripe or the CTA's next one) are copied by cp.async into the pixel
+//   buffer as soon as the rescue has read it, so their DRAM latency
+//   overlaps this tile's entropy stage.
+// - Per tile: the certified transform of transform_core.cuh into int16
+//   coefficient rows (16 bytes of padding a row, so lanes that read
+//   neighbouring blocks hit distinct banks), the rescue list worked through
+//   by the whole CTA.
+// - The entropy stage runs in rounds of 256 segments, one a thread: a
+//   segment is kL consecutive zigzag positions of one block (16 at n2 16
+//   and 64, 32 at 256). Threads take the segments position-major (thread =
+//   g * kE + b for segment g of block b), so a warp's 32 lanes hold the
+//   same positions of 32 blocks and similar work: the low-frequency
+//   segments, where most symbols are, share warps, and warps of the high
+//   positions finish early and give their issue slots to other CTAs.
+//   - mask: each thread reads its segment (16-byte loads) into a bit mask
+//     of nonzero positions; DC prediction is computed here from the raw
+//     DCs (the coefficient rows are never rewritten);
+//   - symbols: each thread walks its mask's set bits, two a step so that
+//     their table lookups overlap (the run of a symbol is the gap to the
+//     previous nonzero, in its own or an earlier segment of the block; the
+//     walk is compiled for each mode and run field), and appends
+//     code | payload and the run to a 64-bit bit writer, which stores
+//     each finished 32-bit word into the segment's slot of a
+//     shared-memory staging window (plain stores; a slot holds
+//     the segment's worst case, kL x (16 + 16 + run field) bits, so it
+//     never overflows). Each symbol is computed once;
+//   - scan: a CTA-wide exclusive scan of the segments' bit totals in
+//     stream order (a warp scan, then the eight warp totals), which also
+//     gives the block bit totals;
+//   - gather: each word of the stripe is built and stored (4 bytes,
+//     coalesced across the warp) by the segment that holds its first bit,
+//     which reads on through the staged segments after it (funnel shifts)
+//     for the word's tail: no search, and every word has one owner. The
+//     round's partial last word is carried in shared memory into the next
+//     round's first word, so no word is written twice and none is read
+//     back. After the stripe's last round the words past its payload are
+//     zeroed with 16-byte streaming stores: the buffer's zeros are written
+//     in the same pass, never first.
+//   No global atomic is used, and each output word is stored exactly once.
+// - Words are stored with their 16-bit halves swapped (see bindings.h).
 
 #include "bindings.h"
 #include "transform_core.cuh"
@@ -61,183 +88,237 @@ constexpr int kCategory = 0, kDirect = 1, kNone = 2;
 // the wrapper checks the 512-entry table).
 constexpr int kDirectVmin = -255;
 constexpr int kDirectEsc = 511;
-// Shared-memory table slots: value lengths and codes (512 each), run
-// lengths and codes (65 each), padded to 16 bytes.
+// Shared-memory tables, one int an entry, (length << 16) | code: the value
+// table (512 entries at most) and the run table (65), padded to 16 bytes.
 constexpr int kMaxValues = 512;
 constexpr int kRunAlphabet = 65;
-constexpr int kTabInts = 2 * kMaxValues + 2 * kRunAlphabet + 2;
+constexpr int kTabInts = kMaxValues + kRunAlphabet + 3;
+constexpr int kMaxCodeBits = 16;  // canonical codes are at most 16 bits
 
 template <int N2>
 struct Shape {
   static_assert(N2 == 16 || N2 == 64 || N2 == 256, "n2 16, 64 or 256");
-  static constexpr int kV = N2 >= 32 ? N2 / 32 : 1;   // values a lane holds
-  static constexpr int kSeg = N2 >= 32 ? 32 : N2;     // lanes a block spans
-  static constexpr int kPerWarp = 32 / kSeg;          // blocks a warp holds
-  static constexpr int kTile = N2 == 256 ? 64 : 128;  // blocks a tile
-  static constexpr int kP = N2 < 32 ? 32 : N2;        // a packed row
-  static constexpr int kRows = kTile * N2 / kP;       // packed rows a tile
+  static constexpr int kTile = N2 == 16 ? 256 : N2 == 64 ? 128 : 64;
+  static constexpr int kL = N2 == 256 ? 32 : 16;  // positions a segment
+  static constexpr int kG = N2 / kL;              // segments a block
+  static constexpr int kE = kThreads / kG;        // blocks a round
+  // A segment's worst case: every position a symbol of a 16-bit code, a
+  // 16-bit payload (ESC or category 15) and the run field (a 16-bit code
+  // under coded runs, which n2 256 does not take; else run_field_bits).
+  static constexpr int kRunWorst = N2 <= 64 ? kMaxCodeBits : 9;
+  static constexpr int kSegWords = (kL * (32 + kRunWorst) + 31) / 32;
+  static constexpr int kSlot = kSegWords | 1;  // odd: lanes' slots spread banks
+  static constexpr int kZRow = N2 + 8;         // int16 a coefficient row
+  static constexpr int kP = N2 < 32 ? 32 : N2;  // a packed pixel row
+  static constexpr int kRows = kTile * N2 / kP;
+  static constexpr int kMinBlocks = N2 == 16 ? 4 : N2 == 64 ? 3 : 2;
   using Mma = dct::MmaTile<kP, kRows, kP == 256 ? 4 : 2, kThreads>;
-  // tables + block scalars, int16 coefficients, pixels, rescue list, count
-  static constexpr int kBytes = (kTabInts + 3 * kTile) * 4 +
-                                kTile * N2 * 2 + kRows * Mma::kStride +
-                                kTile * N2 * 2 + 16;
-  static_assert(kTile % 4 == 0, "16-byte aligned coefficient rows");
+  // shared memory, in bytes: tables, per-segment masks, bits and offsets,
+  // warp totals and carries, coefficient rows, pixels, staging (which the
+  // rescue list shares: the list is dead before the first round's symbols)
+  static constexpr int kScalars = 3 * kThreads + 16 + kWarps + 4;
+  static constexpr int kZBytes = kTile * kZRow * 2;
+  static constexpr int kPxBytes = kRows * Mma::kStride;
+  static constexpr int kStageBytes = (kThreads * kSlot + 4) * 4;
+  static constexpr int kBytes =
+      (kTabInts + kScalars) * 4 + kZBytes + kPxBytes + kStageBytes;
+  static_assert(kTile % kE == 0 && kL % 8 == 0 && kTile <= kThreads, "tiling");
+  static_assert(kTile * N2 * 2 <= kStageBytes, "the rescue list fits");
+  static_assert(kZBytes % 16 == 0 && kPxBytes % 16 == 0, "16-byte rows");
 };
 
-// Coefficients of the certified tile into the tile's int16 buffer.
+// Coefficients of the certified tile into the tile's int16 rows.
+template <int N2>
 struct SmemStore {
   int16_t* zz;
+  __device__ __forceinline__ int at(int idx) const {
+    return idx + idx / N2 * (Shape<N2>::kZRow - N2);
+  }
   __device__ __forceinline__ void pair(int idx, int q0, int q1) {
-    *reinterpret_cast<unsigned*>(zz + idx) =
+    *reinterpret_cast<unsigned*>(zz + at(idx)) =
         static_cast<unsigned>(static_cast<uint16_t>(q0)) |
         static_cast<unsigned>(static_cast<uint16_t>(q1)) << 16;
   }
   __device__ __forceinline__ void one(int idx, int q) {
-    zz[idx] = static_cast<int16_t>(q);
+    zz[at(idx)] = static_cast<int16_t>(q);
   }
 };
 
 struct Tables {
-  const int* val_len;
-  const int* val_code;
-  const int* run_len;
-  const int* run_code;
-  int mode;
-  int run_bits;  // the fixed run field's width
-  bool coded_runs;
+  const unsigned* val;  // (length << 16) | code
+  const unsigned* run;  // the same, under coded runs
+  int run_bits;         // the fixed run field's width
 };
 
-struct Symbol {
-  unsigned long long value;  // code | payload | run, MSB first
-  int bits;                  // 0 for a position that emits nothing
+// The MSB-first bits of one segment, in 32-bit words of its staging slot.
+struct BitWriter {
+  unsigned long long acc = 0;  // the pending bits are the low n
+  int n = 0;                   // < 32 between calls
+  int words = 0;
+  int total = 0;
+  unsigned* slot;
+
+  // Append the low `bits` (<= 32) bits of v, which holds no bit above them.
+  template <int MAX_WORDS>
+  __device__ __forceinline__ void put(unsigned v, int bits) {
+    acc = (acc << bits) | v;
+    n += bits;
+    total += bits;
+    if (n >= 32) {
+      n -= 32;
+      if (words < MAX_WORDS) slot[words] = static_cast<unsigned>(acc >> n);
+      ++words;
+    }
+  }
+  template <int MAX_WORDS>
+  __device__ __forceinline__ void finish() {
+    if (n && words < MAX_WORDS)
+      slot[words] = static_cast<unsigned>(acc << (32 - n));
+  }
 };
 
 // The fields of a symbol of value v with `run` zeros before it
-// (dct_tpu_torch/ops/bitstream.py symbol_chunks):
+// (dct_tpu_torch/ops/bitstream.py symbol_chunks), MSB first:
 //   category: code(cat) | the cat low bits of v (of v + 2^cat - 1 below 0)
 //   direct:   code(v - vmin), or code(ESC) | v as 16 raw bits
 //   none:     v as 16 raw bits
 // then the run, in run_bits bits or as its canonical code.
-__device__ __forceinline__ Symbol make_symbol(int v, int run,
-                                              const Tables& t) {
-  unsigned long long code;
-  int len, plen = 0;
-  unsigned payload = 0u;
-  if (t.mode == kCategory) {
+struct Fields {
+  unsigned head, run;  // code | payload (at most 16 + 16 bits); the run
+  int head_bits, run_bits;
+};
+
+template <int MODE, bool CODED>
+__device__ __forceinline__ Fields symbol_fields(int v, int run,
+                                                const Tables& t) {
+  unsigned e, payload = 0u;
+  int plen = 0;
+  if constexpr (MODE == kCategory) {
     const int a = v < 0 ? -v : v;
     const int cat = min(a ? 32 - __clz(a) : 0, 15);
     const unsigned span = (1u << cat) - 1u;
     payload = static_cast<unsigned>(v < 0 ? v + static_cast<int>(span) : v) &
               span;
     plen = cat;
-    code = static_cast<unsigned>(t.val_code[cat]);
-    len = t.val_len[cat];
-  } else if (t.mode == kDirect) {
+    e = t.val[cat];
+  } else if constexpr (MODE == kDirect) {
     const int s = v - kDirectVmin;
     const bool esc = s < 0 || s >= kDirectEsc;
-    const int idx = esc ? kDirectEsc : s;
-    code = static_cast<unsigned>(t.val_code[idx]);
-    len = t.val_len[idx];
+    e = t.val[esc ? kDirectEsc : s];
     if (esc) {
       payload = static_cast<unsigned>(v) & 0xFFFFu;
       plen = 16;
     }
   } else {
-    code = static_cast<unsigned>(v) & 0xFFFFu;
-    len = 16;
+    e = 16u << 16 | (static_cast<unsigned>(v) & 0xFFFFu);
   }
-  int lr;
-  unsigned rv;
-  if (t.coded_runs) {
-    lr = t.run_len[run];
-    rv = static_cast<unsigned>(t.run_code[run]);
-  } else {
-    lr = t.run_bits;
-    rv = static_cast<unsigned>(run);
+  Fields f{((e & 0xFFFFu) << plen) | payload, static_cast<unsigned>(run),
+           static_cast<int>(e >> 16) + plen, t.run_bits};
+  if constexpr (CODED) {
+    const unsigned r = t.run[run];
+    f.run = r & 0xFFFFu;
+    f.run_bits = static_cast<int>(r >> 16);
   }
-  return Symbol{(((code << plen) | payload) << lr) | rv, len + plen + lr};
+  return f;
 }
 
-// Positional RLE (dct_tpu/ops/rle.py rle_encode_positional): position p
-// of an N2-coefficient block holding v, pnz the last nonzero position
-// before p (-1 for none). Every nonzero value is a symbol; a block whose
-// last position is zero ends in a terminal symbol carrying the trailing
-// run + 1 (n2 for an all-zero block).
-template <int N2>
-__device__ __forceinline__ Symbol symbol_at(int v, int p, int pnz,
-                                            const Tables& t) {
-  if (v == 0 && p != N2 - 1) return Symbol{0ull, 0};
-  return make_symbol(v, p - pnz - 1 + (v == 0 ? 1 : 0), t);
-}
-
-// The symbols of the kPerWarp blocks of the tile from tile-local block bw
-// on (n blocks in the tile). n2 >= 64: symbol i of a lane is position
-// i * 32 + lane of block bw. n2 = 16: lane l holds position l % 16 of
-// block bw + l / 16; a block past n gives no symbols.
-template <int N2>
-__device__ __forceinline__ void block_symbols(
-    const int16_t* __restrict__ s_zz, int bw, int n, int lane,
-    const Tables& t, Symbol (&s)[Shape<N2>::kV]) {
-  using S = Shape<N2>;
-  if constexpr (S::kPerWarp > 1) {
-    const int b = bw + lane / S::kSeg, p = lane % S::kSeg;
-    const bool live = b < n;
-    const int v = live ? s_zz[b * N2 + p] : 0;
-    const unsigned seg = (__ballot_sync(kFull, v != 0) >> (lane - p)) &
-                         ((1u << S::kSeg) - 1u);
-    const unsigned below = seg & ((1u << p) - 1u);
-    const int pnz = below ? 31 - __clz(below) : -1;
-    s[0] = live ? symbol_at<N2>(v, p, pnz, t) : Symbol{0ull, 0};
-  } else {
-    int v[S::kV];
-    unsigned m[S::kV];
-#pragma unroll
-    for (int i = 0; i < S::kV; ++i) {
-      v[i] = s_zz[bw * N2 + i * 32 + lane];
-      m[i] = __ballot_sync(kFull, v[i] != 0);
+// A segment's symbols into its bit writer: each set bit of m (position
+// base_p + i of the block holds a nonzero; pnz the last nonzero before
+// them), then, where `terminal`, the block's terminal symbol (the
+// trailing run + 1). Two symbols a step, so the table lookups of both
+// overlap; only the bit writer's appends are serial.
+template <int MODE, bool CODED, int N2, int MAX_WORDS>
+__device__ __forceinline__ void segment_symbols(BitWriter& w, unsigned m,
+                                                int pnz, bool terminal,
+                                                const int16_t* zrow,
+                                                int base_p, int dc,
+                                                const Tables& t) {
+  while (m) {
+    const int p0 = base_p + __ffs(m) - 1;
+    m &= m - 1u;
+    const int i1 = __ffs(m) - 1;  // -1: p0 was the last
+    m &= m - 1u;
+    const int p1 = i1 < 0 ? p0 : base_p + i1;
+    const Fields f0 = symbol_fields<MODE, CODED>(
+        p0 ? static_cast<int>(zrow[p0]) : dc, p0 - pnz - 1, t);
+    const Fields f1 = symbol_fields<MODE, CODED>(static_cast<int>(zrow[p1]),
+                                                 i1 < 0 ? 0 : p1 - p0 - 1, t);
+    w.put<MAX_WORDS>(f0.head, f0.head_bits);
+    w.put<MAX_WORDS>(f0.run, f0.run_bits);
+    if (i1 >= 0) {
+      w.put<MAX_WORDS>(f1.head, f1.head_bits);
+      w.put<MAX_WORDS>(f1.run, f1.run_bits);
     }
-    int last = -1;  // the last nonzero position of the words before i
-#pragma unroll
-    for (int i = 0; i < S::kV; ++i) {
-      const unsigned below = m[i] & ((1u << lane) - 1u);
-      const int pnz = below ? 32 * i + 31 - __clz(below) : last;
-      s[i] = symbol_at<N2>(v[i], 32 * i + lane, pnz, t);
-      if (m[i]) last = 32 * i + 31 - __clz(m[i]);
-    }
+    pnz = p1;
+  }
+  if (terminal) {
+    const Fields f = symbol_fields<MODE, CODED>(0, N2 - 1 - pnz, t);
+    w.put<MAX_WORDS>(f.head, f.head_bits);
+    w.put<MAX_WORDS>(f.run, f.run_bits);
   }
 }
 
-// Inclusive scan over segments of W lanes.
-template <int W>
-__device__ __forceinline__ int seg_inclusive_scan(int v, int lane) {
+__device__ __forceinline__ int warp_inclusive_scan(int v, int lane) {
 #pragma unroll
-  for (int d = 1; d < W; d <<= 1) {
-    const int u = __shfl_up_sync(kFull, v, d, W);
-    if ((lane & (W - 1)) >= d) v += u;
+  for (int d = 1; d < 32; d <<= 1) {
+    const int u = __shfl_up_sync(kFull, v, d);
+    if (lane >= d) v += u;
   }
   return v;
 }
 
-// OR a field of s.bits bits into the MSB-first word stream at bit `off`.
-// Words are stored with their 16-bit halves swapped (see bindings.h).
-__device__ __forceinline__ void place(Symbol s, long long off,
-                                      unsigned* words, int n_words) {
-  if (s.bits == 0) return;
-  const int w0 = static_cast<int>(off >> 5);
-  const int end = static_cast<int>(off & 31) + s.bits;  // <= 31 + 41 < 96
-#pragma unroll
-  for (int i = 0; i < 3; ++i) {
-    const int sh = 32 * (i + 1) - end;  // left shift placing the field's LSB
-    if (sh >= 32) break;                // the field ended in an earlier word
-    const unsigned w = sh >= 0 ? static_cast<unsigned>(s.value << sh)
-                               : (-sh >= 64 ? 0u
-                                            : static_cast<unsigned>(s.value >> -sh));
-    if (w != 0u && w0 + i < n_words) atomicOr(words + w0 + i, __funnelshift_l(w, w, 16));
+// A stream word (MSB-first) as stored: its two units with halves swapped.
+__device__ __forceinline__ unsigned stored(unsigned w) {
+  return __funnelshift_l(w, w, 16);
+}
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
+               "l"(gmem)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// Start copying n blocks of N2 pixels from src into the tile's packed rows.
+template <int N2>
+__device__ __forceinline__ void load_pixels(uint8_t* s_px,
+                                            const uint8_t* __restrict__ src,
+                                            int n) {
+  using S = Shape<N2>;
+  for (int i = threadIdx.x; i < n * N2 / 16; i += kThreads) {
+    const int o = 16 * i;  // packed row o / P, byte o % P
+    cp_async16(s_px + o / S::kP * S::Mma::kStride + o % S::kP, src + o);
   }
+  cp_async_commit();
+}
+
+// Zero words [a, e) of a row, 16-byte stores where the addresses allow,
+// streaming (evict-first): nothing here reads them back.
+__device__ void zero_words(unsigned* row, int a, int e) {
+  const int tid = threadIdx.x;
+  int k16 = a + static_cast<int>(
+                    (4 - ((reinterpret_cast<uintptr_t>(row + a) & 15) >> 2)) &
+                    3);
+  if (k16 > e) k16 = e;
+  if (tid < k16 - a) row[a + tid] = 0u;
+  const int n_vec = (e - k16) >> 2;
+  uint4* v = reinterpret_cast<uint4*>(row + k16);
+  for (int i = tid; i < n_vec; i += kThreads)
+    __stcs(v + i, make_uint4(0, 0, 0, 0));
+  const int tail = k16 + 4 * n_vec;
+  if (tid < e - tail) row[tail + tid] = 0u;
 }
 
 template <int N2>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, Shape<N2>::kMinBlocks)
     encode_stripes_kernel(const uint8_t* __restrict__ px,
                           const uint4* __restrict__ frag,
                           const double* __restrict__ cert,
@@ -248,135 +329,272 @@ __global__ void __launch_bounds__(kThreads)
                           const int* __restrict__ val_code, int n_val,
                           const int* __restrict__ run_len,
                           const int* __restrict__ run_code, int run_bits,
-                          int mode, int dc_prediction, int bps,
+                          int mode, int dc_prediction, int n_stripes, int bps,
                           unsigned* __restrict__ words, int n_words,
                           int* __restrict__ stripe_bits,
                           int* __restrict__ block_bits,
                           unsigned long long* __restrict__ rescued) {
   using S = Shape<N2>;
   using M = typename S::Mma;
-  constexpr int T = S::kTile;
+  constexpr int T = S::kTile, L = S::kL, G = S::kG, E = S::kE;
   extern __shared__ __align__(16) int smem[];
-  int* s_tab = smem;
-  int* s_val_len = s_tab;
-  int* s_val_code = s_tab + kMaxValues;
-  int* s_run_len = s_tab + 2 * kMaxValues;
-  int* s_run_code = s_run_len + kRunAlphabet;
-  int* s_bbits = s_tab + kTabInts;  // per-block bit totals of the tile
-  int* s_boff = s_bbits + T;        // per-block exclusive bit offsets
-  int* s_dc = s_boff + T;           // raw DCs of the tile
-  int16_t* s_zz = reinterpret_cast<int16_t*>(s_dc + T);
-  uint8_t* s_px = reinterpret_cast<uint8_t*>(s_zz + T * N2);  // packed rows
-  uint16_t* s_list = reinterpret_cast<uint16_t*>(s_px + S::kRows * M::kStride);
-  int* s_count = reinterpret_cast<int*>(s_list + T * N2);
+  unsigned* s_val = reinterpret_cast<unsigned*>(smem);
+  unsigned* s_run = s_val + kMaxValues;
+  unsigned* s_mask = s_val + kTabInts;  // per segment, stream order
+  int* s_bits = reinterpret_cast<int*>(s_mask + kThreads);
+  int* s_off = s_bits + kThreads;       // kThreads + 1 exclusive offsets
+  int* s_wsum = s_off + kThreads + 16;  // the warps' bit totals
+  unsigned* s_carry = reinterpret_cast<unsigned*>(s_wsum + kWarps);  // 2
+  int* s_count = s_wsum + kWarps + 2;   // the rescue list's length
+  int16_t* s_zz = reinterpret_cast<int16_t*>(smem + kTabInts + S::kScalars);
+  uint8_t* s_px = reinterpret_cast<uint8_t*>(s_zz) + S::kZBytes;
+  unsigned* s_stage = reinterpret_cast<unsigned*>(s_px + S::kPxBytes);
+  uint16_t* s_list = reinterpret_cast<uint16_t*>(s_stage);
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const long long stripe = blockIdx.x;
+  const int g = tid / E, b = tid % E;  // this thread's segment of a round
   const bool adaptive = recip != nullptr;
-  unsigned* row = words + stripe * n_words;
+  const Tables tabs{s_val, s_run, run_bits};
 
-  // ---- 0. zero this stripe's units; load tables ----
-  for (int i = tid; i < n_words; i += kThreads) row[i] = 0u;
-  for (int i = tid; i < n_val; i += kThreads) {
-    s_val_len[i] = val_len[i];
-    s_val_code[i] = val_code[i];
-  }
-  if (run_len != nullptr && tid < kRunAlphabet) {
-    s_run_len[tid] = run_len[tid];
-    s_run_code[tid] = run_code[tid];
-  }
-  const Tables tabs{s_val_len, s_val_code, s_run_len, s_run_code, mode,
-                    run_bits, run_len != nullptr};
+  for (int i = tid; i < n_val; i += kThreads)
+    s_val[i] = static_cast<unsigned>(val_len[i]) << 16 |
+               (static_cast<unsigned>(val_code[i]) & 0xFFFFu);
+  if (run_len != nullptr && tid < kRunAlphabet)
+    s_run[tid] = static_cast<unsigned>(run_len[tid]) << 16 |
+                 (static_cast<unsigned>(run_code[tid]) & 0xFFFFu);
+  if (bps > 0)  // the first tile; the grid has at most n_stripes CTAs
+    load_pixels<N2>(s_px, px + static_cast<long long>(blockIdx.x) * bps * N2,
+                    min(T, bps));
 
-  int base_bits = 0;  // bits of the tiles before (warp 0 keeps it)
-  int prev_dc = 0;    // raw DC of the block before the tile
   long long n_rescued = 0;  // coefficients the chain computed
-  for (int t0 = 0; t0 < bps; t0 += T) {
-    const int n = min(T, bps - t0);
-    const long long blk = stripe * bps + t0;  // the tile's first block
+  for (int stripe = blockIdx.x; stripe < n_stripes; stripe += gridDim.x) {
+    unsigned* row = words + static_cast<long long>(stripe) * n_words;
+    int base = 0;     // the stripe's bits before this round
+    int parity = 0;   // which s_carry holds the word carried in
+    int prev_dc = 0;  // raw DC of the block before the tile (thread 0)
+    for (int t0 = 0; t0 < bps; t0 += T) {
+      const int n = min(T, bps - t0);
+      const long long blk = static_cast<long long>(stripe) * bps + t0;
 
-    // ---- 1. pixels in, the certified transform (kernel A's tile) ----
-    const uint4* src = reinterpret_cast<const uint4*>(px + blk * N2);
-    for (int i = tid; i < n * N2 / 16; i += kThreads) {
-      const int o = 16 * i;  // packed row o / P, byte o % P
-      *reinterpret_cast<uint4*>(s_px + o / S::kP * M::kStride + o % S::kP) =
-          __ldg(src + i);
-    }
-    if (tid == 0) *s_count = 0;
-    __syncthreads();
-    const float* rc = adaptive ? recip + blk : nullptr;
-    SmemStore store{s_zz};
-    dct::mma_tile<M>(s_px, frag,
-                     [&](int r, int c, long long s0, long long s1) {
-                       dct::certify_pair<N2, S::kP>(r, c, s0, s1, n, cert, rc,
-                                                    s_list, s_count, store);
-                     });
-    __syncthreads();
-    const int n_open = *s_count;
-    dct::rescue_tile<N2, S::kP, M::kStride, kThreads>(
-        s_list, n_open, s_px, parts_t, bias, rc, store);
-    n_rescued += n_open;
-    __syncthreads();
-
-    // ---- 2. stripe-local DC DPCM against the previous block's raw DC ----
-    if (dc_prediction) {
-      for (int b = tid; b < n; b += kThreads) s_dc[b] = s_zz[b * N2];
+      // ---- 1. the certified transform (kernel A's tile) ----
+      if (tid == 0) *s_count = 0;
+      cp_async_wait_all();
       __syncthreads();
-      for (int b = tid; b < n; b += kThreads)
-        s_zz[b * N2] = static_cast<int16_t>(s_dc[b] - (b ? s_dc[b - 1] : prev_dc));
+      const float* rc = adaptive ? recip + blk : nullptr;
+      SmemStore<N2> store{s_zz};
+      dct::mma_tile<M>(s_px, frag,
+                       [&](int r, int c, long long s0, long long s1) {
+                         dct::certify_pair<N2, S::kP>(r, c, s0, s1, n, cert,
+                                                      rc, s_list, s_count,
+                                                      store);
+                       });
       __syncthreads();
-      prev_dc = s_dc[n - 1];
-    }
+      const int n_open = *s_count;
+      dct::rescue_tile<N2, S::kP, M::kStride, kThreads>(
+          s_list, n_open, s_px, parts_t, bias, rc, store);
+      n_rescued += n_open;
+      __syncthreads();
 
-    // ---- 3. per block: RLE, fields, block bit totals ----
-    for (int bw = warp * S::kPerWarp; bw < n; bw += kWarps * S::kPerWarp) {
-      Symbol s[S::kV];
-      block_symbols<N2>(s_zz, bw, n, lane, tabs, s);
-      int tot = 0;
+      // ---- 2. the next tile's pixels, in flight during the entropy stage
+      {
+        int nt0 = t0 + T, ns = stripe;
+        if (nt0 >= bps) {
+          nt0 = 0;
+          ns += gridDim.x;
+        }
+        if (ns < n_stripes)
+          load_pixels<N2>(
+              s_px, px + (static_cast<long long>(ns) * bps + nt0) * N2,
+              min(T, bps - nt0));
+      }
+
+      // ---- 3. the entropy stage, in rounds of E blocks ----
+      for (int rb = 0; rb < n; rb += E) {
+        const int bt = rb + b;  // this thread's block in the tile
+        const bool live = bt < n;
+        const int16_t* zrow = s_zz + bt * S::kZRow;
+
+        // mask of the segment's nonzero positions; DC prediction
+        unsigned m = 0u;
+        int dc = 0;
+        if (live) {
+          const uint4* src = reinterpret_cast<const uint4*>(zrow + g * L);
 #pragma unroll
-      for (int i = 0; i < S::kV; ++i) tot += s[i].bits;
+          for (int i = 0; i < L / 8; ++i) {
+            const uint4 q = src[i];
+            const unsigned w4[4] = {q.x, q.y, q.z, q.w};
 #pragma unroll
-      for (int d = S::kSeg / 2; d > 0; d >>= 1)
-        tot += __shfl_xor_sync(kFull, tot, d);
-      const int b = bw + lane / S::kSeg;
-      if (lane % S::kSeg == 0 && b < n) {
-        s_bbits[b] = tot;
-        block_bits[blk + b] = tot;
+            for (int j = 0; j < 4; ++j) {
+              const int at = 8 * i + 2 * j;  // positions at, at + 1
+              m |= static_cast<unsigned>((w4[j] & 0xFFFFu) != 0u) << at;
+              m |= static_cast<unsigned>((w4[j] >> 16) != 0u) << (at + 1);
+            }
+          }
+          if (g == 0) {
+            dc = zrow[0];
+            if (dc_prediction)
+              dc -= bt ? static_cast<int>(zrow[-S::kZRow]) : prev_dc;
+            m = (m & ~1u) | static_cast<unsigned>(dc != 0);
+          }
+        }
+        if (tid == 0 && rb == 0)
+          prev_dc = s_zz[(n - 1) * S::kZRow];  // for the next tile
+        s_mask[b * G + g] = m;
+        __syncthreads();  // masks in; the previous round's gather is done
+
+        // symbols: each set bit of the mask, then the block's terminal
+        // symbol (the trailing run + 1) where its last position is zero
+        BitWriter wr;
+        wr.slot = s_stage + tid * S::kSlot;
+        if (live) {
+          int pnz = -1;  // the last nonzero position before this one
+          for (int gg = g - 1; gg >= 0; --gg) {
+            const unsigned mm = s_mask[b * G + gg];
+            if (mm) {
+              pnz = gg * L + 31 - __clz(mm);
+              break;
+            }
+          }
+          const bool terminal = g == G - 1 && !(m >> (L - 1) & 1u);
+          constexpr int W = S::kSegWords;
+          switch (mode * 2 + (run_len != nullptr)) {
+            case 2 * kCategory:
+              segment_symbols<kCategory, false, N2, W>(wr, m, pnz, terminal,
+                                                       zrow, g * L, dc, tabs);
+              break;
+            case 2 * kCategory + 1:
+              segment_symbols<kCategory, true, N2, W>(wr, m, pnz, terminal,
+                                                      zrow, g * L, dc, tabs);
+              break;
+            case 2 * kDirect:
+              segment_symbols<kDirect, false, N2, W>(wr, m, pnz, terminal,
+                                                     zrow, g * L, dc, tabs);
+              break;
+            case 2 * kDirect + 1:
+              segment_symbols<kDirect, true, N2, W>(wr, m, pnz, terminal,
+                                                    zrow, g * L, dc, tabs);
+              break;
+            case 2 * kNone:
+              segment_symbols<kNone, false, N2, W>(wr, m, pnz, terminal,
+                                                   zrow, g * L, dc, tabs);
+              break;
+            default:
+              segment_symbols<kNone, true, N2, W>(wr, m, pnz, terminal,
+                                                  zrow, g * L, dc, tabs);
+          }
+          wr.finish<W>();
+        }
+        s_bits[b * G + g] = wr.total;
+        __syncthreads();
+
+        // exclusive scan of the segments' bits in stream order; blocks'
+        // bit totals
+        const int v = s_bits[tid];
+        const int incl = warp_inclusive_scan(v, lane);
+        if (lane == 31) s_wsum[warp] = incl;
+        if (tid < E && rb + tid < n) {
+          int tot = 0;
+#pragma unroll
+          for (int k = 0; k < G; ++k) tot += s_bits[tid * G + k];
+          block_bits[blk + rb + tid] = tot;
+        }
+        __syncthreads();
+        const int ws = lane < kWarps ? s_wsum[lane] : 0;
+        const int wi = warp_inclusive_scan(ws, lane);
+        const int before = __shfl_sync(kFull, wi - ws, warp);
+        s_off[tid] = before + incl - v;
+        if (tid == kThreads - 1) s_off[kThreads] = before + incl;
+        __syncthreads();
+
+        // gather: each segment stores the words whose first bit of this
+        // round it holds (so every word has one owner), reading on into
+        // the segments after it for the word's tail
+        const int bits = s_off[kThreads];
+        const int end = base + bits;
+        const bool last = t0 + T >= bps && rb + E >= n;  // the stripe's
+        const int w_lo = base >> 5;
+        const int w_stop = last ? (end + 31) >> 5 : end >> 5;  // stored below
+        if (v > 0) {
+          const int off = before + incl - v;  // this segment's first bit
+          int j = off ? (base + off + 31) >> 5 : w_lo;
+          const int j_hi = (base + off + v - 1) >> 5;
+          for (; j <= j_hi; ++j) {
+            const int ws0 = 32 * j - base;  // the word's first bit
+            const int hi = min(ws0 + 32, bits);
+            unsigned word = j == w_lo && (base & 31) ? s_carry[parity] : 0u;
+            // segment k holds bits [k_off, k_end) of the round
+            int k = tid, k_off = off, k_end = off + v;
+            for (int pos = max(ws0, 0);;) {
+              const int sq = pos - k_off;
+              const int take = min(k_end, hi) - pos;
+              const int slot = (k % G) * E + k / G;
+              const unsigned* st = s_stage + slot * S::kSlot + (sq >> 5);
+              unsigned f = __funnelshift_l(st[1], st[0], sq & 31);
+              f = f >> (32 - take) << (32 - take);
+              word |= f >> (pos - ws0);
+              pos += take;
+              if (pos >= hi) break;
+              do {  // the next segment that holds bits
+                ++k;
+                k_off = k_end;
+                k_end = s_off[k + 1];
+              } while (k_end == k_off);
+            }
+            if (j < w_stop) {
+              if (j < n_words) row[j] = stored(word);
+            } else {
+              s_carry[parity ^ 1] = word;  // the partial last word
+            }
+          }
+        }
+        if (bits == 0 && last && (base & 31) && tid == 0 && w_lo < n_words)
+          row[w_lo] = stored(s_carry[parity]);  // (tables with empty codes)
+        base = end;
+        if (bits) parity ^= 1;
       }
     }
-    __syncthreads();
-
-    // ---- 4. exclusive scan of the tile's block totals, on the base ----
-    if (warp == 0) {
-      for (int c = 0; c < n; c += 32) {
-        const int idx = c + lane;
-        const int v = idx < n ? s_bbits[idx] : 0;
-        const int incl = seg_inclusive_scan<32>(v, lane);
-        if (idx < n) s_boff[idx] = base_bits + incl - v;
-        base_bits += __shfl_sync(kFull, incl, 31);
-      }
-    }
-    __syncthreads();
-
-    // ---- 5. per-symbol offsets (in-block scan) and placement ----
-    for (int bw = warp * S::kPerWarp; bw < n; bw += kWarps * S::kPerWarp) {
-      Symbol s[S::kV];
-      block_symbols<N2>(s_zz, bw, n, lane, tabs, s);
-      const int b = bw + lane / S::kSeg;
-      long long off = b < n ? s_boff[b] : 0;
-#pragma unroll
-      for (int i = 0; i < S::kV; ++i) {
-        const int incl = seg_inclusive_scan<S::kSeg>(s[i].bits, lane);
-        place(s[i], off + incl - s[i].bits, row, n_words);
-        off += __shfl_sync(kFull, incl, 31);  // kV > 1 only at n2 >= 64
-      }
-    }
-    __syncthreads();  // the tile's buffers are free for the next one
+    // the words past the payload, zeros; the stripe's bits
+    zero_words(row, min((base + 31) >> 5, n_words), n_words);
+    if (tid == 0) stripe_bits[stripe] = base;
   }
-  if (tid == 0) {
-    stripe_bits[stripe] = base_bits;
-    if (n_rescued) atomicAdd(rescued, static_cast<unsigned long long>(n_rescued));
+  if (tid == 0 && n_rescued)
+    atomicAdd(rescued, static_cast<unsigned long long>(n_rescued));
+}
+
+// Per device: SMs and CTAs an SM for each n2 (0 until first asked).
+int g_sms[64];
+int g_ctas[64][3];
+
+template <int N2>
+int n2_slot() {
+  return N2 == 16 ? 0 : N2 == 64 ? 1 : 2;
+}
+
+template <int N2>
+cudaError_t occupancy(int& sms, int& ctas) {
+  constexpr int smem = Shape<N2>::kBytes;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= 64) return cudaErrorInvalidDevice;
+  if (g_ctas[dev][n2_slot<N2>()] == 0) {
+    err = cudaFuncSetAttribute(encode_stripes_kernel<N2>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               smem);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&g_sms[dev],
+                                   cudaDevAttrMultiProcessorCount, dev);
+    int c = 0;
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &c, encode_stripes_kernel<N2>, kThreads, smem);
+    if (err != cudaSuccess) return err;
+    if (c < 1) return cudaErrorInvalidConfiguration;
+    g_ctas[dev][n2_slot<N2>()] = c;
   }
+  sms = g_sms[dev];
+  ctas = g_ctas[dev][n2_slot<N2>()];
+  return cudaSuccess;
 }
 
 template <int N2>
@@ -387,22 +605,37 @@ int launch(const void* px, const void* frag, const void* cert,
            int dc_prediction, int n_stripes, int bps, void* words,
            int n_words, void* stripe_bits, void* block_bits, void* rescued,
            cudaStream_t stream) {
-  constexpr int smem = Shape<N2>::kBytes;
-  auto kernel = encode_stripes_kernel<N2>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  int sms = 0, ctas = 0;
+  cudaError_t err = occupancy<N2>(sms, ctas);
   if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<n_stripes, kThreads, smem, stream>>>(
+  const int grid = min(n_stripes, sms * ctas);
+  encode_stripes_kernel<N2><<<grid, kThreads, Shape<N2>::kBytes, stream>>>(
       static_cast<const uint8_t*>(px), static_cast<const uint4*>(frag),
       static_cast<const double*>(cert), static_cast<const float*>(parts_t),
       static_cast<const float*>(bias), static_cast<const float*>(recip),
       static_cast<const int*>(val_len), static_cast<const int*>(val_code),
       n_val, static_cast<const int*>(run_len),
-      static_cast<const int*>(run_code), run_bits, mode, dc_prediction, bps,
-      static_cast<unsigned*>(words), n_words, static_cast<int*>(stripe_bits),
-      static_cast<int*>(block_bits),
+      static_cast<const int*>(run_code), run_bits, mode, dc_prediction,
+      n_stripes, bps, static_cast<unsigned*>(words), n_words,
+      static_cast<int*>(stripe_bits), static_cast<int*>(block_bits),
       static_cast<unsigned long long*>(rescued));
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int N2>
+int info(int* out) {
+  int sms = 0, ctas = 0;
+  cudaError_t err = occupancy<N2>(sms, ctas);
+  cudaFuncAttributes a{};
+  if (err == cudaSuccess)
+    err = cudaFuncGetAttributes(&a, encode_stripes_kernel<N2>);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  out[0] = sms;
+  out[1] = ctas;
+  out[2] = a.numRegs;
+  out[3] = Shape<N2>::kBytes;
+  out[4] = static_cast<int>(a.localSizeBytes);
+  return 0;
 }
 
 }  // namespace
@@ -418,7 +651,8 @@ DCT_EXPORT int dct_encode_stripes(const void* px, const void* frag,
                                   int n_words, void* stripe_bits,
                                   void* block_bits, void* rescued,
                                   void* stream) {
-  if (n_val < 0 || n_val > kMaxValues || mode < kCategory || mode > kNone)
+  if (n_val < 0 || n_val > kMaxValues || mode < kCategory || mode > kNone ||
+      run_bits < 0 || run_bits > kMaxCodeBits)
     return static_cast<int>(cudaErrorInvalidValue);
   if (n_stripes == 0) return static_cast<int>(cudaSuccess);
   auto s = static_cast<cudaStream_t>(stream);
@@ -433,6 +667,16 @@ DCT_EXPORT int dct_encode_stripes(const void* px, const void* frag,
     case 256: DCT_B(256);
   }
 #undef DCT_B
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+DCT_EXPORT int dct_encode_stripes_info(int n2, void* out) {
+  int* o = static_cast<int*>(out);
+  switch (n2) {
+    case 16: return info<16>(o);
+    case 64: return info<64>(o);
+    case 256: return info<256>(o);
+  }
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -42,6 +42,7 @@ _SIGNATURES = {
         "dct_encode_stripes": [_p, _p, _p, _p, _p, _p, _p, _p, _i, _p, _p,
                                _i, _i, _i, _i, _i, _i, _p, _i, _p, _p, _p,
                                _p],
+        "dct_encode_stripes_info": [_i, _p],
     },
     "entropy_decode": {
         "dct_entropy_decode": [_p, _ll, _p, _p, _i, _p, _i, _p, _ll, _i, _i,

@@ -13,10 +13,15 @@ width. 2x2 blocks raise NotImplementedError; the codec encodes them
 through the staged path with kernel E (models/codec.py fused_kernel_ok),
 as the reference does. The kernel's transform is kernel A's tensor-core
 tile (csrc/transform_core.cuh), so its integers are A's, those of the
-float32 chain testing.encode_fma_chain.
+float32 chain testing.encode_fma_chain. A persistent grid of CTAs
+(kernel_info gives its shape) walks the stripes in tiles of
+TILE_BLOCKS[n2] blocks, each entropy-coded in rounds of 256 segments of
+16 zigzag positions (32 at n2 256) a thread.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -31,6 +36,8 @@ KERNEL_MODES = ("category", "direct", "none")
 # [-255, 255] (models/codec.py DIRECT_VMIN) + ESC; no table in "none" mode
 TABLE_ENTRIES = {"category": 16, "direct": 512, "none": 0}
 RUN_TABLE_ENTRIES = 65
+# blocks a tile (csrc/fused_encode.cu Shape::kTile), for tests of its edges
+TILE_BLOCKS = {16: 256, 64: 128, 256: 64}
 
 
 def encode_stripes_plain(
@@ -49,6 +56,23 @@ def encode_stripes_plain(
         zz = codec.dc_predict(zz, n_stripes)
     return codec.encode_pack_plain(rle.rle_encode_positional(zz), cfg,
                                    n_stripes, ops)
+
+
+def kernel_info(n2: int, device=None) -> dict:
+    """The kernel's launch shape on a card: its SMs, CTAs an SM (the
+    persistent grid is their product, or the stripe count if smaller),
+    registers a thread, dynamic shared memory and local (spilled) bytes a
+    thread."""
+    if n2 not in KERNEL_N2:
+        raise NotImplementedError(f"fused encode kernel takes n2 in "
+                                  f"{KERNEL_N2}, got {n2}")
+    lib = _build.library("fused_encode")
+    out = (ctypes.c_int * 5)()
+    with torch.cuda.device(device):
+        rc = lib.dct_encode_stripes_info(n2, ctypes.addressof(out))
+    _build.check(lib, rc, f"encode_stripes info (n2={n2})")
+    return dict(zip(("sms", "ctas_per_sm", "registers", "shared_bytes",
+                     "local_bytes"), out))
 
 
 def _check_operands(pixels: torch.Tensor, cfg: CodecConfig, n_stripes: int,

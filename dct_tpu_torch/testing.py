@@ -59,6 +59,7 @@ from dct_tpu_torch.ops import huffman as hf
 from dct_tpu_torch.ops import rle, transform
 from dct_tpu_torch.parallel import mesh as meshlib
 from dct_tpu_torch.parallel import shard_encode
+from dct_tpu_torch.utils import image_io
 
 ENCODE_TIE_TOL = 1e-6
 DECODE_TIE_TOL = 1e-3
@@ -340,6 +341,22 @@ def indexed_stream(zz: torch.Tensor, cfg: CodecConfig, n_stripes: int):
     return (stripes, block_bits.cpu().numpy().reshape(-1).astype(np.uint16),
             table, run_table)
 
+
+
+def densest_stream(block_size: int, h: int, w: int, seed: int = 0):
+    """The densest stream real pixels can give kernel B: an (h, w) "noise"
+    image at q100 (nearly every coefficient nonzero) in direct mode with
+    every value code 16 bits long, and at n2 <= 64 coded runs with every
+    run code 16 bits long, so each symbol is a 16-bit code, 16 raw bits
+    where its value leaves [-255, 255] (ESC), and the longest run field
+    units_per_block_worst allows for -> (cfg, image, table, run_table)."""
+    coded = block_size * block_size <= 64
+    cfg = CodecConfig(block_size=block_size, quality=100,
+                      huffman_mode="direct", coded_runs=coded)
+    table = hf.CanonicalTable(np.full(-2 * codec.DIRECT_VMIN + 2, 16))
+    run_table = hf.CanonicalTable(np.full(65, 16)) if coded else None
+    return (cfg, image_io.synthetic_image(h, w, "noise", seed=seed), table,
+            run_table)
 
 
 # ---------------------------------------------------------------------------

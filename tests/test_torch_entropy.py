@@ -19,7 +19,8 @@ from dct_tpu.ops import huffman as ref_hf
 from dct_tpu.ops import rle as ref_rle
 from dct_tpu.ops import transform as ref_tf
 from dct_tpu.utils import image_io
-from dct_tpu_torch import CodecConfig, tables
+from dct_tpu_torch import CodecConfig, tables, testing
+from dct_tpu_torch import native as t_native
 from dct_tpu_torch.models import codec
 from dct_tpu_torch.ops import bitstream as bs
 from dct_tpu_torch.ops import fused_encode_cuda, rle
@@ -217,3 +218,29 @@ def test_plain_stripe_encode_matches_reference_encode_pack(image, case):
     assert packed.units.shape[-1] == ref_packed.units.shape[-1]
     if cfg.adaptive:
         _eq(codec._adaptive(pixels, cfg)[0].numpy(), var_codes)
+
+
+@pytest.mark.parametrize("n", (4, 8, 16))
+def test_densest_stream_decodes_through_both_host_decoders(n):
+    """The plain version of kernel B on testing.densest_stream (q100 noise,
+    direct mode, every code 16 bits, coded runs at n <= 8): its stripes
+    decode to the coefficients through both packages' host decoders."""
+    cfg, img, table, run_table = testing.densest_stream(n, 4 * n, 40 * n,
+                                                        seed=n)
+    ops = tables.build(cfg).with_tables(table, run_table)
+    px = codec.blk.image_to_blocks(torch.from_numpy(img), n).reshape(-1, n * n)
+    n_stripes = img.shape[0] // n
+    packed, _ = fused_encode_cuda.encode_stripes_plain(px, cfg, n_stripes, ops)
+    p = bs.fetch_packed(packed)
+    # 16-bit codes on nearly every position: well past any photo's stream
+    assert p.bit_lengths.max() > 0.6 * 16 * packed.units.shape[1]
+    zz = fused_encode_cuda.transform.encode_blocks(px, cfg, ops).numpy()
+    stripes = bs.stripes_to_bytes(p)
+    bps = px.shape[0] // n_stripes
+    _eq(t_native.unpack_stripes(stripes, bps, n * n, "direct", table,
+                                codec.DIRECT_VMIN, run_table=run_table), zz)
+    _eq(native.unpack_stripes(
+        stripes, bps, n * n, "direct", ref_hf.CanonicalTable(table.lengths),
+        ref_codec.DIRECT_VMIN,
+        run_table=None if run_table is None
+        else ref_hf.CanonicalTable(run_table.lengths)), zz)

@@ -116,12 +116,13 @@ def test_chip_smoke_imports_only_the_port():
 
 
 def test_port_sources_name_no_jax_package_module():
-    """No port source or chip_smoke.py imports dct_tpu (dct_tpu_torch is
-    the port's own)."""
+    """No port source, chip_smoke.py or time_encode.py imports dct_tpu
+    (dct_tpu_torch is the port's own)."""
     pattern = re.compile(r"^\s*(from|import)\s+(dct_tpu|jax|ml_dtypes)\b"
                          r"(?!_torch)", re.M)
     files = sorted((REPO / "dct_tpu_torch").rglob("*.py")) + [
-        REPO / "chip_smoke.py", *(REPO / "examples" / f for f in EXAMPLES)]
+        REPO / "chip_smoke.py", REPO / "time_encode.py",
+        *(REPO / "examples" / f for f in EXAMPLES)]
     hits = [f"{f.relative_to(REPO)}: {m.group(0).strip()}"
             for f in files for m in pattern.finditer(f.read_text())]
     assert hits == []

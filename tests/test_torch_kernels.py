@@ -12,8 +12,11 @@ Tolerances: kernel B is held bit-exact against the plain staged pipeline
 fed kernel A's integers (A and B share one tensor-core tile, whose
 integers are the float32 chain's at every n2; the tile's integer products
 are held equal to int64 products first),
-in every mode at 4x4, 8x8 and 16x16 blocks and on a stripe wider than
-shared memory could hold. A and C are held bit-exact against the float32
+in every mode at 4x4, 8x8 and 16x16 blocks, on a stripe wider than
+shared memory could hold, on stripes of 1-300 blocks around its tile and
+round edges, on more stripes than its persistent grid has CTAs and on the
+densest stream real pixels give (testing.densest_stream): the whole unit
+buffer, its rescue count A's. A and C are held bit-exact against the float32
 chains they promise (dct_tpu_torch.testing encode_fma_chain /
 decode_fma_chain), at every block count, A at 16x16 too; they sum their
 float32 products in another order than the plain version's matrix
@@ -331,10 +334,15 @@ STRIPE_CASES = {
 
 def _stripe_check(cfg, px, scale, n_stripes, ops):
     """Kernel B against the plain staged pipeline fed kernel A's integers:
-    units, stripe bits and block bits exactly equal."""
+    units (the whole buffer, zeros past each stripe's payload included),
+    stripe bits and block bits exactly equal, and B's rescue count A's ->
+    (the plain block bits, the fullest stripe's share of its worst-case
+    buffer)."""
+    _build.reset_rescued()
     packed, bbits = fused_encode_cuda.encode_stripes_fused(
         px, cfg, n_stripes, ops, scale)
     zz = transform_cuda.encode_blocks_kernel(px, cfg, ops, scale)
+    assert _build.rescued("encode_stripes") == _build.rescued("encode_blocks")
     if cfg.dc_prediction:
         zz = codec.dc_predict(zz, n_stripes)
     ref, ref_bbits = codec.encode_pack_plain(rle.rle_encode_positional(zz),
@@ -344,6 +352,10 @@ def _stripe_check(cfg, px, scale, n_stripes, ops):
     np.testing.assert_array_equal(got_h.units, ref_h.units)
     np.testing.assert_array_equal(bbits.cpu(), ref_bbits.cpu())
     assert packed.units.shape == ref.units.shape
+    np.testing.assert_array_equal(packed.units.cpu().to(torch.int32) & 0xFFFF,
+                                  ref.units.cpu().to(torch.int32) & 0xFFFF)
+    fill = got_h.bit_lengths.max() / (16 * packed.units.shape[1])
+    return ref_bbits.cpu().numpy(), float(fill)
 
 
 @pytest.mark.cuda
@@ -431,6 +443,65 @@ def test_stripe_wider_than_shared_memory_encodes(cuda, block_size):
     px, _ = _blocks_and_scale(img, cfg, cuda)
     _stripe_check(cfg, px.reshape(-1, cfg.n2), None, 2,
                   tables.build(cfg, device=cuda))
+
+
+SEAM_WIDTHS = (1, 127, 128, 129, 257, 300)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", SEAM_WIDTHS)
+@pytest.mark.parametrize("block_size", (4, 8, 16))
+def test_stripe_kernel_at_tile_and_round_edges(cuda, block_size, width):
+    """Stripes of 1 to 300 blocks around kernel B's tiles (256, 128, 64
+    blocks at 4x4, 8x8, 16x16) and entropy rounds (256, 64, 32), with
+    adaptive quantization, DC prediction carried across the edges and, at
+    n2 <= 64, coded runs. Where a stripe spans several tiles, some stripe's
+    bits before a tile edge must end inside a word, so the word carried
+    across the edge is exercised."""
+    cfg = CodecConfig(block_size=block_size, quality=80, static_tables=True,
+                      adaptive=True, dc_prediction=True,
+                      coded_runs=block_size <= 8)
+    img = image_io.synthetic_image(3 * block_size, width * block_size,
+                                   "photo", seed=width)
+    px, scale = _blocks_and_scale(img, cfg, cuda)
+    bbits, _ = _stripe_check(cfg, px.reshape(-1, cfg.n2), scale, 3,
+                             tables.build(cfg, device=cuda))
+    tile = fused_encode_cuda.TILE_BLOCKS[cfg.n2]
+    if width > tile:
+        assert (bbits[:, :tile].sum(axis=1) % 32 != 0).any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("block_size", (4, 8, 16))
+def test_stripe_kernel_with_more_stripes_than_its_grid(cuda, block_size):
+    """Three times as many stripes (of 5 blocks) as the persistent grid has
+    CTAs, plus 7: each CTA walks several stripes, the next stripe's pixels
+    copied in during the last tile of the one before."""
+    cfg = CodecConfig(block_size=block_size, quality=70, static_tables=True,
+                      dc_prediction=True)
+    info = fused_encode_cuda.kernel_info(cfg.n2, cuda)
+    n_stripes = 3 * info["sms"] * info["ctas_per_sm"] + 7
+    img = image_io.synthetic_image(n_stripes * block_size, 5 * block_size,
+                                   "photo", seed=block_size)
+    px, _ = _blocks_and_scale(img, cfg, cuda)
+    _stripe_check(cfg, px.reshape(-1, cfg.n2), None, n_stripes,
+                  tables.build(cfg, device=cuda))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("block_size", (4, 8, 16))
+def test_stripe_kernel_on_the_densest_stream(cuda, block_size):
+    """testing.densest_stream: q100 noise in direct mode with every code
+    16 bits long (coded runs at n2 <= 64), the densest stream real pixels
+    give, near kernel B's worst-case staging."""
+    cfg, img, table, run_table = testing.densest_stream(
+        block_size, 6 * block_size, 300 * block_size, seed=block_size)
+    ops = tables.build(cfg, device=cuda).with_tables(table, run_table)
+    px, _ = _blocks_and_scale(img, cfg, cuda)
+    _, fill = _stripe_check(cfg, px.reshape(-1, cfg.n2), None, 6, ops)
+    print(f"densest stream {block_size}x{block_size}: the fullest stripe "
+          f"fills {100 * fill:.1f} % of its worst-case buffer")
+    assert fill > 0.6
 
 
 DECODE_CASES = {
