@@ -17,7 +17,9 @@ to int64 products at n2 4, 16, 64 and 256, then:
      (timed: ~2 % of its coefficients rescued), in 8x8 blocks and in
      16x16 blocks: bit-exact against the float32 chain it promises
      (testing.encode_fma_chain), ties only against its plain version,
-     with the share of coefficients its chain rescued; its library time
+     with the share of coefficients its chain rescued, which must equal
+     the count the certificate's model (testing.certify) leaves open on
+     the same blocks; its library time
      is one cuBLAS call computing its products only (the pixels as bf16
      times the four byte planes as bf16, float32 out: exact, every partial
      sum an integer below 2^24), checked equal to the tile's products;
@@ -29,7 +31,8 @@ to int64 products at n2 4, 16, 64 and 256, then:
   3. kernel B (fused stripe encode) against the plain staged pipeline
      (codec.encode_pack_plain) fed kernel A's integers — exactly equal
      units (the whole worst-case buffer, zeros included), stripe bits and
-     block bits, with B's rescue share — on the
+     block bits, with B's rescue share (equal to the model's, as in 1) —
+     on the
      batch at static q50,
      dynamic-table q50, adaptive + DC prediction + coded runs, and at the
      other configs B takes: 4x4 blocks in category (dynamic),
@@ -43,9 +46,10 @@ to int64 products at n2 4, 16, 64 and 256, then:
      containers must equal the CPU path's byte for byte, or differ only
      in tie coefficients; pixels must agree within 1;
   5. times of each kernel and its plain version at those shapes (CUDA
-     events), end-to-end encode_step and decode rates; kernel B's card
-     work alone at the batch (a spin kernel queued first) beside the
-     host's enqueue time a call and 20 back-to-back calls;
+     events), end-to-end encode_step and decode rates; kernels A's and
+     B's card work alone at the batch (a spin kernel queued first) beside
+     the host's enqueue time a call and 20 back-to-back calls, and their
+     rescue counts a call against the certificate's model;
   6. the indexed decode (kernel D), the main path of the second slice:
      ImageCodec(CodecConfig(quality=90), device="cuda") encodes the 1080p
      frame to a v2 container (kernels A and B), decodes it (decode and
@@ -313,16 +317,28 @@ def a_b_ops(nb: int, n2: int) -> float:
 
 def operator_bytes(ops) -> int:
     """The operands A and B read for the transform: the byte planes, the
-    certificate constants, the transposed float32 parts, the bias."""
+    certificate constants, the float32 parts, the bias."""
     return sum(t.numel() * t.element_size() for t in (
-        ops.int_planes, ops.int_cert, ops.parts_t, ops.bias))
+        ops.int_planes, ops.int_cert, ops.parts, ops.bias))
 
 
-def rescue_share(kernel: str, coefficients: int) -> str:
-    from dct_tpu_torch.ops import _build
+def rescue_share(kernel: str, px, cfg, ops, scale) -> str:
+    """The coefficients kernel A ("encode_blocks") or B ("encode_stripes")
+    rescued since reset_rescued(), beside the count the certificate's
+    model (testing.certify, run here on the same blocks) leaves open;
+    checks that the two are equal."""
+    from dct_tpu_torch import testing
+    from dct_tpu_torch.ops import _build, transform
 
     n = _build.rescued(kernel)
-    return f"{n} rescued ({100 * n / coefficients:.3f} %)"
+    recip = None if scale is None else transform.reciprocal_scale(scale)
+    _, ok = testing.certify(testing.certified_products(px, cfg, ops),
+                            ops.int_cert[:cfg.n2], recip)
+    model = int((~ok).sum())
+    check(n == model, f"{kernel} rescued {n} coefficients, the "
+          f"certificate's model leaves {model} open")
+    return (f"{n} rescued ({100 * n / px.numel():.4f} %; the certificate's "
+            f"model: {model})")
 
 
 def imma_counts(names) -> dict:
@@ -389,7 +405,7 @@ def check_b(name, cfg, px, scale, n_stripes, ops):
     _build.reset_rescued()
     got, got_bb = fused_encode_cuda.encode_stripes_fused(
         px, cfg, n_stripes, ops, scale)
-    share = rescue_share("encode_stripes", px.numel())
+    share = rescue_share("encode_stripes", px, cfg, ops, scale)
     ref, ref_bb = codec.encode_pack_plain(rle.rle_encode_positional(zz),
                                           cfg, n_stripes, ops)
     g, r = bs.fetch_packed(got), bs.fetch_packed(ref)
@@ -550,7 +566,7 @@ def check_chroma_kernels(dev, rgb) -> None:
         recip = None if scale is None else transform.reciprocal_scale(scale)
         _build.reset_rescued()
         got = transform_cuda.encode_blocks_kernel(px, cfg, ops, scale)
-        share = rescue_share("encode_blocks", got.numel())
+        share = rescue_share("encode_blocks", px, cfg, ops, scale)
         n_chain = int((got != testing.encode_fma_chain(px, cfg, ops,
                                                        recip)).sum())
         log(f"A chroma {name}: {n_chain} mismatches of {got.numel()} "
@@ -1580,8 +1596,9 @@ def main() -> int:
         cfg = CodecConfig(block_size=n, quality=90)
         ops = tables.build(cfg, device=dev)
         p = tables.mma_width(cfg.n2)
-        w, _ = tables.integer_operator(*(m[:cfg.n2, :cfg.n2].cpu().numpy()
-                                         for m in (ops.m0, ops.m1, ops.m2)))
+        w, _ = tables.certificate_operator(
+            *(m[:cfg.n2, :cfg.n2].cpu().numpy()
+              for m in (ops.m0, ops.m1, ops.m2)))
         w_bd = torch.block_diag(*[torch.from_numpy(w)] * (p // cfg.n2))
         rows = torch.from_numpy(np.random.default_rng(n).integers(
             0, 256, (4097, p), dtype=np.uint8))
@@ -1652,7 +1669,7 @@ def main() -> int:
                                                        recip)).sum())
         log(f"A adaptive={cfg.adaptive}: {n_chain} mismatches of "
             f"{got.numel()} against encode_fma_chain; "
-            f"{rescue_share('encode_blocks', got.numel())}")
+            f"{rescue_share('encode_blocks', px, cfg, ops, scale)}")
         check(n_chain == 0, "A differs from the float32 chain it promises")
         want = transform.encode_blocks(px, cfg, ops, scale)
         res_a = tie_check(
@@ -1697,7 +1714,7 @@ def main() -> int:
                                                        recip)).sum())
         log(f"A 16x16 q{cfg.quality} adaptive={cfg.adaptive}: {n_chain} "
             f"mismatches of {got.numel()} against encode_fma_chain; "
-            f"{rescue_share('encode_blocks', got.numel())}")
+            f"{rescue_share('encode_blocks', px16, cfg, ops, scale)}")
         check(n_chain == 0, "A at 16x16 differs from the float32 chain")
         tie_check(f"A 16x16 adaptive={cfg.adaptive}", got,
                   transform.encode_blocks(px16, cfg, ops, scale),
@@ -1795,11 +1812,24 @@ def main() -> int:
     log(f"time encode_stripes, the card's work alone: {b_dev_ms:.4f} ms; "
         f"host enqueue {b_enq_ms:.4f} ms a call; 20 back-to-back calls "
         f"{times['encode_stripes'][0]:.4f} ms a call")
+    a_dev_ms, a_enq_ms = device_ms(
+        lambda: transform_cuda.encode_blocks_kernel(px, static, ops), 50)
+    log(f"time encode_blocks, the card's work alone: {a_dev_ms:.4f} ms; "
+        f"host enqueue {a_enq_ms:.4f} ms a call; 20 back-to-back calls "
+        f"{times['encode_blocks'][0]:.4f} ms a call")
+    _build.reset_rescued()
+    transform_cuda.encode_blocks_kernel(px, static, ops)
+    log(f"rescue a call, static q50: A "
+        f"{rescue_share('encode_blocks', px, static, ops, None)}")
+    _build.reset_rescued()
+    fused_encode_cuda.encode_stripes_fused(px, static, s_all, ops)
+    log(f"rescue a call, static q50: B "
+        f"{rescue_share('encode_stripes', px, static, ops, None)}")
     # A's library time: one cuBLAS call computing its products only, the
     # pixels as bf16 times the four byte planes side by side as bf16,
     # float32 out (exact: every partial sum is an integer below 2^24)
-    w8, _ = tables.integer_operator(*(m[:64, :64].cpu().numpy()
-                                      for m in (ops.m0, ops.m1, ops.m2)))
+    w8, _ = tables.certificate_operator(*(m[:64, :64].cpu().numpy()
+                                          for m in (ops.m0, ops.m1, ops.m2)))
     planes = torch.from_numpy(np.concatenate(list(tables.byte_planes(w8)),
                                              axis=1)).to(dev, torch.bfloat16)
     px_bf = px.to(torch.bfloat16)

@@ -16,21 +16,21 @@
 // Kernel A: (n_blocks, n2) u8 pixel blocks -> (n_blocks, n2) int32
 // quantized zigzag coefficients, n2 4, 16, 64 or 256, px 16-byte aligned.
 // frag: the integer operator's byte planes in the tile's B-fragment order,
-// 4 P^2 bytes (P = max(n2, 32)); cert: (3, P) float64 certificate
-// constants; parts_t: (3, n2, n2) float32 bf16 parts transposed, for the
-// rescue; bias: the float32 encode bias (its first n2 entries are read);
+// 4 P^2 bytes (P = max(n2, 32)); cert: (P, 8) int32 certificate
+// constants (tables.certificate_constants); parts: (3, n2, n2) float32
+// bf16 parts (row j = pixel), for the rescue; bias: the float32 encode bias (its first n2 entries are read);
 // recip: (n_blocks,) reciprocal adaptive scale, or NULL (tables.py
 // CodecOperators). rescued: one uint64 in device memory, to which the
 // kernel adds the coefficients its float32 chain computed.
 DCT_EXPORT int dct_encode_blocks(const void* px, const void* frag,
-                                 const void* cert, const void* parts_t,
+                                 const void* cert, const void* parts,
                                  const void* bias, const void* recip,
                                  void* out, long long n_blocks, int n2,
                                  void* rescued, void* stream);
 
 // The tensor-core tile's integer products alone (a test of it):
 // (n_rows, p) u8 packed rows, p 32, 64 or 256, and frag as above ->
-// (n_rows, p) int64 x @ W.
+// (n_rows, p) int64 x @ W (W of tables.certificate_operator).
 DCT_EXPORT int dct_mma_products(const void* px, const void* frag, void* out,
                                 int n_rows, int p, void* stream);
 
@@ -44,7 +44,7 @@ DCT_EXPORT int dct_decode_blocks(const void* zz, const void* m_dec, int ld,
 // Kernel B: a persistent grid (SMs x CTAs an SM, at most n_stripes CTAs)
 // walking the stripes, n2 16, 64 or 256, stripes of any width.
 // px: (n_stripes * bps, n2) u8 blocks, 16-byte aligned. frag, cert,
-// parts_t, bias, recip, rescued: as kernel A's. mode: 0 category, 1 direct, 2 none.
+// parts, bias, recip, rescued: as kernel A's. mode: 0 category, 1 direct, 2 none.
 // val_len/val_code: the value table's n_val int32 entries (16 categories;
 // 512 in direct mode, values -255..255 and ESC last; n_val 0 in "none"
 // mode). run_len/run_code: (65,) int32 run table, or NULL for the fixed
@@ -54,7 +54,7 @@ DCT_EXPORT int dct_decode_blocks(const void* zz, const void* m_dec, int ld,
 // once, zeros past each stripe's payload included. stripe_bits:
 // (n_stripes,) int32; block_bits: (n_stripes, bps) int32.
 DCT_EXPORT int dct_encode_stripes(const void* px, const void* frag,
-                                  const void* cert, const void* parts_t,
+                                  const void* cert, const void* parts,
                                   const void* bias, const void* recip,
                                   const void* val_len, const void* val_code,
                                   int n_val, const void* run_len,

@@ -17,12 +17,13 @@
 // 1312 B at 256), whose zeros past each stripe's payload are most of the
 // bytes. Operations are few too. What bounds it is latency: each CTA walks
 // its stripes through a chain of dependent phases (pixels, tensor-core
-// products, the float64 certificate, the rescue, then the entropy rounds),
+// products, the integer certificate, the rescue, then the entropy rounds),
 // and a few CTAs an SM overlap those chains. Measured by variants with
-// parts compiled out (PERF.md section 7), the certified transform of
-// transform_core.cuh is now about half of B's time; the rest is, in order,
-// the serial symbol chains of the densest segments, the gather, the
-// rounds' masks, scans and barriers, and the zero tail. The design keeps
+// parts compiled out (PERF.md sections 6-7), the certified transform of
+// transform_core.cuh and its pixel loads are a little under half of B's
+// time; the rest is, in order, the serial symbol chains of the densest
+// segments, the gather, the rounds' masks, scans and barriers, and the
+// zero tail. The design keeps
 // the entropy chain short and issues each symbol once:
 //
 // - A persistent grid of (SMs x CTAs an SM) CTAs of 256 threads; CTA c
@@ -112,7 +113,9 @@ struct Shape {
   static constexpr int kP = N2 < 32 ? 32 : N2;  // a packed pixel row
   static constexpr int kRows = kTile * N2 / kP;
   static constexpr int kMinBlocks = N2 == 16 ? 4 : N2 == 64 ? 3 : 2;
-  using Mma = dct::MmaTile<kP, kRows, kP == 256 ? 4 : 2, kThreads>;
+  // one m-tile a group below 256: with the fragments in registers, two
+  // spill within B's register bounds
+  using Mma = dct::MmaTile<kP, kRows, kP == 256 ? 4 : 1, kThreads>;
   // shared memory, in bytes: tables, per-segment masks, bits and offsets,
   // warp totals and carries, coefficient rows, pixels, staging (which the
   // rescue list shares: the list is dead before the first round's symbols)
@@ -321,8 +324,8 @@ template <int N2>
 __global__ void __launch_bounds__(kThreads, Shape<N2>::kMinBlocks)
     encode_stripes_kernel(const uint8_t* __restrict__ px,
                           const uint4* __restrict__ frag,
-                          const double* __restrict__ cert,
-                          const float* __restrict__ parts_t,
+                          const int4* __restrict__ cert,
+                          const float* __restrict__ parts,
                           const float* __restrict__ bias,
                           const float* __restrict__ recip,
                           const int* __restrict__ val_len,
@@ -382,18 +385,24 @@ __global__ void __launch_bounds__(kThreads, Shape<N2>::kMinBlocks)
       __syncthreads();
       const float* rc = adaptive ? recip + blk : nullptr;
       SmemStore<N2> store{s_zz};
-      dct::mma_tile<M>(s_px, frag,
-                       [&](int r, int c, long long s0, long long s1) {
-                         dct::certify_pair<N2, S::kP>(r, c, s0, s1, n, cert,
-                                                      rc, s_list, s_count,
-                                                      store);
+      // the warp's fragments and constants, in registers for this tile
+      // only: across the entropy stage they would cost B its CTAs an SM
+      dct::TileOperands<M> ops{frag, cert};
+      if constexpr (dct::TileOperands<M>::kHeld) ops.load(warp % M::kWN);
+      dct::mma_tile<M>(s_px, ops, s_list, s_count,
+                       [&](int r, int c, const int(&a)[2][4],
+                           const dct::ColumnCert(&cc)[2]) {
+                         return dct::certify_pair<N2, S::kP>(r, c, a, cc, n,
+                                                             rc, store);
                        });
       __syncthreads();
       const int n_open = *s_count;
-      dct::rescue_tile<N2, S::kP, M::kStride, kThreads>(
-          s_list, n_open, s_px, parts_t, bias, rc, store);
-      n_rescued += n_open;
-      __syncthreads();
+      if (n_open) {  // the same on every thread
+        dct::rescue_tile<N2, S::kP, M::kStride, kThreads>(
+            s_list, n_open, s_px, parts, bias, rc, store);
+        n_rescued += n_open;
+        __syncthreads();  // the rescued values are in; the pixels are free
+      }
 
       // ---- 2. the next tile's pixels, in flight during the entropy stage
       {
@@ -599,7 +608,7 @@ cudaError_t occupancy(int& sms, int& ctas) {
 
 template <int N2>
 int launch(const void* px, const void* frag, const void* cert,
-           const void* parts_t, const void* bias, const void* recip,
+           const void* parts, const void* bias, const void* recip,
            const void* val_len, const void* val_code, int n_val,
            const void* run_len, const void* run_code, int run_bits, int mode,
            int dc_prediction, int n_stripes, int bps, void* words,
@@ -611,7 +620,7 @@ int launch(const void* px, const void* frag, const void* cert,
   const int grid = min(n_stripes, sms * ctas);
   encode_stripes_kernel<N2><<<grid, kThreads, Shape<N2>::kBytes, stream>>>(
       static_cast<const uint8_t*>(px), static_cast<const uint4*>(frag),
-      static_cast<const double*>(cert), static_cast<const float*>(parts_t),
+      static_cast<const int4*>(cert), static_cast<const float*>(parts),
       static_cast<const float*>(bias), static_cast<const float*>(recip),
       static_cast<const int*>(val_len), static_cast<const int*>(val_code),
       n_val, static_cast<const int*>(run_len),
@@ -641,7 +650,7 @@ int info(int* out) {
 }  // namespace
 
 DCT_EXPORT int dct_encode_stripes(const void* px, const void* frag,
-                                  const void* cert, const void* parts_t,
+                                  const void* cert, const void* parts,
                                   const void* bias, const void* recip,
                                   const void* val_len, const void* val_code,
                                   int n_val, const void* run_len,
@@ -657,7 +666,7 @@ DCT_EXPORT int dct_encode_stripes(const void* px, const void* frag,
   if (n_stripes == 0) return static_cast<int>(cudaSuccess);
   auto s = static_cast<cudaStream_t>(stream);
 #define DCT_B(N)                                                              \
-  return launch<N>(px, frag, cert, parts_t, bias, recip, val_len, val_code,  \
+  return launch<N>(px, frag, cert, parts, bias, recip, val_len, val_code,  \
                    n_val, run_len, run_code, run_bits, mode, dc_prediction,   \
                    n_stripes, bps, words, n_words, stripe_bits, block_bits,   \
                    rescued, s)

@@ -8,8 +8,9 @@
 // What bounds them on an H100. Per 8x8 block A reads 64 B and writes
 // 256 B of int32 coefficients; its arithmetic runs on the integer tensor
 // cores (4 x 64 x 64 int8 multiply-adds a block over the operator's byte
-// planes, a few microseconds at the batch) with a float64 certificate a
-// coefficient (transform_core.cuh), so HBM bounds it. C reads 128 B and
+// planes, a few microseconds at the batch) with an integer rounding
+// certificate a coefficient (transform_core.cuh), so HBM bounds it, the
+// int32 output 80 % of its bytes. C reads 128 B and
 // writes 64 B for 64 x 64 float32 multiply-adds, 21 a byte, above the
 // card's float32 rate over its memory rate (~10 a byte), so HBM is not
 // its limit: C stays on the CUDA cores, as its coefficients need float32,
@@ -28,12 +29,22 @@
 // - A: the ring holds packed rows of P = max(n2, 32) pixels (32 / n2
 //   blocks a row below 32) padded to P + 16 bytes, which the tensor-core
 //   tile of transform_core.cuh (the one kernel B runs) reads in place: the
-//   integer products, the certificate, 8-byte stores of each certified
-//   coefficient pair, then the tile's rescue list (the float32 chain
-//   itself for the coefficients the certificate leaves open) worked
-//   through by the whole CTA. Tiles of 128 packed rows at n2 4/16/64, 64
-//   at 256, whose byte planes (256 KB) are read through L2 once per tile
-//   and warp for the warp's 64 blocks;
+//   integer products, the certificate, 8-byte stores of each coefficient
+//   pair straight to device memory (a warp's fill whole 32-byte sectors
+//   and overlap the products), then the tile's rescue list (the float32
+//   chain itself for the coefficients the certificate leaves open) worked
+//   through by the whole CTA, overwriting its values. A warp's fragments
+//   and per-column constants stay in registers for the whole grid below
+//   n2 = 256. Two barriers a tile, a third only where a coefficient is
+//   open. Staging the int32 tile in shared memory and writing it out
+//   whole measured slower (PERF.md section 6), with 16-byte stores after
+//   the rescue or with a bulk copy a row by the tensor memory accelerator
+//   running on into the next tile: the 8-byte stores already fill whole
+//   sectors and overlap the products, and a staged tile costs shared
+//   memory the L1 cache (the rescue's operand) or the tile size pays
+//   for. Tiles of 128 packed rows at n2 4/16/64,
+//   64 at 256, whose byte planes (256 KB) are read through L2 once per
+//   tile and warp for the warp's 64 blocks;
 // - C: staging widens each coefficient to float once (applying the
 //   adaptive AC scale there) and stores it value-major — zT[k][b] — so
 //   that one LDS.128 gives a thread four blocks' values. Ring rows are
@@ -154,9 +165,16 @@ struct EncShape {
   static constexpr int kP = N2 < 32 ? 32 : N2;           // a packed row
   static constexpr int kRows = kP == 256 ? 64 : 128;     // packed rows a tile
   static constexpr int kBlocks = kRows * kP / N2;        // blocks a tile
-  using Mma = dct::MmaTile<kP, kRows, kP == 256 ? 4 : 2, kThreads>;
-  static constexpr int kStage = kRows * Mma::kStride;    // one ring stage
-  static constexpr int kBytes = 2 * kStage + kRows * kP * 2 + 16;  // + list
+  // two m-tiles a group below 256, one under adaptive quantization, whose
+  // scaled certificate needs the registers (with two, n2 64 spills)
+  template <bool ADAPTIVE>
+  using Mma = dct::MmaTile<kP, kRows, kP == 256 ? 4 : ADAPTIVE ? 1 : 2,
+                           kThreads>;
+  static constexpr int kStride = Mma<false>::kStride;    // a packed row's bytes
+  static constexpr int kStage = kRows * kStride;         // one ring stage
+  static constexpr int kListBytes = kRows * kP * 2;      // uint16 indices
+  static constexpr int kBytes = 2 * kStage + kListBytes + 16;
+  static_assert(kStage % 16 == 0, "16-byte copies");
 };
 
 // Start copying tile `tile` of the (n_blocks, N2) pixels into a ring
@@ -174,11 +192,13 @@ __device__ __forceinline__ void load_packed(uint8_t* stage,
   const int valid = static_cast<int>(rows) * N2;
   const uint8_t* base = src + b0 * N2;
   for (int off = threadIdx.x * 16; off < valid; off += kThreads * 16)
-    cp_async16(stage + off / E::kP * E::Mma::kStride + off % E::kP,
+    cp_async16(stage + off / E::kP * E::kStride + off % E::kP,
                base + off, valid - off < 16 ? valid - off : 16);
 }
 
-// Coefficients of the certified tile straight to device memory.
+// Coefficients of the certified tile straight to device memory: a warp's
+// 8-byte pair stores fill whole 32-byte sectors (eight rows of four
+// pairs), interleaved with the products.
 struct GlobalStore {
   int32_t* out;  // the tile's first block
   __device__ __forceinline__ void pair(int idx, int q0, int q1) {
@@ -191,20 +211,23 @@ template <int N2, bool ADAPTIVE>
 __global__ void __launch_bounds__(kThreads, EncShape<N2>::kP == 256 ? 2 : 3)
     encode_blocks_kernel(const uint8_t* __restrict__ px,
                          const uint4* __restrict__ frag,
-                         const double* __restrict__ cert,
-                         const float* __restrict__ parts_t,
+                         const int4* __restrict__ cert,
+                         const float* __restrict__ parts,
                          const float* __restrict__ bias,
                          const float* __restrict__ recip,
                          int32_t* __restrict__ out, long long n_blocks,
                          unsigned long long* __restrict__ rescued) {
   using E = EncShape<N2>;
-  using M = typename E::Mma;
+  using M = typename E::template Mma<ADAPTIVE>;
+  using Ops = dct::TileOperands<M>;
   extern __shared__ __align__(16) uint8_t smem[];
   uint16_t* s_list = reinterpret_cast<uint16_t*>(smem + 2 * E::kStage);
-  int* s_count = reinterpret_cast<int*>(s_list + E::kRows * E::kP);
+  int* s_count = reinterpret_cast<int*>(s_list + E::kRows * E::kP);  // 2
   const long long n_tiles = (n_blocks + E::kBlocks - 1) / E::kBlocks;
   long long t = blockIdx.x, n_rescued = 0;
-  if (threadIdx.x == 0) *s_count = 0;
+  if (threadIdx.x < 2) s_count[threadIdx.x] = 0;
+  Ops ops{frag, cert};
+  if constexpr (Ops::kHeld) ops.load(threadIdx.x / 32 % M::kWN);
   if (t < n_tiles) load_packed<N2>(smem, px, t, n_blocks);
   cp_async_commit();
   for (int s = 0; t < n_tiles; t += gridDim.x, s ^= 1) {
@@ -214,31 +237,36 @@ __global__ void __launch_bounds__(kThreads, EncShape<N2>::kP == 256 ? 2 : 3)
     cp_async_commit();
     cp_async_wait<1>();  // this thread's copies of tile t have landed
     __syncthreads();     // everyone's have, and tile t-1 is done
+    // tile t-1's count (read by all before the barrier) is tile t+1's
+    if (threadIdx.x == 0) s_count[s ^ 1] = 0;
     const long long b0 = t * E::kBlocks;
     const int n = static_cast<int>(n_blocks - b0 < E::kBlocks ? n_blocks - b0
                                                               : E::kBlocks);
     const uint8_t* stage = smem + s * E::kStage;
     const float* rc = ADAPTIVE ? recip + b0 : nullptr;
     GlobalStore store{out + b0 * N2};
-    dct::mma_tile<M>(stage, frag, [&](int r, int c, long long s0,
-                                      long long s1) {
-      dct::certify_pair<N2, E::kP>(r, c, s0, s1, n, cert, rc, s_list, s_count,
-                                   store);
-    });
-    __syncthreads();
-    const int n_open = *s_count;
-    dct::rescue_tile<N2, E::kP, M::kStride, kThreads>(
-        s_list, n_open, stage, parts_t, bias, rc, store);
-    n_rescued += n_open;
-    __syncthreads();  // the stage and the list are free
-    if (threadIdx.x == 0) *s_count = 0;
+    dct::mma_tile<M>(stage, ops, s_list, s_count + s,
+                     [&](int r, int c, const int(&a)[2][4],
+                         const dct::ColumnCert(&cc)[2]) {
+                       return dct::certify_pair<N2, E::kP>(r, c, a, cc, n, rc,
+                                                           store);
+                     });
+    __syncthreads();  // the list is complete
+    const int n_open = s_count[s];
+    if (n_open) {  // the same on every thread
+      dct::rescue_tile<N2, E::kP, M::kStride, kThreads>(
+          s_list, n_open, stage, parts, bias, rc, store);
+      n_rescued += n_open;
+      __syncthreads();  // the stage is free
+    }
   }
   if (threadIdx.x == 0 && n_rescued)
     atomicAdd(rescued, static_cast<unsigned long long>(n_rescued));
 }
 
-// The tile's integer products alone, for testing mma_tile: (n_rows, P)
-// packed u8 rows -> (n_rows, P) int64 x @ W, 64 rows a CTA.
+// The tile's integer products alone, for testing mma_tile and the
+// certificate's plane combine: (n_rows, P) packed u8 rows -> (n_rows, P)
+// int64 x @ W (fixed_point with no constant and no shift), 64 rows a CTA.
 template <int P>
 __global__ void __launch_bounds__(kThreads)
     mma_products_kernel(const uint8_t* __restrict__ px,
@@ -246,6 +274,7 @@ __global__ void __launch_bounds__(kThreads)
                         long long* __restrict__ out, int n_rows) {
   constexpr int TR = 64;
   using M = dct::MmaTile<P, TR, P == 256 ? 4 : 2, kThreads>;
+  using Ops = dct::TileOperands<M>;
   __shared__ __align__(16) uint8_t s_px[TR * M::kStride];
   const long long r0 = static_cast<long long>(blockIdx.x) * TR;
   const int rows = n_rows - r0 < TR ? static_cast<int>(n_rows - r0) : TR;
@@ -257,13 +286,19 @@ __global__ void __launch_bounds__(kThreads)
     *reinterpret_cast<uint4*>(s_px + r * M::kStride + col) = v;
   }
   __syncthreads();
-  dct::mma_tile<M>(s_px, frag, [&](int r, int c, long long s0,
-                                   long long s1) {
-    if (r < rows) {
-      out[(r0 + r) * P + c] = s0;
-      out[(r0 + r) * P + c + 1] = s1;
-    }
-  });
+  Ops ops{frag, nullptr};
+  if constexpr (Ops::kHeld) ops.load(threadIdx.x / 32 % M::kWN);
+  const dct::ColumnCert exact{0, 0, 0u, 0u, 0.f};
+  dct::mma_tile<M>(s_px, ops, nullptr, nullptr,
+                   [&](int r, int c, const int(&a)[2][4],
+                       const dct::ColumnCert(&)[2]) {
+                     if (r < rows) {
+                       out[(r0 + r) * P + c] = dct::fixed_point(a[0], exact);
+                       out[(r0 + r) * P + c + 1] =
+                           dct::fixed_point(a[1], exact);
+                     }
+                     return 0u;
+                   });
 }
 
 // ---- kernel C ---------------------------------------------------------
@@ -382,7 +417,7 @@ __global__ void __launch_bounds__(kThreads, 2)
 
 template <int N2, bool ADAPTIVE>
 int launch_encode(const void* px, const void* frag, const void* cert,
-                  const void* parts_t, const void* bias, const void* recip,
+                  const void* parts, const void* bias, const void* recip,
                   void* out, long long n_blocks, void* rescued,
                   cudaStream_t stream) {
   using E = EncShape<N2>;
@@ -395,7 +430,7 @@ int launch_encode(const void* px, const void* frag, const void* cert,
                     (n_blocks + E::kBlocks - 1) / E::kBlocks),
            kThreads, smem, stream>>>(
       static_cast<const uint8_t*>(px), static_cast<const uint4*>(frag),
-      static_cast<const double*>(cert), static_cast<const float*>(parts_t),
+      static_cast<const int4*>(cert), static_cast<const float*>(parts),
       static_cast<const float*>(bias), static_cast<const float*>(recip),
       static_cast<int32_t*>(out), n_blocks,
       static_cast<unsigned long long*>(rescued));
@@ -422,17 +457,17 @@ int launch_decode(const void* zz, const void* m_dec, int ld,
 }  // namespace
 
 DCT_EXPORT int dct_encode_blocks(const void* px, const void* frag,
-                                 const void* cert, const void* parts_t,
+                                 const void* cert, const void* parts,
                                  const void* bias, const void* recip,
                                  void* out, long long n_blocks, int n2,
                                  void* rescued, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
   const bool ad = recip != nullptr;
 #define DCT_ENC(N)                                                          \
-  return ad ? launch_encode<N, true>(px, frag, cert, parts_t, bias, recip, \
+  return ad ? launch_encode<N, true>(px, frag, cert, parts, bias, recip,   \
                                      out, n_blocks, rescued, s)            \
-            : launch_encode<N, false>(px, frag, cert, parts_t, bias,       \
-                                      recip, out, n_blocks, rescued, s)
+            : launch_encode<N, false>(px, frag, cert, parts, bias, recip,  \
+                                      out, n_blocks, rescued, s)
   switch (n2) {
     case 4: DCT_ENC(4);
     case 16: DCT_ENC(16);

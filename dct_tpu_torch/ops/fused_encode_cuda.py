@@ -141,13 +141,13 @@ def encode_stripes_fused(
     block_bits = torch.empty(n_stripes, bps, dtype=torch.int32, device=dev)
     n_val = TABLE_ENTRIES[mode]
     coded = cfg.coded_runs
-    frag, cert, parts_t, bias = transform_cuda.integer_operands(
+    frag, cert, parts, bias = transform_cuda.integer_operands(
         ops, cfg.n2, dev, "encode_stripes")
     lib = _build.library("fused_encode")
     with torch.cuda.device(dev):
         rc = lib.dct_encode_stripes(
             pixels.data_ptr(), frag.data_ptr(), cert.data_ptr(),
-            parts_t.data_ptr(), bias.data_ptr(), _build.ptr(recip),
+            parts.data_ptr(), bias.data_ptr(), _build.ptr(recip),
             _build.ptr(ops.cat_lengths if n_val else None),
             _build.ptr(ops.cat_codes if n_val else None), n_val,
             _build.ptr(ops.run_lengths if coded else None),

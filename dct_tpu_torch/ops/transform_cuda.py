@@ -52,14 +52,14 @@ def _check_launch(x: torch.Tensor, cfg: CodecConfig, operator: torch.Tensor,
 
 def integer_operands(ops: CodecOperators, n2: int, device,
                      what: str) -> tuple:
-    """(int_planes, int_cert, parts_t, bias) as kernels A and B read them,
+    """(int_planes, int_cert, parts, bias) as kernels A and B read them,
     each checked: on `device`, of its dtype and shape, contiguous, and
     16-byte aligned."""
     p = tables.mma_width(n2)
     want = {
         "int_planes": (ops.int_planes, torch.uint8, (p // 8, p // 32, 32, 32)),
-        "int_cert": (ops.int_cert, torch.float64, (3, p)),
-        "parts_t": (ops.parts_t, torch.float32, (3, n2, n2)),
+        "int_cert": (ops.int_cert, torch.int32, (p, tables.CERT_FIELDS)),
+        "parts": (ops.parts, torch.float32, (3, n2, n2)),
         "bias": (ops.bias, torch.float32, (1, ops.bias.shape[-1])),
     }
     for name, (t, dtype, shape) in want.items():
@@ -76,7 +76,7 @@ def integer_operands(ops: CodecOperators, n2: int, device,
                              "16-byte aligned")
     if ops.bias.shape[-1] < n2:
         raise ValueError(f"{what}: the bias has fewer than {n2} entries")
-    return ops.int_planes, ops.int_cert, ops.parts_t, ops.bias
+    return ops.int_planes, ops.int_cert, ops.parts, ops.bias
 
 
 def _aligned(x: torch.Tensor) -> torch.Tensor:
@@ -106,7 +106,7 @@ def encode_blocks_kernel(
         recip = transform.reciprocal_scale(adaptive_scale.reshape(-1))
         if recip.shape[0] != n_blocks or recip.device != pixels.device:
             raise ValueError("adaptive_scale must hold one scale per block")
-    frag, cert, parts_t, bias = integer_operands(ops, cfg.n2, pixels.device,
+    frag, cert, parts, bias = integer_operands(ops, cfg.n2, pixels.device,
                                                  "encode_blocks")
     out = torch.empty(pixels.shape, dtype=torch.int32, device=pixels.device)
     if n_blocks == 0:
@@ -115,7 +115,7 @@ def encode_blocks_kernel(
     with torch.cuda.device(pixels.device):
         rc = lib.dct_encode_blocks(
             pixels.data_ptr(), frag.data_ptr(), cert.data_ptr(),
-            parts_t.data_ptr(), bias.data_ptr(), _build.ptr(recip),
+            parts.data_ptr(), bias.data_ptr(), _build.ptr(recip),
             out.data_ptr(), n_blocks, cfg.n2,
             _build.rescue_counter("encode_blocks", pixels.device).data_ptr(),
             torch.cuda.current_stream().cuda_stream,
@@ -129,8 +129,8 @@ def mma_products(px: torch.Tensor, ops: CodecOperators,
                  n2: int) -> torch.Tensor:
     """The tensor-core tile's integer products alone, for testing it: (R,
     P) u8 packed rows on the card (P = tables.mma_width(n2)) -> (R, P)
-    int64 x @ W over the block-diagonal integer operator. Not a codec
-    path: nothing counts it."""
+    int64 x @ W over the block-diagonal integer operator (W of
+    tables.certificate_operator). Not a codec path: nothing counts it."""
     p = tables.mma_width(n2)
     if px.dtype != torch.uint8 or px.dim() != 2 or px.shape[1] != p:
         raise ValueError(f"expected (R, {p}) uint8 rows, got "

@@ -12,8 +12,9 @@ tensors on a device.
 Beside the bf16 parts the bundle carries their exact integer form, which
 kernels A and B multiply on the tensor cores: each column k of m0 + m1 +
 m2 is an int32 column W[:, k] times 2^-e_k, split into four byte planes,
-with the per-column constants of the rounding certificate
-(integer_operator, byte_planes, mma_fragments, certificate_constants).
+with the per-column integer constants of the rounding certificate
+(integer_operator, certificate_operator, byte_planes, mma_fragments,
+certificate_constants).
 
 All of it is gathered in one :class:`CodecOperators` bundle per (config,
 chroma, device): the codec's "parameters". The codec has no weights and no
@@ -31,6 +32,8 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import math
+from fractions import Fraction
 
 import numpy as np
 import torch
@@ -205,11 +208,11 @@ class CodecOperators:
     int_planes: (P/8, P/32, 32, 32) uint8, the integer operator's four
         byte planes in the B-fragment order of mma.m16n8k32 (mma_fragments);
         P = mma_width(n2). None for n2 outside MMA_N2.
-    int_cert: (3, P) float64 per packed column: 2^-e_k, the bias, and the
-        certificate's error constant (certificate_constants).
-    parts_t: (3, n2, n2) float32, the bf16 parts transposed (row k =
-        coefficient k): the rescue's operand, one coefficient's chain
-        reading contiguous memory.
+    int_cert: (P, CERT_FIELDS) int32 per packed column: the rounding
+        certificate's constants (certificate_constants), 32 bytes a column.
+    parts: (3, n2, n2) float32, the bf16 parts (row j = pixel, column k =
+        coefficient): the rescue's operand, where the lanes of a warp
+        rescuing coefficients of any columns read one row at a time.
     """
 
     m0: torch.Tensor
@@ -224,7 +227,7 @@ class CodecOperators:
     run_codes: torch.Tensor | None = None
     int_planes: torch.Tensor | None = None
     int_cert: torch.Tensor | None = None
-    parts_t: torch.Tensor | None = None
+    parts: torch.Tensor | None = None
 
     @property
     def device(self) -> torch.device:
@@ -372,48 +375,100 @@ def mma_fragments(planes: np.ndarray) -> np.ndarray:
     return frag.astype(np.uint8).reshape(p // 8, p // 32, 32, 32)
 
 
-def certificate_constants(m0, m1, m2, b, e) -> np.ndarray:
-    """(3, n2) float64 per coefficient k: 2^-e_k, the bias b_k, and E_k =
-    gamma_{n2+3} (255 sum_i sum_j |m_i[j, k]| + |b_k|), with slack for this
-    float64 arithmetic, gamma_n = n u / (1 - n u), u = 2^-24.
+CERT_FRAC_BITS = 31  # the certificate's fixed point: 31 fraction bits
+CERT_FIELDS = 8  # int32 constants a column (certificate_constants)
 
-    E_k bounds how far the float32 chain (three part sums, each a
-    sequential sum of n2 exact products from 0 — at n2 = 256 two halves
-    of 128 and their sum —, then ((a0 + a1) + a2) + b) can lie from the
-    exact value: every term passes at most n2 + 3 roundings of relative
-    size u, so the chain is within gamma_{n2+3} of the sum of the terms'
-    magnitudes, and a u8 pixel is at most 255. The certificate
-    (csrc/transform_core.cuh certify, testing.encode_certified) adds the
-    rounding of the adaptive multiply and of round_half_away's add."""
+
+def certificate_operator(m0, m1, m2):
+    """(W, e) as kernels A and B multiply them: integer_operator's columns
+    scaled up to at least CERT_FRAC_BITS fraction bits (e[k] >= 31, W[:, k]
+    * 2^-e[k] still m0 + m1 + m2 exactly), so that the certificate reads
+    the coefficient's fraction from one shift of S = x @ W. Raises if a
+    column then spans more than 31 bits or needs more than 62 (the shift
+    e - 31 must stay below 32)."""
+    w, e = integer_operator(m0, m1, m2)
+    up = np.maximum(CERT_FRAC_BITS - e, 0)
+    w, e = w << up[None, :], e + up
+    if np.abs(w).max() >= 2 ** 31 or e.max() > 2 * CERT_FRAC_BITS:
+        raise ValueError("an operator column does not fit the certificate's "
+                         "fixed point")
+    return w, e
+
+
+def _ceil_f32(x) -> np.float32:
+    """The least float32 >= the rational x (a Fraction)."""
+    f = np.float32(float(x))
+    return f if Fraction(float(f)) >= x else np.nextafter(f, np.float32(np.inf))
+
+
+def certificate_constants(m0, m1, m2, b, w, e) -> np.ndarray:
+    """(n2, CERT_FIELDS) int32 per coefficient k, from the bf16 parts, the
+    bias b and certificate_operator's (W, e), each derived in exact
+    rational arithmetic:
+
+      0, 1  add_k = floor((b_k + 1/2) 2^e_k), int64 as (low, high) words;
+      2     shift_k = e_k - 31;
+      3     thr_k = floor(D_k 2^31) + 1, D_k = E_k (1 + u) + u Tmax_k + u/2;
+      4     span_k = max(0, 2^31 - 1 - 2 thr_k);
+      5     ea_k, float32 bits, the least float32 >= (E_k (1 + u)^2 +
+            2^-29) (1 + 2^-20);
+      6, 7  zero.
+
+    u = 2^-24; E_k = gamma_{n2+3} (255 sum_i sum_j |m_i[j, k]| + |b_k|),
+    gamma_n = n u / (1 - n u), bounds how far the float32 chain (three
+    part sums, each a sequential sum of n2 exact products from 0 — at n2 =
+    256 two halves of 128 and their sum —, then ((a0 + a1) + a2) + b) can
+    lie from the exact value T = x @ m + b_k: every term passes at most
+    n2 + 3 roundings of relative size u, and a u8 pixel is at most 255.
+    Tmax_k = 255 sum_j |m[j, k]| + |b_k| bounds |T|. The certificate
+    (csrc/transform_core.cuh certify_exact / certify_scaled,
+    testing.certify) proves from these that the chain rounds to round(T)
+    (round(T r) under adaptive quantization)."""
     n2 = np.asarray(m0).shape[0]
-    absum = sum(np.abs(np.asarray(m, np.float64)).sum(axis=0)
-                for m in (m0, m1, m2))
-    gamma = (n2 + 3) * U32 / (1.0 - (n2 + 3) * U32)
-    b = np.asarray(b, np.float64).reshape(-1)[:n2]
-    err = (gamma * (255.0 * absum + np.abs(b)) * (1.0 + 3 * U32)
-           * (1.0 + 2.0 ** -40))
-    return np.stack([np.ldexp(1.0, -np.asarray(e)), b, err])
+    w, e = np.asarray(w, np.int64), np.asarray(e, np.int64)
+    b = np.asarray(b, np.float32).reshape(-1)[:n2]
+    u = Fraction(1, 2 ** 24)
+    gamma = (n2 + 3) * u / (1 - (n2 + 3) * u)
+    parts_abs = sum(np.abs(np.ldexp(np.asarray(m, np.float64), e[None, :])
+                           ).astype(np.int64).sum(axis=0) for m in (m0, m1, m2))
+    w_abs = np.abs(w).sum(axis=0)
+    out = np.zeros((n2, CERT_FIELDS), np.int64)
+    for k in range(n2):
+        scale = Fraction(1, 2 ** int(e[k]))
+        bk = Fraction(float(b[k]))
+        err = gamma * (255 * int(parts_abs[k]) * scale + abs(bk))
+        tmax = 255 * int(w_abs[k]) * scale + abs(bk)
+        d = err * (1 + u) + u * tmax + u / 2
+        thr = int(d * 2 ** CERT_FRAC_BITS) + 1
+        add = math.floor((bk + Fraction(1, 2)) / scale)
+        if abs(add) + 255 * int(w_abs[k]) >= 2 ** 62:
+            raise ValueError("a coefficient's fixed point exceeds 62 bits")
+        ea = _ceil_f32((err * (1 + u) ** 2 + Fraction(1, 2 ** 29))
+                       * (1 + Fraction(1, 2 ** 20)))
+        out[k, :6] = (add & 0xFFFFFFFF, add >> 32, int(e[k]) - CERT_FRAC_BITS,
+                      thr, max(0, 2 ** CERT_FRAC_BITS - 1 - 2 * thr),
+                      int(np.float32(ea).view(np.int32)))
+    return out.astype(np.uint32).view(np.int32)
 
 
 def integer_operands(m0, m1, m2, b, n2: int, device="cpu") -> dict:
     """The tensor-core operands of CodecOperators (int_planes, int_cert,
-    parts_t) from the split parts (top-left n2 x n2 block of the packed
+    parts) from the split parts (top-left n2 x n2 block of the packed
     forms) and the bias, or None each for n2 outside MMA_N2. The parts are
     read through a row-major copy: the (256, 256) ones come transposed in
     memory from encode_operator_split."""
     if n2 not in MMA_N2:
-        return dict(int_planes=None, int_cert=None, parts_t=None)
+        return dict(int_planes=None, int_cert=None, parts=None)
     parts = [np.ascontiguousarray(np.asarray(m, np.float32)[:n2, :n2])
              for m in (m0, m1, m2)]
-    w, e = integer_operator(*parts)
-    cert = certificate_constants(*parts, b, e)
+    w, e = certificate_operator(*parts)
+    cert = certificate_constants(*parts, b, w, e)
     copies = mma_width(n2) // n2
     planes = np.stack([_block_diag(p, copies) for p in byte_planes(w)])
     return dict(
         int_planes=torch.as_tensor(mma_fragments(planes), device=device),
-        int_cert=torch.as_tensor(np.tile(cert, copies), device=device),
-        parts_t=torch.as_tensor(np.ascontiguousarray(
-            np.stack([p.T for p in parts])), device=device),
+        int_cert=torch.as_tensor(np.tile(cert, (copies, 1)), device=device),
+        parts=torch.as_tensor(np.stack(parts), device=device),
     )
 
 

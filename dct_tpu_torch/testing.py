@@ -18,12 +18,13 @@ ops on any device, so a kernel can be held to it bit for bit.
 
 Kernels A and B reach the encode chain's integers without running it for
 most coefficients: they form the exact product on the integer tensor
-cores, prove that the chain must round to round(Y*) for the float64 value
-Y* (a rounding certificate), and run the chain itself only for the
-coefficients the proof leaves open. encode_certified is that arithmetic in
-torch: the float64 product, the same certificate, the rescue by
-encode_fma_chain. The chain stays the contract; the certificate only
-decides where it has to run.
+cores, prove with integer and float32 operations that the chain must
+round to the nearest integer of the exact value (a rounding certificate),
+and run the chain itself only for the coefficients the proof leaves open.
+encode_certified is that arithmetic in torch: the exact product, the same
+certificate operation for operation, the rescue by encode_fma_chain. The
+chain stays the contract; the certificate only decides where it has to
+run.
 
 damaged_containers is the recipe of damaged containers the decode's fate
 is held to (the reference package's: the same pixels, or ValueError):
@@ -248,29 +249,88 @@ def encode_fma_chain(pixels: torch.Tensor, cfg: CodecConfig,
     return transform.round_half_away(y).to(torch.int32)
 
 
-CERT_REL = 2 * dct_tables.U32 + 2.0 ** -40  # times |Y*| in the certificate
+CERT_C5 = 5 * dct_tables.U32  # times |z| in the scaled certificate
+CERT_UC = 2 * dct_tables.U32  # its additive term
+CERT_HALF = 2 ** 30 - 1  # Z - CERT_HALF centres T 2^31 within 1
+ROUND_MAGIC = 1.5 * 2 ** 23  # z + it holds z's nearest integer in its bits
+
+
+def _f32(x) -> torch.Tensor:
+    return torch.as_tensor(x, dtype=torch.float32)
 
 
 def certify(s: torch.Tensor, cert: torch.Tensor,
             recip: torch.Tensor | None = None):
-    """The rounding certificate of csrc/transform_core.cuh (certify), in
-    the same float64 operations: (B, n2) exact integer products s = x @ W
-    (float64 or int64) and the (3, n2) int_cert constants -> (round(Y*) as
-    int32, certified mask). Y* = s 2^-e + b (the scaling exact, the add
-    rounded once), times the float32 recip on AC under adaptive
-    quantization. A coefficient is certified when no .5 boundary lies
-    within delta = E_k r + (2u + 2^-40) |Y*| + u of Y*: the chain then
-    rounds to round(Y*) (the proof is at certify in transform_core.cuh)."""
-    y = s.to(torch.float64) * cert[0] + cert[1]
-    rr = torch.ones_like(y)
-    if recip is not None:
-        rr[:, 1:] = recip.reshape(-1, 1).to(torch.float64)
-        y = y * rr
-    delta = (cert[2] * rr + CERT_REL * y.abs()) + dct_tables.U32
-    fl = torch.floor(y)
-    frac = y - fl
-    ok = (frac - 0.5).abs() > delta
-    return (fl + (frac > 0.5).to(torch.float64)).to(torch.int32), ok
+    """The rounding certificate of csrc/transform_core.cuh (certify_exact,
+    certify_scaled), operation for operation: (B, n2) exact integer
+    products s = x @ W (int64, certificate_operator's W) and the (n2, 8)
+    int32 int_cert constants -> (the certified integer as int32, certified
+    mask).
+
+    The fixed point: Z = (s + add_k) >> shift_k holds p = (T + 1/2) 2^31
+    to within [Z, Z + 2), T = s 2^-e_k + b_k the exact value (the floor in
+    add_k loses less than 1 in units of 2^-e_k, the shift less than 1 more
+    in units of 2^-31).
+
+    Without recip (certify_exact): q = Z >> 31 and F = Z mod 2^31; the
+    coefficient is certified when thr_k <= F < 2^31 - 1 - thr_k (one
+    unsigned compare, F - thr_k < span_k). Then T lies within (q - 1/2,
+    q + 1/2), farther than thr_k 2^-31 > D_k = E_k (1 + u) + u Tmax_k +
+    u/2 from both ends. The chain's float32 value y lies within E_k of T,
+    and round_half_away(y) = trunc(fl(y + h)), h = copysign(1/2, y):
+    y + h lies farther than u |y + h| <= u (|T| + E_k + 1/2) from every
+    integer, so the add cannot carry it across one, and trunc gives q.
+
+    With recip (certify_scaled; every coefficient, with r = 1 on DC, whose
+    chain has no multiply): t = fl32(Z - (2^30 - 1)) (|t - T 2^31| <=
+    u |Z - 2^30 + 1| + 1), z = fl32(t * (r 2^-31)) (the power of two
+    exact), so |z - T r| <= (2u + u^2) |T r| + r 2^-31 (1 + u)^2. The
+    chain's z_c = fl32(y r) lies within E_k r (1 + u) + u |T r| of T r and
+    rounds to round(T r) when T r is farther than D = E_k r (1 + u)^2 +
+    (2u + u^2) |T r| + u/2 from every half-integer (the same argument).
+    m = fl32(z + 1.5 2^23) holds z's nearest integer n (ties to even) in
+    its low bits (|z| < 2^22), fl32(m - 1.5 2^23) = n exactly, and d =
+    fl32(z - n) is exact (|z - n| <= 1/2 and n a multiple of z's ulp), so
+    z lies 1/2 - |d| from the nearest half-integer. The test |d| <
+    fl32(1/2 - delta), delta = fl(fl(fl(ea_k r) + fl(5u |z|)) + 2u),
+    loses at most 2^-25 to its last rounding and suffices: each of
+    delta's three roundings loses at most a factor (1 - u) of a
+    non-negative sum, which the slack in ea_k ((E_k (1 + u)^2 + 2^-29)
+    (1 + 2^-20)), in 5u against the 4u + O(u^2) that |T r| <= |z| + ...
+    needs and in 2u against u/2 + 2^-25 covers. q = n is then round(z) =
+    round(T r) (no tie is certified).
+
+    The certificate is never less cautious than the exact condition: it
+    only leaves more coefficients open."""
+    c = cert.to(torch.int64)
+    add = (c[:, 1] << 32) | (c[:, 0] & 0xFFFFFFFF)
+    z = (s.to(torch.int64) + add) >> c[:, 2]
+    if recip is None:
+        f = (z & 0x7FFFFFFF) - c[:, 3]
+        return (z >> 31).to(torch.int32), (f >= 0) & (f < c[:, 4])
+    rr = recip.reshape(-1, 1).to(torch.float32).expand(z.shape).clone()
+    rr[:, 0] = 1.0
+    ea = c[:, 5].to(torch.int32).view(torch.float32)
+    t = (z - CERT_HALF).to(torch.float64).to(torch.float32)
+    zf = t * (rr * _f32(2.0 ** -31))
+    m = zf + _f32(ROUND_MAGIC)
+    d = zf - (m - _f32(ROUND_MAGIC))
+    delta = ((ea * rr) + (_f32(CERT_C5) * zf.abs())) + _f32(CERT_UC)
+    ok = d.abs() < (_f32(0.5) - delta)
+    return m.view(torch.int32) - _f32(ROUND_MAGIC).view(torch.int32), ok
+
+
+def certified_products(pixels: torch.Tensor, cfg: CodecConfig,
+                       ops: dct_tables.CodecOperators) -> torch.Tensor:
+    """(B, n2) int64 x @ W, the exact integer products kernels A and B
+    form on the tensor cores (W of tables.certificate_operator)."""
+    n2 = cfg.n2
+    w, _ = dct_tables.certificate_operator(
+        *(m[:n2, :n2].cpu().numpy() for m in (ops.m0, ops.m1, ops.m2)))
+    x = pixels.reshape(-1, n2).to(torch.float64)
+    # exact in float64: |x @ W| < 2^47
+    return (x @ torch.from_numpy(w).to(x.device, torch.float64)).to(
+        torch.int64)
 
 
 def encode_certified(pixels: torch.Tensor, cfg: CodecConfig,
@@ -278,15 +338,11 @@ def encode_certified(pixels: torch.Tensor, cfg: CodecConfig,
                      recip: torch.Tensor | None = None):
     """Kernels A's and B's transform arithmetic on pixels' device: (B, n2)
     u8 blocks -> ((B, n2) int32, (B, n2) bool rescued). The exact product
-    x @ W (float64 holds it: |x @ W| < 2^47), the certificate, and
-    encode_fma_chain's integer for every coefficient the certificate leaves
-    open (the rescue). recip: (B,) float32 reciprocal scales, or None."""
-    n2 = cfg.n2
-    w, _ = dct_tables.integer_operator(
-        *(m[:n2, :n2].cpu().numpy() for m in (ops.m0, ops.m1, ops.m2)))
-    x = pixels.reshape(-1, n2).to(torch.float64)
-    s = x @ torch.from_numpy(w).to(x.device, torch.float64)
-    q, ok = certify(s, ops.int_cert[:, :n2].to(x.device), recip)
+    x @ W, the certificate, and encode_fma_chain's integer for every
+    coefficient the certificate leaves open (the rescue). recip: (B,)
+    float32 reciprocal scales, or None."""
+    s = certified_products(pixels, cfg, ops)
+    q, ok = certify(s, ops.int_cert[:cfg.n2].to(s.device), recip)
     chain = encode_fma_chain(pixels, cfg, ops, recip)
     return torch.where(ok, q, chain), ~ok
 

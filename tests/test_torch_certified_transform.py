@@ -5,17 +5,21 @@ emulation (dct_tpu_torch.testing.encode_certified), on the CPU.
 Each column of the bf16 split m0 + m1 + m2 is an int32 column W times a
 power of two, so x @ W is an exact integer, and four byte planes of W
 give it as u8 x u8 and u8 x s8 products. The certificate proves, per
-coefficient, that the float32 chain the kernels promise
-(testing.encode_fma_chain) rounds to round(Y*) for the float64 value Y*;
-the coefficients it leaves open are rescued by the chain itself.
-Tolerances: none. Every certified coefficient must equal the chain's
-integer, and so must every rescued one; the mismatches between round(Y*)
-and the chain must all lie in the rescued set. Against the JAX reference
-the emulation differs at ties only (at most 1 apart, the float64 value
-within 1e-6 of a .5 boundary, tests/test_parity.py's criterion), as the
-chain does.
+coefficient, with integer operations (and float32 ones under adaptive
+quantization) on per-column integer constants, that the float32 chain the
+kernels promise (testing.encode_fma_chain) rounds to the integer it reads
+from the exact value's fixed point; the coefficients it leaves open are
+rescued by the chain itself. Tolerances: none. Every certified coefficient
+must equal the chain's integer, and so must every rescued one; the
+mismatches between the certificate's integer and the chain must all lie
+in the rescued set. The open share stays within twice that of the float64
+certificate the kernels ran before (written out here as the yardstick).
+Against the JAX reference the emulation differs at ties only (at most 1
+apart, the float64 value within 1e-6 of a .5 boundary,
+tests/test_parity.py's criterion), as the chain does.
 """
 
+import math
 from fractions import Fraction
 
 import numpy as np
@@ -105,6 +109,18 @@ def test_plane_products_equal_the_integer_product(n):
     got = sum(p << 8 * l for l, p in enumerate(prods))
     torch.testing.assert_close(got, x @ torch.from_numpy(w), rtol=0, atol=0)
 
+    # the kernels' W: columns scaled to at least 31 fraction bits, still
+    # the split exactly, still 31 bits wide
+    wc, ec = tables.certificate_operator(m0, m1, m2)
+    assert (ec >= tables.CERT_FRAC_BITS).all() and (ec >= e).all()
+    np.testing.assert_array_equal(wc, w << (ec - e)[None, :])
+    assert np.abs(wc).max() < 2 ** 31
+    planes = tables.byte_planes(wc)
+    prods = [x @ torch.from_numpy(pl) for pl in planes]
+    assert max(int(p.abs().max()) for p in prods) < 2 ** 31
+    torch.testing.assert_close(sum(p << 8 * l for l, p in enumerate(prods)),
+                               x @ torch.from_numpy(wc), rtol=0, atol=0)
+
     ops = tables.build(cfg)
     p = tables.mma_width(cfg.n2)
     assert ops.int_planes.shape == (p // 8, p // 32, 32, 32)
@@ -115,19 +131,21 @@ def test_plane_products_equal_the_integer_product(n):
         sl = slice(c * cfg.n2, (c + 1) * cfg.n2)
         want[:, sl, sl] = planes
     np.testing.assert_array_equal(_unfragment(ops.int_planes.numpy()), want)
-    cert = tables.certificate_constants(m0, m1, m2, b, e)
+    cert = tables.certificate_constants(m0, m1, m2, b, wc, ec)
     np.testing.assert_array_equal(ops.int_cert.numpy(),
-                                  np.tile(cert, copies))
-    np.testing.assert_array_equal(
-        ops.parts_t.numpy(), np.stack([m.T for m in (m0, m1, m2)]))
+                                  np.tile(cert, (copies, 1)))
+    np.testing.assert_array_equal(ops.parts.numpy(), np.stack([m0, m1, m2]))
 
 
-def _adversarial(n: int, count: int, seed: int) -> np.ndarray:
+def _adversarial(n: int, count: int, seed: int,
+                 cfg: CodecConfig | None = None,
+                 chroma: bool = False) -> np.ndarray:
     """(count, n2) u8 blocks whose values sit on or near .5 boundaries:
     constant blocks (exact ties of the DC at q100 where the level shift
     leaves .5), sums at every residue mod 8, 0/255 checkerboards and
     ramps, and the random blocks of a large pool whose nearest coefficient
-    lies closest to a boundary."""
+    lies closest to a boundary under cfg (static q100 by default; its
+    adaptive scales and the chroma table where asked)."""
     n2 = n * n
     rng = np.random.default_rng(seed)
     const = np.repeat(np.arange(0, 256, 17, dtype=np.int64)[:, None], n2, 1)
@@ -139,8 +157,13 @@ def _adversarial(n: int, count: int, seed: int) -> np.ndarray:
                       (yy * 255 // (n - 1)).reshape(-1),
                       ((xx + yy) * 255 // (2 * n - 2)).reshape(-1)])
     pool = rng.integers(0, 256, (20000, n2))
-    cfg = CodecConfig(block_size=n, quality=100)
-    vals = testing.encode_values_f64(pool, cfg)
+    cfg = cfg or CodecConfig(block_size=n, quality=100)
+    recip = None
+    if cfg.adaptive:
+        _, scale = codec._adaptive(torch.from_numpy(pool.astype(np.uint8)),
+                                   cfg)
+        recip = transform.reciprocal_scale(scale).numpy()
+    vals = testing.encode_values_f64(pool, cfg, recip, chroma)
     near = np.abs(np.abs(vals) % 1.0 - 0.5).min(axis=1)
     picked = pool[np.argsort(near)[:count]]
     return np.concatenate([const, steps, checker, 255 - checker, ramps,
@@ -173,10 +196,8 @@ def test_certified_coefficients_equal_the_chain(kind, n, quality, adaptive,
         _, scale = codec._adaptive(px, cfg)
         recip = transform.reciprocal_scale(scale)
     chain = testing.encode_fma_chain(px, cfg, ops, recip)
-    w, _ = tables.integer_operator(
-        *(m[:cfg.n2, :cfg.n2].numpy() for m in (ops.m0, ops.m1, ops.m2)))
-    s = px.to(torch.float64) @ torch.from_numpy(w).to(torch.float64)
-    q, ok = testing.certify(s, ops.int_cert[:, :cfg.n2], recip)
+    s = testing.certified_products(px, cfg, ops)
+    q, ok = testing.certify(s, ops.int_cert[:cfg.n2], recip)
     assert torch.equal(q[ok], chain[ok])
     assert not ((q != chain) & ok).any()
     got, rescued = testing.encode_certified(px, cfg, ops, recip)
@@ -186,7 +207,8 @@ def test_certified_coefficients_equal_the_chain(kind, n, quality, adaptive,
     record_property("rescued_share", share)
     print(f"{kind} n={n} q{quality} adaptive={adaptive}: "
           f"{100 * share:.3f} % rescued, "
-          f"{int((q != chain).sum())} round(Y*) mismatches")
+          f"{int((q != chain).sum())} mismatches of the certificate's "
+          f"integer")
     if kind == "adversarial":
         assert rescued.any()  # the blocks reach the boundaries
 
@@ -222,7 +244,135 @@ def test_operands_only_for_the_tensor_core_sizes():
     for n in (3, 5):
         ops = tables.build(CodecConfig(block_size=n))
         assert ops.int_planes is None and ops.int_cert is None
-        assert ops.parts_t is None
+        assert ops.parts is None
     ops = tables.build(CodecConfig(block_size=16))
-    assert ops.int_cert.dtype == torch.float64
-    assert ops.parts_t.is_contiguous() and ops.parts_t.dtype == torch.float32
+    assert ops.int_cert.dtype == torch.int32
+    assert ops.int_cert.shape == (256, tables.CERT_FIELDS)
+    assert ops.parts.is_contiguous() and ops.parts.dtype == torch.float32
+
+
+def _recip(px: torch.Tensor, cfg: CodecConfig):
+    if not cfg.adaptive:
+        return None
+    _, scale = codec._adaptive(px, cfg)
+    return transform.reciprocal_scale(scale)
+
+
+def _float64_open(px: torch.Tensor, cfg: CodecConfig, ops,
+                  recip) -> torch.Tensor:
+    """The coefficients the float64 certificate that kernels A and B ran
+    before the integer one leaves open: Y* = fl64(S 2^-e + b_k) (times the
+    float32 recip on AC, rounded once), open where a .5 boundary lies
+    within E_k r (1 + 3u)(1 + 2^-40) + (2u + 2^-40) |Y*| + u of Y*. The
+    yardstick of the open share."""
+    n2 = cfg.n2
+    parts = [m[:n2, :n2].numpy() for m in (ops.m0, ops.m1, ops.m2)]
+    _, e = tables.certificate_operator(*parts)
+    b = ops.bias[0, :n2].to(torch.float64)
+    u = 2.0 ** -24
+    gamma = (n2 + 3) * u / (1 - (n2 + 3) * u)
+    absum = sum(np.abs(p.astype(np.float64)).sum(axis=0) for p in parts)
+    err = torch.from_numpy(gamma * (255 * absum + np.abs(b.numpy()))
+                           * (1 + 3 * u) * (1 + 2.0 ** -40))
+    y = (testing.certified_products(px, cfg, ops).to(torch.float64)
+         * torch.from_numpy(np.ldexp(1.0, -e)) + b)
+    rr = torch.ones_like(y)
+    if recip is not None:
+        rr[:, 1:] = recip.reshape(-1, 1).to(torch.float64)
+        y = y * rr
+    delta = (err * rr + (2 * u + 2.0 ** -40) * y.abs()) + u
+    return (y - torch.floor(y) - 0.5).abs() <= delta
+
+
+@pytest.mark.parametrize("chroma", (False, True))
+@pytest.mark.parametrize("adaptive", (False, True))
+@pytest.mark.parametrize("quality", (50, 90, 100))
+@pytest.mark.parametrize("n", (2, 4, 8, 16))
+def test_certificate_never_certifies_a_wrong_integer(n, quality, adaptive,
+                                                     chroma):
+    """On blocks placed at .5 boundaries for this very config (its
+    quality, its adaptive scales, the luma or chroma operator), at n2 4,
+    16, 64 and 256, every coefficient the integer certificate passes is
+    encode_fma_chain's integer, and encode_certified (certificate plus
+    rescue) equals the chain everywhere."""
+    cfg = CodecConfig(block_size=n, quality=quality, adaptive=adaptive)
+    ops = tables.build(cfg, chroma=chroma)
+    px = torch.from_numpy(_adversarial(n, 64, seed=n + quality, cfg=cfg,
+                                       chroma=chroma))
+    recip = _recip(px, cfg)
+    chain = testing.encode_fma_chain(px, cfg, ops, recip)
+    q, ok = testing.certify(testing.certified_products(px, cfg, ops),
+                            ops.int_cert[:cfg.n2], recip)
+    assert not ((q != chain) & ok).any()
+    got, rescued = testing.encode_certified(px, cfg, ops, recip)
+    assert torch.equal(rescued, ~ok)
+    assert torch.equal(got, chain)
+    assert rescued.any()  # the blocks reach the boundaries
+
+
+@pytest.mark.parametrize("chroma", (False, True))
+@pytest.mark.parametrize("adaptive", (False, True))
+@pytest.mark.parametrize("n", (2, 4, 8, 16))
+def test_open_share_at_q50_within_double_the_float64_certificate(
+        n, adaptive, chroma, record_property):
+    """At q50, on photo blocks and on blocks at .5 boundaries, the integer
+    certificate leaves at most twice as many coefficients open as the
+    float64 one did on the same blocks (the rescue's cost); the shares are
+    reported."""
+    cfg = CodecConfig(block_size=n, quality=50, adaptive=adaptive)
+    ops = tables.build(cfg, chroma=chroma)
+    for kind in ("photo", "adversarial"):
+        px = torch.from_numpy(
+            _blocks("photo", n) if kind == "photo" else
+            _adversarial(n, 64, seed=n, cfg=cfg, chroma=chroma))
+        recip = _recip(px, cfg)
+        _, open_new = testing.encode_certified(px, cfg, ops, recip)
+        open_old = _float64_open(px, cfg, ops, recip)
+        new, old = int(open_new.sum()), int(open_old.sum())
+        record_property(f"{kind}_open_share", new / open_new.numel())
+        record_property(f"{kind}_float64_open_share", old / open_new.numel())
+        print(f"{kind} n={n} adaptive={adaptive} chroma={chroma}: "
+              f"{100 * new / open_new.numel():.4f} % open, float64 "
+              f"certificate {100 * old / open_new.numel():.4f} %")
+        assert new <= 2 * old
+
+
+@pytest.mark.parametrize("quality", (1, 50, 100))
+@pytest.mark.parametrize("n", (2, 4, 8, 16))
+def test_certificate_constants_against_fractions(n, quality):
+    """Each field of tables.certificate_constants, recomputed on a few
+    columns in exact rational arithmetic from the bf16 parts' values:
+    add_k = floor((b_k + 1/2) 2^e_k), shift_k = e_k - 31, thr_k the least
+    integer above D_k 2^31 (D_k = E_k (1 + u) + u Tmax_k + u/2), span_k,
+    and ea_k the least float32 at or above (E_k (1 + u)^2 + 2^-29)(1 +
+    2^-20); the fields the kernels read back as int64 and float32 are
+    what the int32 words hold."""
+    cfg = CodecConfig(block_size=n, quality=quality)
+    m0, m1, m2, b = tables.encode_operator_split(cfg)
+    w, e = tables.certificate_operator(m0, m1, m2)
+    cert = tables.certificate_constants(m0, m1, m2, b, w, e)
+    assert cert.dtype == np.int32 and cert.shape == (cfg.n2,
+                                                      tables.CERT_FIELDS)
+    u = Fraction(1, 2 ** 24)
+    n2 = cfg.n2
+    gamma = (n2 + 3) * u / (1 - (n2 + 3) * u)
+    for k in sorted({0, 1, n2 // 2, n2 - 1}):
+        bk = Fraction(float(np.float32(np.asarray(b).reshape(-1)[k])))
+        m = [[Fraction(float(p[j, k])) for j in range(n2)]
+             for p in (m0, m1, m2)]
+        err = gamma * (255 * sum(abs(v) for col in m for v in col) + abs(bk))
+        tmax = 255 * sum(abs(sum(col[j] for col in m)) for j in range(n2)) \
+            + abs(bk)
+        d = err * (1 + u) + u * tmax + u / 2
+        add = (int(cert[k, 1]) << 32) | (int(cert[k, 0]) & 0xFFFFFFFF)
+        assert add == math.floor((bk + Fraction(1, 2)) * 2 ** int(e[k]))
+        assert int(cert[k, 2]) == int(e[k]) - 31
+        thr = int(cert[k, 3])
+        assert Fraction(thr, 2 ** 31) > d >= Fraction(thr - 1, 2 ** 31)
+        assert int(cert[k, 4]) == max(0, 2 ** 31 - 1 - 2 * thr)
+        ea = Fraction(float(cert[k, 5:6].view(np.float32)[0]))
+        need = (err * (1 + u) ** 2 + Fraction(1, 2 ** 29)) \
+            * (1 + Fraction(1, 2 ** 20))
+        below = np.nextafter(cert[k, 5:6].view(np.float32)[0],
+                             np.float32(0))
+        assert ea >= need > Fraction(float(below))

@@ -193,8 +193,8 @@ def test_tile_products_equal_int64_matmul(cuda, n):
     cfg = CodecConfig(block_size=n, quality=4)  # the widest columns
     ops = tables.build(cfg, device=cuda)
     p = tables.mma_width(cfg.n2)
-    w, _ = tables.integer_operator(*(m[:cfg.n2, :cfg.n2].cpu().numpy()
-                                     for m in (ops.m0, ops.m1, ops.m2)))
+    w, _ = tables.certificate_operator(*(m[:cfg.n2, :cfg.n2].cpu().numpy()
+                                         for m in (ops.m0, ops.m1, ops.m2)))
     w_bd = torch.block_diag(*[torch.from_numpy(w)] * (p // cfg.n2))
     rows = torch.from_numpy(np.random.default_rng(n).integers(
         0, 256, (1000, p), dtype=np.uint8))
@@ -223,6 +223,59 @@ def test_rescue_counts_of_a_and_b_agree(cuda, image, n):
     assert torch.equal(got.cpu(), want)
     assert _build.rescued("encode_blocks") == int(rescued.sum()) > 0
     assert _build.rescued("encode_stripes") == int(rescued.sum())
+
+
+CERT_CASES = {  # name: (CodecConfig keywords, chroma operator, densest)
+    "n8_static_q50": (dict(quality=50, static_tables=True), False, False),
+    "n8_static_q100": (dict(quality=100, static_tables=True), False, False),
+    "n16_adaptive_q50": (dict(block_size=16, quality=50, adaptive=True),
+                         False, False),
+    "n4_q50": (dict(block_size=4, quality=50), False, False),
+    "n2_q100": (dict(block_size=2, quality=100), False, False),
+    "n8_chroma_q90": (dict(quality=90), True, False),
+    "n8_chroma_adaptive_q90": (dict(quality=90, adaptive=True), True, False),
+    "n16_chroma_q100": (dict(block_size=16, quality=100), True, False),
+    "n4_densest": (None, False, True),
+    "n8_densest": (None, False, True),
+    "n16_densest": (None, False, True),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(CERT_CASES))
+def test_certified_transform_on_cuda_equals_the_cpu_model(cuda, image, case):
+    """Kernels A and B run the certificate of testing.certify: on the same
+    blocks each one's rescue counter equals the number of coefficients the
+    CPU model leaves open, A's integers are encode_certified's (the
+    float32 chain's), and B's stripes are bit-exact against the staged
+    pipeline fed A's integers (static q50 and q100, 16x16 adaptive, 4x4,
+    the chroma operator, testing.densest_stream; 2x2 through A only)."""
+    kw, chroma, densest = CERT_CASES[case]
+    ops_cpu = None
+    if densest:
+        n = int(case[1:case.index("_")])
+        cfg, img, table, run_table = testing.densest_stream(
+            n, 6 * n, 40 * n, seed=n)
+        ops = tables.build(cfg, device=cuda).with_tables(table, run_table)
+    else:
+        cfg, img = CodecConfig(**kw), image
+        ops = tables.build(cfg, chroma=chroma, device=cuda)
+    ops_cpu = tables.build(cfg, chroma=chroma)
+    px, scale = _blocks_and_scale(img, cfg, cuda)
+    px = px.reshape(-1, cfg.n2)
+    recip = None if scale is None else transform.reciprocal_scale(scale)
+    want, open_ = testing.encode_certified(
+        px.cpu(), cfg, ops_cpu, None if recip is None else recip.cpu())
+    _build.reset_rescued()
+    got = transform_cuda.encode_blocks_kernel(px, cfg, ops, scale)
+    assert torch.equal(got.cpu(), want)
+    assert _build.rescued("encode_blocks") == int(open_.sum())
+    print(f"{case}: {int(open_.sum())} of {open_.numel()} coefficients "
+          f"open ({100 * open_.double().mean().item():.4f} %)")
+    if cfg.n2 in fused_encode_cuda.KERNEL_N2:
+        n_stripes = 6 if densest else codec._padded_grid(*img.shape, cfg)[2]
+        _stripe_check(cfg, px, scale, n_stripes, ops)
+        assert _build.rescued("encode_stripes") == int(open_.sum())
 
 
 @pytest.mark.cuda

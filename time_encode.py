@@ -1,5 +1,5 @@
-"""Time kernel B and encode_step of the dct_tpu_torch package under ROOT
-on one NVIDIA GPU.
+"""Time kernels A and B and encode_step of the dct_tpu_torch package under
+ROOT on one NVIDIA GPU.
 
     python3 time_encode.py ROOT [ROOT ...]
 
@@ -13,7 +13,11 @@ events (20 calls after warm-up, as chip_smoke.py times them):
     8x8 (the batch of encode_step), and at the other configs chip_smoke.py
     phase 3 times;
   - kernel B's card work alone at the batch (a spin kernel queued first,
-    so the host's enqueue stays outside the events);
+    so the host's enqueue stays outside the events), and the host's
+    enqueue cost a call (host clock around the calls queued behind it);
+  - kernel A (the encode transform) on the same frames at the configs of
+    A_CONFIGS, its card work alone at each, its coefficients rescued by
+    the float32 chain a call, and at static q50 its host enqueue cost;
   - encode_step on the batch.
 """
 
@@ -46,6 +50,15 @@ CONFIGS = {  # name: CodecConfig keywords (chip_smoke.py phase 3's)
 }
 
 
+A_CONFIGS = {  # name: CodecConfig keywords (chip_smoke.py phase 1's and more)
+    "n8 static q50": dict(quality=50, static_tables=True),
+    "n8 static q100": dict(quality=100, static_tables=True),
+    "n8 adaptive q50": dict(quality=50, adaptive=True),
+    "n4 q50": dict(block_size=4, quality=50),
+    "n16 adaptive q50": dict(block_size=16, quality=50, adaptive=True),
+}
+
+
 def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     import torch
 
@@ -62,7 +75,10 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, iters: int = 50) -> float:
+def device_ms(fn, iters: int = 50) -> tuple[float, float]:
+    """(the card's work a call, the host's enqueue a call) in ms: the calls
+    are queued behind a spin kernel, so the events time the card alone and
+    the host clock around the loop times the enqueue alone."""
     import torch
 
     fn()
@@ -71,11 +87,13 @@ def device_ms(fn, iters: int = 50) -> float:
     end = torch.cuda.Event(enable_timing=True)
     torch.cuda._sleep(50_000_000)
     start.record()
+    t0 = time.perf_counter()
     for _ in range(iters):
         fn()
+    host = (time.perf_counter() - t0) * 1e3 / iters
     end.record()
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    return start.elapsed_time(end) / iters, host
 
 
 def run(root: str) -> dict:
@@ -88,6 +106,7 @@ def run(root: str) -> dict:
     from dct_tpu_torch import CodecConfig, tables
     from dct_tpu_torch.models import codec
     from dct_tpu_torch.ops import _build, blocks, fused_encode_cuda
+    from dct_tpu_torch.ops import transform_cuda
     from dct_tpu_torch.utils import image_io
 
     if not _build.__file__.startswith(root.rstrip("/") + "/"):
@@ -124,7 +143,30 @@ def run(root: str) -> dict:
 
         out["b_ms"][name] = round(cuda_ms(call), 4)
         if name == "n8 static q50":
-            out["b_device_ms"] = round(device_ms(call), 4)
+            card, host = device_ms(call)
+            out["b_device_ms"], out["b_enqueue_ms"] = round(card, 4), round(
+                host, 4)
+    out["a_ms"], out["a_device_ms"], out["a_rescued"] = {}, {}, {}
+    for name, kw in A_CONFIGS.items():
+        cfg = CodecConfig(**kw)
+        n = cfg.block_size
+        if n not in px_of:
+            px_of[n] = blocks.image_to_blocks(frames_d, n).reshape(-1, n * n)
+        px = px_of[n]
+        _, scale = codec._adaptive(px, cfg)
+        ops = tables.build(cfg, device=dev)
+
+        def call_a():
+            transform_cuda.encode_blocks_kernel(px, cfg, ops, scale)
+
+        _build.reset_rescued()
+        call_a()
+        out["a_rescued"][name] = _build.rescued("encode_blocks")
+        out["a_ms"][name] = round(cuda_ms(call_a), 4)
+        card, host = device_ms(call_a)
+        out["a_device_ms"][name] = round(card, 4)
+        if name == "n8 static q50":
+            out["a_enqueue_ms"] = round(host, 4)
     static = CodecConfig(quality=50, static_tables=True, use_pallas=True)
     out["encode_step_ms"] = round(cuda_ms(
         lambda: codec.encode_step(frames_d, static, H // 8)), 4)
