@@ -7,7 +7,9 @@ toolkit. It builds the port's kernels from csrc/ into build/torch_kernels/
 (printing each kernel function's registers and spills from ptxas -v),
 counts the integer tensor-core instructions (IMMA, from cuobjdump -sass)
 in kernels A's and B's functions (each must have some), prints kernel
-B's persistent grid (CTAs an SM, SMs, registers, shared memory), holds the
+B's launch shape (warps a CTA, registers, CTAs an SM, SMs, shared memory,
+spilled bytes, which must be 0, and the batch's stripes a CTA, most and
+mean), holds the
 tensor-core tile's integer products (transform_cuda.mma_products) equal
 to int64 products at n2 4, 16, 64 and 256, then:
 
@@ -31,8 +33,10 @@ to int64 products at n2 4, 16, 64 and 256, then:
   3. kernel B (fused stripe encode) against the plain staged pipeline
      (codec.encode_pack_plain) fed kernel A's integers — exactly equal
      units (the whole worst-case buffer, zeros included), stripe bits and
-     block bits, with B's rescue share (equal to the model's, as in 1) —
-     on the
+     block bits, with B's rescue share (equal to the model's, as in 1),
+     and B reading the frames' planes themselves (the route encode_step
+     takes) equal to B on the blocks, whole buffer and rescues too — on
+     the
      batch at static q50,
      dynamic-table q50, adaptive + DC prediction + coded runs, and at the
      other configs B takes: 4x4 blocks in category (dynamic),
@@ -49,7 +53,9 @@ to int64 products at n2 4, 16, 64 and 256, then:
      events), end-to-end encode_step and decode rates; kernels A's and
      B's card work alone at the batch (a spin kernel queued first) beside
      the host's enqueue time a call and 20 back-to-back calls, and their
-     rescue counts a call against the certificate's model;
+     rescue counts a call against the certificate's model; B from the
+     planes likewise; encode_step's card work alone beside its host
+     enqueue a call;
   6. the indexed decode (kernel D), the main path of the second slice:
      ImageCodec(CodecConfig(quality=90), device="cuda") encodes the 1080p
      frame to a v2 container (kernels A and B), decodes it (decode and
@@ -99,7 +105,8 @@ to int64 products at n2 4, 16, 64 and 256, then:
      (pass 2 through B) must give the same streams;
  12. dense streams: the 1080p frame at q97 and q100 and a "noise" frame at
      q100, in each mode with the decode index: kernel B bit-exact against
-     the plain staged pipeline fed kernel A's integers, and kernel D on
+     the plain staged pipeline fed kernel A's integers, from the blocks
+     and from the padded plane, and kernel D on
      B's stream against its plain version and the host decoder. This
      drives direct mode's ESC, the 16-bit code cap and B's worst-case
      buffer (the fullest stripe's share of it is printed). Then the
@@ -315,6 +322,16 @@ def a_b_ops(nb: int, n2: int) -> float:
     return 4 * 2 * nb * n2 * n2
 
 
+def b_bytes(nb: int, n2: int, cfg, ops, n_stripes: int) -> int:
+    """The bytes kernel B must move: its pixels and operands in; out, the
+    whole worst-case unit buffer (what the JAX kernel returns, zeros past
+    each payload included), the stripe bits and the block bits."""
+    from dct_tpu_torch.ops import bitstream as bs
+
+    units = nb * bs.units_per_block_worst(n2, cfg.coded_runs) * 2
+    return nb * n2 + operator_bytes(ops) + units + 4 * n_stripes + 4 * nb
+
+
 def operator_bytes(ops) -> int:
     """The operands A and B read for the transform: the byte planes, the
     certificate constants, the float32 parts, the bias."""
@@ -388,10 +405,13 @@ def batch_tables(cfg, px, scale, n_stripes, ops):
     return ops.with_tables(table, run_table), table, run_table
 
 
-def check_b(name, cfg, px, scale, n_stripes, ops):
+def check_b(name, cfg, px, scale, n_stripes, ops, plane=None):
     """Kernel B against the plain staged pipeline fed kernel A's integers
     (exactly equal units, stripe bits and block bits) -> (B's packed
-    stripes, block bits, max |unit difference|)."""
+    stripes, block bits, max |unit difference|). plane: the padded planes
+    px was cut from; B reading them (the route encode_step takes) must
+    give the same whole buffer, bits and block bits as B on px, and
+    rescue as many coefficients."""
     import torch
     from dct_tpu_torch.models import codec
     from dct_tpu_torch.ops import bitstream as bs
@@ -415,6 +435,20 @@ def check_b(name, cfg, px, scale, n_stripes, ops):
             and torch.equal(got.units.to(torch.int32) & 0xFFFF,
                             ref.units.to(torch.int32) & 0xFFFF)
             and torch.equal(got_bb, ref_bb))
+    if plane is not None:
+        _build.reset_rescued()
+        from_plane, plane_bb = fused_encode_cuda.encode_plane_stripes_fused(
+            plane, cfg, n_stripes, ops, scale)
+        plane_share = rescue_share("encode_stripes", px, cfg, ops, scale)
+        plane_same = (torch.equal(from_plane.units, got.units)
+                      and torch.equal(from_plane.bit_lengths,
+                                      got.bit_lengths)
+                      and torch.equal(plane_bb, got_bb))
+        log(f"B {name} from the planes: whole buffer, stripe bits and "
+            f"block bits equal to B on the blocks: {plane_same}; "
+            f"{plane_share}")
+        check(plane_same, f"B {name} from the planes differs from B on "
+              f"the blocks")
     capacity_bits = 16 * got.units.shape[1]
     log(f"B {name}: {px.shape[0]} blocks, {n_stripes} stripes, "
         f"{int(g.bit_lengths.sum())} bits, fullest stripe "
@@ -1587,10 +1621,17 @@ def main() -> int:
             check(n > 0, f"{fn} has no integer tensor-core instructions")
     for n2 in fused_encode_cuda.KERNEL_N2:  # kernel B's persistent grid
         info = fused_encode_cuda.kernel_info(n2, dev)
-        log(f"B n2={n2}: {info['ctas_per_sm']} CTAs an SM x {info['sms']} "
-            f"SMs, {info['registers']} registers a thread, "
-            f"{info['shared_bytes']} B shared memory a CTA, "
-            f"{info['local_bytes']} B local")
+        stripes = FRAMES * H // {16: 4, 64: 8, 256: 16}[n2]  # the batch's
+        most, mean = fused_encode_cuda.stripes_per_cta(stripes, info)
+        log(f"B n2={n2}: {info['threads'] // 32} warps a CTA (each runs "
+            f"the transform, then the entropy rounds), {info['registers']} "
+            f"registers a thread, {info['ctas_per_sm']} CTAs an SM x "
+            f"{info['sms']} SMs, {info['shared_bytes']} B shared memory a "
+            f"CTA, tiles of {info['tile_blocks']} blocks, "
+            f"{info['local_bytes']} B local (spills); at the batch's "
+            f"{stripes} stripes {most} / {mean:.3f} stripes a CTA (most / "
+            f"mean)")
+        check(info["local_bytes"] == 0, f"B n2={n2} spills registers")
     # the tensor-core tile's integer products, before A and B rely on them
     for n in (2, 4, 8, 16):
         cfg = CodecConfig(block_size=n, quality=90)
@@ -1738,7 +1779,7 @@ def main() -> int:
         _, scale = codec._adaptive(px, cfg)
         ops, _, _ = batch_tables(cfg, px, scale, s_all,
                                  tables.build(cfg, device=dev))
-        _, _, err = check_b(name, cfg, px, scale, s_all, ops)
+        _, _, err = check_b(name, cfg, px, scale, s_all, ops, frames_d)
         if cfg is static:
             results["encode_stripes"] = (0, err)
     # the other configs B takes, each timed beside its plain version and
@@ -1766,15 +1807,14 @@ def main() -> int:
         _, scale = codec._adaptive(pxn, cfg)
         ops, _, _ = batch_tables(cfg, pxn, scale, ns,
                                  tables.build(cfg, device=dev))
-        packed, _, _ = check_b(name, cfg, pxn, scale, ns, ops)
+        packed, _, _ = check_b(name, cfg, pxn, scale, ns, ops, frames_d)
         b_ms = cuda_ms(lambda: fused_encode_cuda.encode_stripes_fused(
             pxn, cfg, ns, ops, scale), 10)
         plain_ms = cuda_ms(lambda: fused_encode_cuda.encode_stripes_plain(
             pxn, cfg, ns, ops, scale), 3)
         nb, n2 = pxn.shape
-        b_bound = bound_ms(
-            nb * n2 + operator_bytes(ops) + packed.bit_lengths.sum().item() / 8
-            + 4 * ns + 4 * nb, a_b_ops(nb, n2), INT8_OPS)
+        b_bound = bound_ms(b_bytes(nb, n2, cfg, ops, ns), a_b_ops(nb, n2),
+                           INT8_OPS)
         log(f"time encode_stripes {name}: kernel {b_ms:.4f} ms, plain "
             f"{plain_ms:.4f} ms, bound {b_bound[0]:.5f} ms ({b_bound[1]}; "
             f"kernel at {100 * b_bound[0] / b_ms:.1f} %), {nb} blocks of "
@@ -1790,9 +1830,10 @@ def main() -> int:
             cuda_ms(lambda: transform_cuda.encode_blocks_kernel(
                 px, static, ops), 20),
             cuda_ms(lambda: transform.encode_blocks(px, static, ops), 20)),
+        # B from the planes, the route encode_step takes
         "encode_stripes": (
-            cuda_ms(lambda: fused_encode_cuda.encode_stripes_fused(
-                px, static, s_all, ops), 20),
+            cuda_ms(lambda: fused_encode_cuda.encode_plane_stripes_fused(
+                frames_d, static, s_all, ops), 20),
             cuda_ms(lambda: fused_encode_cuda.encode_stripes_plain(
                 px, static, s_all, ops), 5)),
         # int16, the coefficients' type on the decode path (kernel D and
@@ -1807,11 +1848,20 @@ def main() -> int:
         log(f"time {k}: kernel {ms:.4f} ms, plain {plain:.4f} ms "
             f"(8 x {H}x{W})")
     b_dev_ms, b_enq_ms = device_ms(
+        lambda: fused_encode_cuda.encode_plane_stripes_fused(
+            frames_d, static, s_all, ops), 50)
+    log(f"time encode_stripes from the planes, the card's work alone: "
+        f"{b_dev_ms:.4f} ms; host enqueue {b_enq_ms:.4f} ms a call; 20 "
+        f"back-to-back calls {times['encode_stripes'][0]:.4f} ms a call")
+    # B on the (NB, n2) blocks, the block-major entry
+    block_ms = cuda_ms(lambda: fused_encode_cuda.encode_stripes_fused(
+        px, static, s_all, ops), 20)
+    block_dev_ms, block_enq_ms = device_ms(
         lambda: fused_encode_cuda.encode_stripes_fused(px, static, s_all, ops),
         50)
-    log(f"time encode_stripes, the card's work alone: {b_dev_ms:.4f} ms; "
-        f"host enqueue {b_enq_ms:.4f} ms a call; 20 back-to-back calls "
-        f"{times['encode_stripes'][0]:.4f} ms a call")
+    log(f"time encode_stripes on the blocks: 20 back-to-back calls "
+        f"{block_ms:.4f} ms a call, the card's work alone {block_dev_ms:.4f} "
+        f"ms, host enqueue {block_enq_ms:.4f} ms a call")
     a_dev_ms, a_enq_ms = device_ms(
         lambda: transform_cuda.encode_blocks_kernel(px, static, ops), 50)
     log(f"time encode_blocks, the card's work alone: {a_dev_ms:.4f} ms; "
@@ -1860,8 +1910,12 @@ def main() -> int:
         f"them to int16 first): {c32_ms:.4f} ms")
     step_ms = cuda_ms(lambda: codec.encode_step(frames_d, static, n_stripes),
                       20)
+    step_dev_ms, step_enq_ms = device_ms(
+        lambda: codec.encode_step(frames_d, static, n_stripes), 50)
     log(f"encode_step 8 x {H}x{W} static q50: {step_ms:.4f} ms = "
-        f"{FRAMES * H * W / step_ms / 1e3:.1f} Mpix/s")
+        f"{FRAMES * H * W / step_ms / 1e3:.1f} Mpix/s (20 back-to-back "
+        f"calls); the card's work alone {step_dev_ms:.4f} ms, host enqueue "
+        f"{step_enq_ms:.4f} ms a call")
     gpu = codec.ImageCodec(static, device=dev)
     dec_ms = host_ms(lambda: gpu.decode(containers["static"]), 10)
     dev_ms = host_ms(lambda: (gpu.decode_to_device(containers["static"]),
@@ -1878,8 +1932,8 @@ def main() -> int:
     bh1, bw1, ns1 = codec._padded_grid(*frame.shape, static)
     rec_d = codec.blk.blocks_to_image(transform_cuda.decode_blocks_kernel(
         zz1_d, static, ops), bh1 * 8, bw1 * 8, 8)[:frame.shape[0]]
-    px1 = blocks.image_to_blocks(codec.pad_plane_for_encode(
-        torch.from_numpy(frame).to(dev), static), 8)
+    plane1 = codec.pad_plane_for_encode(torch.from_numpy(frame).to(dev),
+                                        static)
     stages = {
         "parse+entropy decode": host_ms(
             lambda: testing.coefficients(containers["static"]), 10),
@@ -1889,8 +1943,9 @@ def main() -> int:
         "kernel C": cuda_ms(lambda: transform_cuda.decode_blocks_kernel(
             zz1_d, static, ops), 20),
         "download pixels": host_ms(lambda: rec_d.cpu(), 10),
-        "encode kernel B": cuda_ms(lambda: fused_encode_cuda.encode_stripes_fused(
-            px1, static, ns1, ops), 20),
+        "encode kernel B": cuda_ms(
+            lambda: fused_encode_cuda.encode_plane_stripes_fused(
+                plane1, static, ns1, ops), 20),
     }
     log("1080p stages: " + ", ".join(f"{k} {v:.4f} ms"
                                      for k, v in stages.items()))
@@ -2174,7 +2229,7 @@ def main() -> int:
             ops, table, run_table = batch_tables(
                 cfg, pxd, None, nsd, tables.build(cfg, device=dev))
             packed, bb, _ = check_b(f"dense {fname} {mode}", cfg, pxd, None,
-                                    nsd, ops)
+                                    nsd, ops, img_d)
             check_d(f"dense {fname} {mode}",
                     bs.stripes_to_bytes(bs.fetch_packed(packed)),
                     bb.cpu().numpy().reshape(-1).astype(np.uint16), table,
@@ -2188,7 +2243,8 @@ def main() -> int:
         pxd = blocks.image_to_blocks(img_d, n).reshape(-1, n * n)
         nsd = img_d.shape[0] // n
         ops = tables.build(cfg, device=dev).with_tables(table, run_table)
-        packed, bb, _ = check_b(f"densest {n}x{n}", cfg, pxd, None, nsd, ops)
+        packed, bb, _ = check_b(f"densest {n}x{n}", cfg, pxd, None, nsd, ops,
+                                img_d)
         check_d(f"densest {n}x{n}",
                 bs.stripes_to_bytes(bs.fetch_packed(packed)),
                 bb.cpu().numpy().reshape(-1).astype(np.uint16), table,
@@ -2416,7 +2472,7 @@ def main() -> int:
         "encode_blocks": bound_ms(nb * 64 + nb * 64 * 4 + ab_bytes,
                                   a_b_ops(nb, 64), INT8_OPS),
         "encode_stripes": bound_ms(
-            nb * 64 + ab_bytes + batch_bits / 8 + 4 * s_all + 4 * nb,
+            b_bytes(nb, 64, static, tables.build(static, device=dev), s_all),
             a_b_ops(nb, 64), INT8_OPS),
         "decode_blocks": bound_ms(nb * 64 * 2 + nb * 64 + op_bytes,
                                   mm_flops, F32_FLOPS),

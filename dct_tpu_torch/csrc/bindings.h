@@ -42,8 +42,12 @@ DCT_EXPORT int dct_decode_blocks(const void* zz, const void* m_dec, int ld,
                                  long long n_blocks, int n2, void* stream);
 
 // Kernel B: a persistent grid (SMs x CTAs an SM, at most n_stripes CTAs)
-// walking the stripes, n2 16, 64 or 256, stripes of any width.
-// px: (n_stripes * bps, n2) u8 blocks, 16-byte aligned. frag, cert,
+// walking the stripes, n2 16, 64 or 256, stripes of any width. px, by
+// plane_width:
+// 0: (n_stripes * bps, n2) u8 blocks, 16-byte aligned; else the padded
+// plane(s), rows of plane_width bytes (a multiple of the block side n),
+// n_stripes * bps * n2 bytes in all, 16-byte aligned, stripe s starting at
+// byte s * bps * n2 (bps = (rows a stripe) * plane_width / n). frag, cert,
 // parts, bias, recip, rescued: as kernel A's. mode: 0 category, 1 direct, 2 none.
 // val_len/val_code: the value table's n_val int32 entries (16 categories;
 // 512 in direct mode, values -255..255 and ESC last; n_val 0 in "none"
@@ -60,14 +64,15 @@ DCT_EXPORT int dct_encode_stripes(const void* px, const void* frag,
                                   int n_val, const void* run_len,
                                   const void* run_code, int run_bits,
                                   int mode, int dc_prediction, int n2,
-                                  int n_stripes, int bps, void* words,
-                                  int n_words, void* stripe_bits,
+                                  int n_stripes, int bps, int plane_width,
+                                  void* words, int n_words, void* stripe_bits,
                                   void* block_bits, void* rescued,
                                   void* stream);
 
 // Kernel B's launch shape on the current device, for n2 16, 64 or 256:
-// out[0..4] = SMs, CTAs an SM, registers a thread, dynamic shared memory
-// bytes a CTA, local (spilled) bytes a thread.
+// out[0..6] = SMs, CTAs an SM, registers a thread, dynamic shared memory
+// bytes a CTA, local (spilled) bytes a thread, threads a CTA, blocks a
+// tile.
 DCT_EXPORT int dct_encode_stripes_info(int n2, void* out);
 
 // Kernel D: entropy decode of indexed (v2) stripes, one lane per block, a

@@ -1,5 +1,6 @@
-// Kernel B: the fused stripe encode — u8 pixel blocks to packed bitstream
-// units, a persistent grid of CTAs that walk the stripes tile by tile.
+// Kernel B: the fused stripe encode — u8 pixels (blocks, or the padded
+// planes themselves) to packed bitstream units, a persistent grid of CTAs
+// that walk the stripes tile by tile.
 //
 // Replaces dct_tpu/ops/fused_encode_pallas.py `_fused_kernel` (:218;
 // wrapper `encode_stripes_fused` :699, pallas_call :825) at every config it
@@ -23,8 +24,13 @@
 // transform_core.cuh and its pixel loads are a little under half of B's
 // time; the rest is, in order, the serial symbol chains of the densest
 // segments, the gather, the rounds' masks, scans and barriers, and the
-// zero tail. The design keeps
-// the entropy chain short and issues each symbol once:
+// zero tail. Both halves scale with the warps an SM holds (80 registers a
+// thread allow three CTAs at 8x8). A warp-specialised schedule (a
+// transform warpgroup on the next tile beside entropy warps on this one,
+// double-buffered) was built and measured slower at every config: split
+// off, each half has fewer warps and they still share the SM (PERF.md
+// section 6). So every warp runs both halves in turn, and the design
+// keeps the entropy chain short and issues each symbol once:
 //
 // - A persistent grid of (SMs x CTAs an SM) CTAs of 256 threads; CTA c
 //   takes stripes c, c + grid, ... (stripes are equal in size, so a counter
@@ -35,6 +41,15 @@
 //   stripe or the CTA's next one) are copied by cp.async into the pixel
 //   buffer as soon as the rescue has read it, so their DRAM latency
 //   overlaps this tile's entropy stage.
+// - Pixels are read as (NB, n2) blocks or straight from the padded
+//   plane(s) (..., Hp, Wp), with no blocking pass before the kernel:
+//   block j of a stripe, pixel row r, lies at stripe * bps * n2 + (j / bw)
+//   * s_brow + (j % bw) * s_blk + r * s_row (blocks: s_blk = n2, s_row =
+//   n, bw = bps; the planes: s_blk = n, s_row = Wp, s_brow = n Wp, bw =
+//   Wp / n). Blocks are copied 16 bytes a copy, the planes a block row (4,
+//   8 or 16 bytes) a copy, a warp's lanes on one pixel row of neighbouring
+//   blocks; either way the tile lands as the packed rows the tile
+//   function reads.
 // - Per tile: the certified transform of transform_core.cuh into int16
 //   coefficient rows (16 bytes of padding a row, so lanes that read
 //   neighbouring blocks hit distinct banks), the rescue list worked through
@@ -53,7 +68,8 @@
 //     their table lookups overlap (the run of a symbol is the gap to the
 //     previous nonzero, in its own or an earlier segment of the block; the
 //     walk is compiled for each mode and run field), and appends
-//     code | payload and the run to a 64-bit bit writer, which stores
+//     code | payload | run to a 64-bit bit writer (one append where the
+//     three fit 32 bits, as most symbols' do), which stores
 //     each finished 32-bit word into the segment's slot of a
 //     shared-memory staging window (plain stores; a slot holds
 //     the segment's worst case, kL x (16 + 16 + run field) bits, so it
@@ -99,6 +115,7 @@ constexpr int kMaxCodeBits = 16;  // canonical codes are at most 16 bits
 template <int N2>
 struct Shape {
   static_assert(N2 == 16 || N2 == 64 || N2 == 256, "n2 16, 64 or 256");
+  static constexpr int kN = N2 == 16 ? 4 : N2 == 64 ? 8 : 16;  // block side
   static constexpr int kTile = N2 == 16 ? 256 : N2 == 64 ? 128 : 64;
   static constexpr int kL = N2 == 256 ? 32 : 16;  // positions a segment
   static constexpr int kG = N2 / kL;              // segments a block
@@ -125,7 +142,9 @@ struct Shape {
   static constexpr int kStageBytes = (kThreads * kSlot + 4) * 4;
   static constexpr int kBytes =
       (kTabInts + kScalars) * 4 + kZBytes + kPxBytes + kStageBytes;
-  static_assert(kTile % kE == 0 && kL % 8 == 0 && kTile <= kThreads, "tiling");
+  static_assert(kTile % kE == 0 && kL % 8 == 0 && kTile <= kThreads &&
+                    kThreads % kTile == 0 && kN % (kThreads / kTile) == 0,
+                "tiling");
   static_assert(kTile * N2 * 2 <= kStageBytes, "the rescue list fits");
   static_assert(kZBytes % 16 == 0 && kPxBytes % 16 == 0, "16-byte rows");
 };
@@ -191,6 +210,20 @@ struct Fields {
   int head_bits, run_bits;
 };
 
+// A symbol's fields into the bit writer: one append where they fit 32
+// bits together (most symbols: a short code, a short payload, the run),
+// which halves the writer's serial chain, else two.
+template <int MAX_WORDS>
+__device__ __forceinline__ void put_symbol(BitWriter& w, const Fields& f) {
+  const int bits = f.head_bits + f.run_bits;
+  if (bits <= 32) {
+    w.put<MAX_WORDS>(f.head << f.run_bits | f.run, bits);
+  } else {
+    w.put<MAX_WORDS>(f.head, f.head_bits);
+    w.put<MAX_WORDS>(f.run, f.run_bits);
+  }
+}
+
 template <int MODE, bool CODED>
 __device__ __forceinline__ Fields symbol_fields(int v, int run,
                                                 const Tables& t) {
@@ -246,18 +279,12 @@ __device__ __forceinline__ void segment_symbols(BitWriter& w, unsigned m,
         p0 ? static_cast<int>(zrow[p0]) : dc, p0 - pnz - 1, t);
     const Fields f1 = symbol_fields<MODE, CODED>(static_cast<int>(zrow[p1]),
                                                  i1 < 0 ? 0 : p1 - p0 - 1, t);
-    w.put<MAX_WORDS>(f0.head, f0.head_bits);
-    w.put<MAX_WORDS>(f0.run, f0.run_bits);
-    if (i1 >= 0) {
-      w.put<MAX_WORDS>(f1.head, f1.head_bits);
-      w.put<MAX_WORDS>(f1.run, f1.run_bits);
-    }
+    put_symbol<MAX_WORDS>(w, f0);
+    if (i1 >= 0) put_symbol<MAX_WORDS>(w, f1);
     pnz = p1;
   }
   if (terminal) {
-    const Fields f = symbol_fields<MODE, CODED>(0, N2 - 1 - pnz, t);
-    w.put<MAX_WORDS>(f.head, f.head_bits);
-    w.put<MAX_WORDS>(f.run, f.run_bits);
+    put_symbol<MAX_WORDS>(w, symbol_fields<MODE, CODED>(0, N2 - 1 - pnz, t));
   }
 }
 
@@ -275,11 +302,19 @@ __device__ __forceinline__ unsigned stored(unsigned w) {
   return __funnelshift_l(w, w, 16);
 }
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+// cp.async of BYTES (4, 8 or 16) from global to shared memory; 16 bytes
+// bypass L1 (.cg), the smaller copies cannot (.ca).
+template <int BYTES>
+__device__ __forceinline__ void cp_async(void* smem, const void* gmem) {
   const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
-               "l"(gmem)
-               : "memory");
+  if constexpr (BYTES == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
+                 "l"(gmem)
+                 : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(dst),
+                 "l"(gmem), "n"(BYTES)
+                 : "memory");
 }
 
 __device__ __forceinline__ void cp_async_commit() {
@@ -290,15 +325,42 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
-// Start copying n blocks of N2 pixels from src into the tile's packed rows.
+// Where B reads its pixels (the block address of the header comment).
+struct Pixels {
+  const uint8_t* px;
+  int bps;          // blocks a stripe
+  int plane_width;  // 0: (NB, n2) blocks; else the planes' rows, Wp bytes
+};
+
+// Start copying blocks [j0, j0 + n) of a stripe into the tile's packed
+// rows (one commit group).
 template <int N2>
-__device__ __forceinline__ void load_pixels(uint8_t* s_px,
-                                            const uint8_t* __restrict__ src,
-                                            int n) {
+__device__ __forceinline__ void load_pixels(uint8_t* s_px, const Pixels& g,
+                                            int stripe, int j0, int n) {
   using S = Shape<N2>;
-  for (int i = threadIdx.x; i < n * N2 / 16; i += kThreads) {
-    const int o = 16 * i;  // packed row o / P, byte o % P
-    cp_async16(s_px + o / S::kP * S::Mma::kStride + o % S::kP, src + o);
+  constexpr int P = S::kP, Q = S::Mma::kStride, K = S::kN;
+  const uint8_t* base = g.px + static_cast<long long>(stripe) * g.bps * N2;
+  if (g.plane_width == 0) {  // the tile's n * N2 bytes are contiguous
+    const uint8_t* src = base + static_cast<long long>(j0) * N2;
+    for (int i = threadIdx.x; i < n * N2 / 16; i += kThreads) {
+      const int o = 16 * i;  // packed row o / P, byte o % P
+      cp_async<16>(s_px + o / P * Q + o % P, src + o);
+    }
+  } else {  // the planes: a block row (K bytes) a copy
+    // thread t copies rows r0, r0 + R, ... of tile block t % kTile, so a
+    // warp's lanes copy one pixel row of neighbouring blocks (coalesced),
+    // and each thread finds its block's address once
+    constexpr int R = kThreads / S::kTile;  // threads a block
+    const int bt = threadIdx.x % S::kTile, r0 = threadIdx.x / S::kTile;
+    if (bt < n) {
+      const int w = g.plane_width, bw = w / K, j = j0 + bt;
+      const uint8_t* src = base + static_cast<long long>(j / bw) * K * w +
+                           (j % bw) * K + static_cast<long long>(r0) * w;
+      uint8_t* dst = s_px + bt * N2 / P * Q + bt * N2 % P + r0 * K;
+#pragma unroll
+      for (int i = 0; i < K / R; ++i, src += R * w, dst += R * K)
+        cp_async<K>(dst, src);
+    }
   }
   cp_async_commit();
 }
@@ -322,7 +384,7 @@ __device__ void zero_words(unsigned* row, int a, int e) {
 
 template <int N2>
 __global__ void __launch_bounds__(kThreads, Shape<N2>::kMinBlocks)
-    encode_stripes_kernel(const uint8_t* __restrict__ px,
+    encode_stripes_kernel(const uint8_t* __restrict__ px_in,
                           const uint4* __restrict__ frag,
                           const int4* __restrict__ cert,
                           const float* __restrict__ parts,
@@ -333,7 +395,8 @@ __global__ void __launch_bounds__(kThreads, Shape<N2>::kMinBlocks)
                           const int* __restrict__ run_len,
                           const int* __restrict__ run_code, int run_bits,
                           int mode, int dc_prediction, int n_stripes, int bps,
-                          unsigned* __restrict__ words, int n_words,
+                          int plane_width, unsigned* __restrict__ words,
+                          int n_words,
                           int* __restrict__ stripe_bits,
                           int* __restrict__ block_bits,
                           unsigned long long* __restrict__ rescued) {
@@ -358,6 +421,7 @@ __global__ void __launch_bounds__(kThreads, Shape<N2>::kMinBlocks)
   const int g = tid / E, b = tid % E;  // this thread's segment of a round
   const bool adaptive = recip != nullptr;
   const Tables tabs{s_val, s_run, run_bits};
+  const Pixels px{px_in, bps, plane_width};
 
   for (int i = tid; i < n_val; i += kThreads)
     s_val[i] = static_cast<unsigned>(val_len[i]) << 16 |
@@ -366,8 +430,7 @@ __global__ void __launch_bounds__(kThreads, Shape<N2>::kMinBlocks)
     s_run[tid] = static_cast<unsigned>(run_len[tid]) << 16 |
                  (static_cast<unsigned>(run_code[tid]) & 0xFFFFu);
   if (bps > 0)  // the first tile; the grid has at most n_stripes CTAs
-    load_pixels<N2>(s_px, px + static_cast<long long>(blockIdx.x) * bps * N2,
-                    min(T, bps));
+    load_pixels<N2>(s_px, px, blockIdx.x, 0, min(T, bps));
 
   long long n_rescued = 0;  // coefficients the chain computed
   for (int stripe = blockIdx.x; stripe < n_stripes; stripe += gridDim.x) {
@@ -412,9 +475,7 @@ __global__ void __launch_bounds__(kThreads, Shape<N2>::kMinBlocks)
           ns += gridDim.x;
         }
         if (ns < n_stripes)
-          load_pixels<N2>(
-              s_px, px + (static_cast<long long>(ns) * bps + nt0) * N2,
-              min(T, bps - nt0));
+          load_pixels<N2>(s_px, px, ns, nt0, min(T, bps - nt0));
       }
 
       // ---- 3. the entropy stage, in rounds of E blocks ----
@@ -611,9 +672,9 @@ int launch(const void* px, const void* frag, const void* cert,
            const void* parts, const void* bias, const void* recip,
            const void* val_len, const void* val_code, int n_val,
            const void* run_len, const void* run_code, int run_bits, int mode,
-           int dc_prediction, int n_stripes, int bps, void* words,
-           int n_words, void* stripe_bits, void* block_bits, void* rescued,
-           cudaStream_t stream) {
+           int dc_prediction, int n_stripes, int bps, int plane_width,
+           void* words, int n_words, void* stripe_bits, void* block_bits,
+           void* rescued, cudaStream_t stream) {
   int sms = 0, ctas = 0;
   cudaError_t err = occupancy<N2>(sms, ctas);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -625,7 +686,7 @@ int launch(const void* px, const void* frag, const void* cert,
       static_cast<const int*>(val_len), static_cast<const int*>(val_code),
       n_val, static_cast<const int*>(run_len),
       static_cast<const int*>(run_code), run_bits, mode, dc_prediction,
-      n_stripes, bps, static_cast<unsigned*>(words), n_words,
+      n_stripes, bps, plane_width, static_cast<unsigned*>(words), n_words,
       static_cast<int*>(stripe_bits), static_cast<int*>(block_bits),
       static_cast<unsigned long long*>(rescued));
   return static_cast<int>(cudaGetLastError());
@@ -644,6 +705,8 @@ int info(int* out) {
   out[2] = a.numRegs;
   out[3] = Shape<N2>::kBytes;
   out[4] = static_cast<int>(a.localSizeBytes);
+  out[5] = kThreads;
+  out[6] = Shape<N2>::kTile;
   return 0;
 }
 
@@ -656,20 +719,22 @@ DCT_EXPORT int dct_encode_stripes(const void* px, const void* frag,
                                   int n_val, const void* run_len,
                                   const void* run_code, int run_bits,
                                   int mode, int dc_prediction, int n2,
-                                  int n_stripes, int bps, void* words,
-                                  int n_words, void* stripe_bits,
+                                  int n_stripes, int bps, int plane_width,
+                                  void* words, int n_words, void* stripe_bits,
                                   void* block_bits, void* rescued,
                                   void* stream) {
   if (n_val < 0 || n_val > kMaxValues || mode < kCategory || mode > kNone ||
-      run_bits < 0 || run_bits > kMaxCodeBits)
+      run_bits < 0 || run_bits > kMaxCodeBits || plane_width < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   if (n_stripes == 0) return static_cast<int>(cudaSuccess);
   auto s = static_cast<cudaStream_t>(stream);
 #define DCT_B(N)                                                              \
+  if (plane_width % Shape<N>::kN)                                            \
+    return static_cast<int>(cudaErrorInvalidValue);                          \
   return launch<N>(px, frag, cert, parts, bias, recip, val_len, val_code,  \
                    n_val, run_len, run_code, run_bits, mode, dc_prediction,   \
-                   n_stripes, bps, words, n_words, stripe_bits, block_bits,   \
-                   rescued, s)
+                   n_stripes, bps, plane_width, words, n_words, stripe_bits,  \
+                   block_bits, rescued, s)
   switch (n2) {
     case 16: DCT_B(16);
     case 64: DCT_B(64);

@@ -33,6 +33,8 @@ planes against the chrominance quant table) are models/color.py.
 
 from __future__ import annotations
 
+import math
+
 import numpy as np
 import torch
 
@@ -288,14 +290,16 @@ def encode_fused_step(
     block_bits-or-None), one fused stripe encode (kernel B) over every
     stripe of every frame. Outputs keep the leading frame axes: units (...,
     n_stripes, U), bit lengths (..., n_stripes), var_codes (..., NB),
-    block_bits (..., n_stripes, bps) when cfg.decode_index is truthy."""
+    block_bits (..., n_stripes, bps) when cfg.decode_index is truthy.
+    Kernel B reads the planes themselves; only the variances of
+    cfg.adaptive are computed on their blocks."""
     lead = image.shape[:-2]
-    pixels = blk.image_to_blocks(image, cfg.block_size)
-    var_codes, scale = _adaptive(pixels, cfg)
-    frames = int(np.prod(lead, dtype=np.int64))
-    packed, block_bits = fused_encode_cuda.encode_stripes_fused(
-        pixels.reshape(-1, cfg.n2), cfg, frames * n_stripes, ops, scale
-    )
+    var_codes = scale = None
+    if cfg.adaptive:
+        var_codes, scale = _adaptive(blk.image_to_blocks(image, cfg.block_size),
+                                     cfg)
+    packed, block_bits = fused_encode_cuda.encode_plane_stripes_fused(
+        image, cfg, math.prod(lead) * n_stripes, ops, scale)
     packed, block_bits = _frames_out(packed, block_bits, cfg, lead, n_stripes)
     return packed, var_codes, block_bits
 

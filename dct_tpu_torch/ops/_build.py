@@ -40,8 +40,8 @@ _SIGNATURES = {
     },
     "fused_encode": {
         "dct_encode_stripes": [_p, _p, _p, _p, _p, _p, _p, _p, _i, _p, _p,
-                               _i, _i, _i, _i, _i, _i, _p, _i, _p, _p, _p,
-                               _p],
+                               _i, _i, _i, _i, _i, _i, _i, _p, _i, _p, _p,
+                               _p, _p],
         "dct_encode_stripes_info": [_i, _p],
     },
     "entropy_decode": {

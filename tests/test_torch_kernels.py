@@ -557,6 +557,108 @@ def test_stripe_kernel_on_the_densest_stream(cuda, block_size):
     assert fill > 0.6
 
 
+def _plane_check(cfg, plane, n_stripes, ops, scale=None):
+    """Kernel B from the padded plane(s) against B from their blocks (the
+    whole unit buffer, stripe bits, block bits), both against the plain
+    staged pipeline (_stripe_check), and both rescue counts against the
+    CPU model of the certificate (testing.certify) on the same blocks."""
+    px = blocks.image_to_blocks(plane, cfg.block_size).reshape(-1, cfg.n2)
+    _build.reset_rescued()
+    got, got_bb = fused_encode_cuda.encode_plane_stripes_fused(
+        plane, cfg, n_stripes, ops, scale)
+    from_plane = _build.rescued("encode_stripes")
+    _build.reset_rescued()
+    want, want_bb = fused_encode_cuda.encode_stripes_fused(
+        px, cfg, n_stripes, ops, scale)
+    from_blocks = _build.rescued("encode_stripes")
+    assert torch.equal(got.units, want.units)
+    assert torch.equal(got.bit_lengths, want.bit_lengths)
+    assert torch.equal(got_bb, want_bb)
+    recip = None if scale is None else transform.reciprocal_scale(scale)
+    _, ok = testing.certify(testing.certified_products(px, cfg, ops),
+                            ops.int_cert[:cfg.n2], recip)
+    assert from_plane == from_blocks == int((~ok).sum())
+    _stripe_check(cfg, px, scale, n_stripes, ops)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(STRIPE_CASES))
+def test_stripe_kernel_from_the_plane(cuda, image, case):
+    """Kernel B reading the padded plane equals B on its blocks and the
+    staged pipeline, in every mode and block size (coded runs, adaptive
+    quantization and DC prediction among them), on two frames at once."""
+    cfg = CodecConfig(**STRIPE_CASES[case])
+    frames = np.stack([image, image[:, ::-1]])
+    plane = codec.pad_plane_for_encode(torch.from_numpy(frames).to(cuda), cfg)
+    n_stripes = 2 * codec._padded_grid(*image.shape, cfg)[2]
+    px = blocks.image_to_blocks(plane, cfg.block_size).reshape(-1, cfg.n2)
+    _, scale = codec._adaptive(px, cfg)
+    ops = tables.build(cfg, device=cuda)
+    if not cfg.static_tables:  # the batch's own tables
+        _, _, hist, run_hist = codec.encode_analyze(plane, cfg, ops)
+        ops = ops.with_tables(codec._build_table(cfg, hist.cpu().numpy()),
+                              codec._build_run_table(cfg, run_hist.cpu().numpy()))
+    _plane_check(cfg, plane, n_stripes, ops, scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", (-1, 0, 1))
+@pytest.mark.parametrize("stripe_rows", (1, 2))
+@pytest.mark.parametrize("block_size", (4, 8, 16))
+def test_stripe_kernel_from_the_plane_at_tile_edges(cuda, block_size,
+                                                    stripe_rows, offset):
+    """Stripes of TILE_BLOCKS[n2] - 1, + 0 and + 1 blocks (in one block row,
+    or split over two), read from a plane whose row is no multiple of 16
+    bytes where the block size allows, with adaptive quantization, DC
+    prediction carried across tiles and, at n2 <= 64, coded runs; 3
+    stripes, far fewer than the grid's CTAs."""
+    cfg = CodecConfig(block_size=block_size, quality=85, static_tables=True,
+                      adaptive=True, dc_prediction=True,
+                      coded_runs=block_size <= 8, stripe_rows=stripe_rows)
+    bps = fused_encode_cuda.TILE_BLOCKS[cfg.n2] + offset
+    bps += bps % stripe_rows  # whole block rows a stripe
+    width = bps // stripe_rows * block_size
+    img = image_io.synthetic_image(3 * stripe_rows * block_size, width,
+                                   "photo", seed=bps + stripe_rows)
+    plane = torch.from_numpy(img).to(cuda)
+    px = blocks.image_to_blocks(plane, block_size).reshape(-1, cfg.n2)
+    _, scale = codec._adaptive(px, cfg)
+    _plane_check(cfg, plane, 3, tables.build(cfg, device=cuda), scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("block_size", (4, 8, 16))
+def test_stripe_kernel_on_one_short_stripe(cuda, block_size):
+    """One stripe of 5 blocks: a grid of one CTA, one tile shorter than a
+    round."""
+    cfg = CodecConfig(block_size=block_size, quality=60, static_tables=True,
+                      dc_prediction=True)
+    img = image_io.synthetic_image(block_size, 5 * block_size, "photo",
+                                   seed=block_size)
+    _plane_check(cfg, torch.from_numpy(img).to(cuda), 1,
+                 tables.build(cfg, device=cuda))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("block_size", (4, 8, 16))
+def test_stripe_kernel_from_the_plane_on_the_densest_stream(cuda, block_size):
+    """testing.densest_stream read from the plane: B's fullest staging."""
+    cfg, img, table, run_table = testing.densest_stream(
+        block_size, 6 * block_size, 300 * block_size, seed=block_size)
+    ops = tables.build(cfg, device=cuda).with_tables(table, run_table)
+    _plane_check(cfg, torch.from_numpy(img).to(cuda), 6, ops)
+
+
+@pytest.mark.cuda
+def test_stripe_kernel_launch_shape(cuda):
+    """B's launch shape: no spilled registers, at least one CTA an SM, the
+    tile TILE_BLOCKS names, at every n2."""
+    for n2 in fused_encode_cuda.KERNEL_N2:
+        info = fused_encode_cuda.kernel_info(n2, cuda)
+        assert info["local_bytes"] == 0 and info["ctas_per_sm"] >= 1
+        assert info["tile_blocks"] == fused_encode_cuda.TILE_BLOCKS[n2]
+
+
 DECODE_CASES = {
     "category_n8": dict(),
     "category_runs_n8": dict(coded_runs=True),

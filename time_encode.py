@@ -8,17 +8,22 @@ change unpacked beside it); its package is imported in a process of its
 own and builds its own kernels. For each ROOT in the order given (name a
 root twice to take turns, e.g. parent, change, change, parent) it prints
 one JSON line: the card's name and power limit, and in milliseconds by CUDA
-events (20 calls after warm-up, as chip_smoke.py times them):
+events (20 calls after warm-up, as chip_smoke.py times them), each keyed
+by config:
   - kernel B on 8 frames of 1088x1920 "photo" (seeds 0-7) at static q50
     8x8 (the batch of encode_step), and at the other configs chip_smoke.py
-    phase 3 times;
-  - kernel B's card work alone at the batch (a spin kernel queued first,
-    so the host's enqueue stays outside the events), and the host's
-    enqueue cost a call (host clock around the calls queued behind it);
+    phase 3 times: 20 calls (b_ms) and the card's work alone
+    (b_device_ms: a spin kernel queued first, so the host's enqueue stays
+    outside the events), and at static q50 the host's enqueue cost a call
+    (host clock around the calls queued behind it);
+  - kernel B reading the batch's planes themselves (the route encode_step
+    takes) at the same configs, the same three times (b_plane_*; null for
+    a tree without that route);
   - kernel A (the encode transform) on the same frames at the configs of
     A_CONFIGS, its card work alone at each, its coefficients rescued by
     the float32 chain a call, and at static q50 its host enqueue cost;
-  - encode_step on the batch.
+  - encode_step on the batch at the configs of STEP_CONFIGS: 20 calls, the
+    card's work alone and the host's enqueue a call.
 """
 
 from __future__ import annotations
@@ -56,6 +61,14 @@ A_CONFIGS = {  # name: CodecConfig keywords (chip_smoke.py phase 1's and more)
     "n8 adaptive q50": dict(quality=50, adaptive=True),
     "n4 q50": dict(block_size=4, quality=50),
     "n16 adaptive q50": dict(block_size=16, quality=50, adaptive=True),
+}
+
+
+STEP_CONFIGS = {  # name: CodecConfig keywords of encode_step (static)
+    "n8 static q50": dict(quality=50),
+    "n4 static q50": dict(block_size=4, quality=50),
+    "n16 static q50": dict(block_size=16, quality=50),
+    "n8 static adaptive q50": dict(quality=50, adaptive=True),
 }
 
 
@@ -122,7 +135,10 @@ def run(root: str) -> dict:
     frames = np.stack([image_io.synthetic_image(H, W, "photo", seed=s)
                        for s in range(FRAMES)])
     frames_d = torch.from_numpy(frames).to(dev)
-    out = {"root": root, "card": smi, "build_s": round(build_s, 1), "b_ms": {}}
+    out = {"root": root, "card": smi, "build_s": round(build_s, 1)}
+    for key in ("b_ms", "b_device_ms", "b_plane_ms", "b_plane_device_ms"):
+        out[key] = {}
+    route = getattr(fused_encode_cuda, "encode_plane_stripes_fused", None)
     px_of = {}
     for name, kw in CONFIGS.items():
         cfg = CodecConfig(**kw)
@@ -141,11 +157,21 @@ def run(root: str) -> dict:
         def call():
             fused_encode_cuda.encode_stripes_fused(px, cfg, ns, ops, scale)
 
+        def call_plane():
+            route(frames_d, cfg, ns, ops, scale)
+
         out["b_ms"][name] = round(cuda_ms(call), 4)
+        card, host = device_ms(call)
+        out["b_device_ms"][name] = round(card, 4)
         if name == "n8 static q50":
-            card, host = device_ms(call)
-            out["b_device_ms"], out["b_enqueue_ms"] = round(card, 4), round(
-                host, 4)
+            out["b_enqueue_ms"] = round(host, 4)
+        out["b_plane_ms"][name] = out["b_plane_device_ms"][name] = None
+        if route is not None:
+            out["b_plane_ms"][name] = round(cuda_ms(call_plane), 4)
+            card, host = device_ms(call_plane)
+            out["b_plane_device_ms"][name] = round(card, 4)
+            if name == "n8 static q50":
+                out["b_plane_enqueue_ms"] = round(host, 4)
     out["a_ms"], out["a_device_ms"], out["a_rescued"] = {}, {}, {}
     for name, kw in A_CONFIGS.items():
         cfg = CodecConfig(**kw)
@@ -167,9 +193,19 @@ def run(root: str) -> dict:
         out["a_device_ms"][name] = round(card, 4)
         if name == "n8 static q50":
             out["a_enqueue_ms"] = round(host, 4)
-    static = CodecConfig(quality=50, static_tables=True, use_pallas=True)
-    out["encode_step_ms"] = round(cuda_ms(
-        lambda: codec.encode_step(frames_d, static, H // 8)), 4)
+    for key in ("encode_step_ms", "encode_step_device_ms",
+                "encode_step_enqueue_ms"):
+        out[key] = {}
+    for name, kw in STEP_CONFIGS.items():
+        cfg = CodecConfig(static_tables=True, use_pallas=True, **kw)
+
+        def step():
+            codec.encode_step(frames_d, cfg, H // cfg.block_size)
+
+        out["encode_step_ms"][name] = round(cuda_ms(step), 4)
+        card, host = device_ms(step)
+        out["encode_step_device_ms"][name] = round(card, 4)
+        out["encode_step_enqueue_ms"][name] = round(host, 4)
     return out
 
 
