@@ -65,6 +65,7 @@ import struct
 import numpy as np
 
 from dct_tpu_torch.config import CodecConfig
+from dct_tpu_torch.utils import tracing
 
 MAGIC = b"TPDC"
 VERSION = 1
@@ -175,6 +176,11 @@ def _pack_flags(cfg: CodecConfig) -> int:
 
 
 def serialize(c: Container) -> bytes:
+    with tracing.named_scope("container.serialize"):
+        return _serialize(c)
+
+
+def _serialize(c: Container) -> bytes:
     cfg = c.config
     with_index = _resolve_decode_index(c)
     out = bytearray()
@@ -246,7 +252,8 @@ def deserialize(data: bytes) -> Container:
     if data[:4] != MAGIC:
         raise ValueError("not a TPDC container")
     try:
-        return _deserialize(data)
+        with tracing.named_scope("container.deserialize"):
+            return _deserialize(data)
     except (struct.error, ValueError) as e:
         # struct/frombuffer overruns = truncated file; surface uniformly
         raise ValueError(f"truncated or corrupt TPDC container: {e}") from e

@@ -48,6 +48,7 @@ from dct_tpu_torch.ops import entropy_decode_cuda, fused_encode_cuda
 from dct_tpu_torch.ops import pack_cuda
 from dct_tpu_torch.ops import huffman as hf
 from dct_tpu_torch.ops import quant, rle, transform, transform_cuda
+from dct_tpu_torch.utils import tracing
 
 DIRECT_VMIN = -255  # direct-mode alphabet [-255, 255] + ESC
 
@@ -349,9 +350,12 @@ def encode_step(image: torch.Tensor, cfg: CodecConfig, n_stripes: int,
     (the chrominance quant table)."""
     if not cfg.static_tables:
         raise ValueError("encode_step requires cfg.static_tables")
-    ops = tables.build(cfg, chroma=chroma, device=image.device)
-    step = encode_fused_step if fused_kernel_ok(cfg) else encode_staged_step
-    return step(image, cfg, n_stripes, ops)
+    with tracing.named_scope("codec.encode_step",
+                             frames=math.prod(image.shape[:-2])):
+        ops = tables.build(cfg, chroma=chroma, device=image.device)
+        step = (encode_fused_step if fused_kernel_ok(cfg)
+                else encode_staged_step)
+        return step(image, cfg, n_stripes, ops)
 
 
 def to_device_u8(a, device: torch.device) -> torch.Tensor:
@@ -359,7 +363,16 @@ def to_device_u8(a, device: torch.device) -> torch.Tensor:
     arrays are copied there, tensors moved (no copy where they are)."""
     if isinstance(a, torch.Tensor):
         return a.to(device, torch.uint8)
-    return torch.from_numpy(np.array(a, np.uint8)).to(device)
+    host = np.array(a, np.uint8)
+    tracing.add("h2d_bytes", host.nbytes)
+    return torch.from_numpy(host).to(device)
+
+
+def read_back(t: torch.Tensor, span: str) -> np.ndarray:
+    """``t`` as a host array, in a span of its own that counts the bytes;
+    the span holds the host's wait for the device."""
+    with tracing.named_scope(span, d2h_bytes=t.numel() * t.element_size()):
+        return t.cpu().numpy()
 
 
 def encode_plane(
@@ -406,7 +419,8 @@ def encode_plane(
             run_table.lengths if run_table is not None else None
         ),
         block_bits=(
-            block_bits.cpu().numpy().reshape(-1).astype(np.uint16)
+            read_back(block_bits, "codec.index_readback")
+            .reshape(-1).astype(np.uint16)
             if block_bits is not None else None
         ),
     )
@@ -449,16 +463,19 @@ def _upload(arrays: list[np.ndarray], device) -> list[torch.Tensor]:
     for a in arrays:
         offsets.append(total)
         total += -(-a.nbytes // 8) * 8
-    buf = np.zeros(max(total, 8), np.uint8)
-    for a, o in zip(arrays, offsets):
-        buf[o:o + a.nbytes] = np.ascontiguousarray(a).reshape(-1).view(np.uint8)
-    dev = torch.from_numpy(buf).to(device)
-    out = []
-    for a, o in zip(arrays, offsets):
-        dt = np.int16 if a.dtype == np.uint16 else a.dtype
-        view = dev[o:o + a.nbytes].view(torch.from_numpy(np.zeros(0, dt)).dtype)
-        out.append(view.reshape(a.shape))
-    return out
+    with tracing.named_scope("codec.upload", h2d_bytes=max(total, 8)):
+        buf = np.zeros(max(total, 8), np.uint8)
+        for a, o in zip(arrays, offsets):
+            buf[o:o + a.nbytes] = (np.ascontiguousarray(a).reshape(-1)
+                                   .view(np.uint8))
+        dev = torch.from_numpy(buf).to(device)
+        out = []
+        for a, o in zip(arrays, offsets):
+            dt = np.int16 if a.dtype == np.uint16 else a.dtype
+            view = dev[o:o + a.nbytes].view(
+                torch.from_numpy(np.zeros(0, dt)).dtype)
+            out.append(view.reshape(a.shape))
+        return out
 
 
 def indexed_decode_ok(p: cont.PlaneData, cfg: CodecConfig, table,
@@ -482,13 +499,14 @@ def indexed_operands(stripes: list[bytes], block_bits: np.ndarray, table,
     D's status. -> keyword arguments of
     entropy_decode_cuda.decode_blocks_kernel (and of its plain version),
     which scans the index into block starts itself."""
-    arrays = [np.frombuffer(b"".join(stripes), np.uint8),
-              ed.stripe_starts([len(s) for s in stripes]),
-              np.asarray(block_bits, np.uint16).reshape(len(stripes), -1),
-              ed.table_inputs(table, run_table, mode, DIRECT_VMIN)]
-    if status:
-        arrays.append(np.zeros(len(stripes), np.int32))
-    uploaded = _upload(arrays, device)
+    with tracing.named_scope("codec.indexed_operands"):
+        arrays = [np.frombuffer(b"".join(stripes), np.uint8),
+                  ed.stripe_starts([len(s) for s in stripes]),
+                  np.asarray(block_bits, np.uint16).reshape(len(stripes), -1),
+                  ed.table_inputs(table, run_table, mode, DIRECT_VMIN)]
+        if status:
+            arrays.append(np.zeros(len(stripes), np.int32))
+        uploaded = _upload(arrays, device)
     ops = dict(zip(("payload", "stripe_start", "block_bits", "tabs",
                     "status"), uploaded))
     return dict(ops, n2=n2, mode=mode,
@@ -502,21 +520,25 @@ def _reconstruct(zz: torch.Tensor, planes: list[cont.PlaneData],
     (F, H, W) u8 planes: DC un-prediction over frames x stripes, dequant +
     IDCT (kernel C on CUDA; chroma: the chrominance quant table), the
     block grid, the crop."""
-    device = zz.device
-    n = cfg.block_size
-    p0 = planes[0]
-    if cfg.dc_prediction:
-        zz = dc_reconstruct(zz, len(planes) * n_stripes)
-    scale = None
-    if cfg.adaptive:
-        scale = quant.scale_from_variance_code(torch.from_numpy(np.concatenate(
-            [np.asarray(p.variance_codes, np.uint8) for p in planes])
-        ).to(device))
-    ops = tables.build(cfg, chroma=chroma, device=device)
-    pixels = decode_transform(zz, cfg, ops, scale)
-    # rebuild on the (stripe-padded) encoder grid, then crop to true dims
-    return blk.blocks_to_image(pixels.reshape(len(planes), -1, cfg.n2),
-                               bh * n, bw * n, n)[:, : p0.height, : p0.width]
+    with tracing.named_scope("codec.reconstruct"):
+        device = zz.device
+        n = cfg.block_size
+        p0 = planes[0]
+        if cfg.dc_prediction:
+            zz = dc_reconstruct(zz, len(planes) * n_stripes)
+        scale = None
+        if cfg.adaptive:
+            codes = np.concatenate(
+                [np.asarray(p.variance_codes, np.uint8) for p in planes])
+            tracing.add("h2d_bytes", codes.nbytes)
+            scale = quant.scale_from_variance_code(
+                torch.from_numpy(codes).to(device))
+        ops = tables.build(cfg, chroma=chroma, device=device)
+        pixels = decode_transform(zz, cfg, ops, scale)
+        # rebuild on the (stripe-padded) encoder grid, then crop to true dims
+        return blk.blocks_to_image(pixels.reshape(len(planes), -1, cfg.n2),
+                                   bh * n, bw * n,
+                                   n)[:, : p0.height, : p0.width]
 
 
 def decode_planes_device(
@@ -554,9 +576,13 @@ def decode_planes_device(
     )
 
     def host(ps):
-        return torch.from_numpy(np.concatenate([
-            _decode_stripes(p, cfg, table, mode, n_stripes, bps, run_table)
-            for p in ps])).to(device)
+        with tracing.named_scope("codec.host_entropy_decode"):
+            zz = np.concatenate([
+                _decode_stripes(p, cfg, table, mode, n_stripes, bps,
+                                run_table)
+                for p in ps])
+            tracing.add("h2d_bytes", zz.nbytes)
+            return torch.from_numpy(zz).to(device)
 
     if not all(indexed_decode_ok(p, cfg, table, run_table) for p in planes):
         return _reconstruct(host(planes), planes, cfg, chroma, n_stripes,
@@ -567,13 +593,14 @@ def decode_planes_device(
                            table, run_table, mode, cfg.n2, device,
                            status=True))
     out = _reconstruct(zz, planes, cfg, chroma, n_stripes, bh, bw)
-    flagged = np.flatnonzero(
-        status.cpu().numpy().reshape(len(planes), n_stripes).any(axis=1))
+    flagged = np.flatnonzero(read_back(status, "codec.status_readback")
+                             .reshape(len(planes), n_stripes).any(axis=1))
     if flagged.size:
-        HOST_REDECODES["planes"] += int(flagged.size)
-        again = [planes[i] for i in flagged]
-        out[torch.from_numpy(flagged).to(device)] = _reconstruct(
-            host(again), again, cfg, chroma, n_stripes, bh, bw)
+        with tracing.named_scope("codec.host_redecode"):
+            HOST_REDECODES["planes"] += int(flagged.size)
+            again = [planes[i] for i in flagged]
+            out[torch.from_numpy(flagged).to(device)] = _reconstruct(
+                host(again), again, cfg, chroma, n_stripes, bh, bw)
     return out
 
 
@@ -612,14 +639,15 @@ class ImageCodec:
     def encode(self, image: np.ndarray) -> bytes:
         if image.ndim != 2:
             raise ValueError(f"expected (H, W) grayscale, got {image.shape}")
-        plane = encode_plane(image, self.config, device=self.device)
-        c = cont.Container(
-            config=self.config,
-            width=int(image.shape[1]),
-            height=int(image.shape[0]),
-            planes=[plane],
-        )
-        return cont.serialize(c)
+        with tracing.named_scope("image.encode", frames=1):
+            plane = encode_plane(image, self.config, device=self.device)
+            c = cont.Container(
+                config=self.config,
+                width=int(image.shape[1]),
+                height=int(image.shape[0]),
+                planes=[plane],
+            )
+            return cont.serialize(c)
 
     def decode(self, data: bytes) -> np.ndarray:
         return self.decode_to_device(data).cpu().numpy()
@@ -627,8 +655,10 @@ class ImageCodec:
     def decode_to_device(self, data: bytes) -> torch.Tensor:
         """Decode with the reconstruction left on this codec's device (of a
         color container, its luma plane, as the reference's does)."""
-        c = cont.deserialize(data)
-        return decode_plane_device(c.planes[0], c.config, device=self.device)
+        with tracing.named_scope("image.decode_to_device", frames=1):
+            c = cont.deserialize(data)
+            return decode_plane_device(c.planes[0], c.config,
+                                       device=self.device)
 
 
 def encode(image: np.ndarray, config: CodecConfig | None = None,

@@ -32,6 +32,7 @@ from dct_tpu_torch import container as cont
 from dct_tpu_torch.config import CodecConfig
 from dct_tpu_torch.models import codec as _codec
 from dct_tpu_torch.ops import blocks as blk
+from dct_tpu_torch.utils import tracing
 
 
 def rgb_to_ycbcr(rgb: torch.Tensor) -> torch.Tensor:
@@ -88,16 +89,18 @@ def planes_to_rgb(y: torch.Tensor, cb: torch.Tensor, cr: torch.Tensor,
     construction. Raises ValueError where the planes, chroma upsampled,
     do not share one shape (a damaged container's plane sizes), as the
     reference's stack does."""
-    cb = cb.to(torch.float32)
-    cr = cr.to(torch.float32)
-    if mode == "420":
-        cb = upsample_420(cb, h, w)
-        cr = upsample_420(cr, h, w)
-    if not y.shape == cb.shape == cr.shape:
-        raise ValueError(f"color planes of shapes {tuple(y.shape)}, "
-                         f"{tuple(cb.shape)}, {tuple(cr.shape)} (chroma "
-                         f"upsampled) do not form one {mode} image")
-    return ycbcr_to_rgb(torch.stack([y.to(torch.float32), cb, cr], dim=-1))
+    with tracing.named_scope("color.planes_to_rgb"):
+        cb = cb.to(torch.float32)
+        cr = cr.to(torch.float32)
+        if mode == "420":
+            cb = upsample_420(cb, h, w)
+            cr = upsample_420(cr, h, w)
+        if not y.shape == cb.shape == cr.shape:
+            raise ValueError(f"color planes of shapes {tuple(y.shape)}, "
+                             f"{tuple(cb.shape)}, {tuple(cr.shape)} (chroma "
+                             f"upsampled) do not form one {mode} image")
+        return ycbcr_to_rgb(torch.stack([y.to(torch.float32), cb, cr],
+                                        dim=-1))
 
 
 def _to_planes(rgb: torch.Tensor, mode: str):
@@ -127,13 +130,15 @@ class ColorImageCodec:
         if rgb.ndim != 3 or rgb.shape[-1] != 3:
             raise ValueError(f"expected (H, W, 3) RGB, got {rgb.shape}")
         h, w = int(rgb.shape[0]), int(rgb.shape[1])
-        planes = _to_planes(_codec.to_device_u8(rgb, self.device),
-                            self.config.chroma)
-        return cont.serialize(cont.Container(
-            config=self.config, width=w, height=h,
-            planes=[_codec.encode_plane(p, self.config, self.device,
-                                        chroma=i > 0)
-                    for i, p in enumerate(planes)]))
+        with tracing.named_scope("color.encode", frames=1):
+            with tracing.named_scope("color.to_planes"):
+                planes = _to_planes(_codec.to_device_u8(rgb, self.device),
+                                    self.config.chroma)
+            return cont.serialize(cont.Container(
+                config=self.config, width=w, height=h,
+                planes=[_codec.encode_plane(p, self.config, self.device,
+                                            chroma=i > 0)
+                        for i, p in enumerate(planes)]))
 
     def decode(self, data: bytes) -> np.ndarray:
         return self.decode_to_device(data).cpu().numpy()
@@ -142,9 +147,10 @@ class ColorImageCodec:
         """(H, W, 3) u8 RGB left on this codec's device: each plane by
         decode_plane_device (kernel D for a v2 plane, else the host
         decoder; then kernel C), then planes_to_rgb."""
-        c = cont.deserialize(data)
-        cfg = c.config
-        y, cb, cr = (_codec.decode_plane_device(p, cfg, self.device,
-                                                chroma=i > 0)
-                     for i, p in enumerate(c.planes))
-        return planes_to_rgb(y, cb, cr, cfg.chroma, c.height, c.width)
+        with tracing.named_scope("color.decode_to_device", frames=1):
+            c = cont.deserialize(data)
+            cfg = c.config
+            y, cb, cr = (_codec.decode_plane_device(p, cfg, self.device,
+                                                    chroma=i > 0)
+                         for i, p in enumerate(c.planes))
+            return planes_to_rgb(y, cb, cr, cfg.chroma, c.height, c.width)

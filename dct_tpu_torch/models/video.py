@@ -43,6 +43,7 @@ from dct_tpu_torch import tables
 from dct_tpu_torch.config import CodecConfig
 from dct_tpu_torch.models import codec, color
 from dct_tpu_torch.ops import bitstream as bs
+from dct_tpu_torch.utils import tracing
 
 # Pixels per encode (and decode) dispatch. The staged path's peak device
 # memory grows with it, mostly the int32 symbol chunks (24 B a pixel) and
@@ -75,9 +76,11 @@ def _encode_plane_batch(
     chunk = frames_per_chunk(f, h, w, chunk_frames)
 
     def prep(i0: int) -> torch.Tensor:
-        sub = np.ascontiguousarray(planes[i0:i0 + chunk], np.uint8)
-        return codec.pad_plane_for_encode(torch.from_numpy(sub).to(device),
-                                          cfg)
+        with tracing.named_scope("video.upload_pad"):
+            sub = np.ascontiguousarray(planes[i0:i0 + chunk], np.uint8)
+            tracing.add("h2d_bytes", sub.nbytes)
+            return codec.pad_plane_for_encode(
+                torch.from_numpy(sub).to(device), cfg)
 
     ops = tables.build(cfg, chroma=chroma, device=device)
     symbols_once = var_once = None
@@ -121,7 +124,8 @@ def _encode_plane_batch(
         packed = bs.fetch_packed(packed)  # trim worst-case slack before D2H
         units, bits = packed.units, packed.bit_lengths
         var_np = var_codes.cpu().numpy() if cfg.adaptive else None
-        bb_np = block_bits.cpu().numpy() if block_bits is not None else None
+        bb_np = (codec.read_back(block_bits, "codec.index_readback")
+                 if block_bits is not None else None)
         for i in range(units.shape[0]):
             out.append(cont.PlaneData(
                 width=w,
@@ -164,10 +168,12 @@ def rgb_planes(frames: np.ndarray, mode: str, chunk_frames: int | None,
     cc = chunk_frames or max(1, CHUNK_PIXEL_BUDGET // (h * w))
     parts = [[], [], []]
     for i0 in range(0, f, cc):
-        planes = color._to_planes(
-            codec.to_device_u8(frames[i0:i0 + cc], device), mode)
-        for lst, p in zip(parts, planes):
-            lst.append(p.cpu().numpy())
+        with tracing.named_scope("color.to_planes"):
+            planes = color._to_planes(
+                codec.to_device_u8(frames[i0:i0 + cc], device), mode)
+            for lst, p in zip(parts, planes):
+                lst.append(p.cpu().numpy())
+                tracing.add("d2h_bytes", p.numel())
     return [np.concatenate(lst) for lst in parts]
 
 
@@ -197,17 +203,21 @@ class VideoCodec:
                            else codec._default_device())
 
     def encode(self, frames: np.ndarray) -> list[bytes]:
-        cfg, ck = self.config, self.chunk_frames
+        cfg = self.config
         if cfg.chroma == "gray":
             if frames.ndim != 3:
                 raise ValueError(f"expected (F, H, W), got {frames.shape}")
-            batches = [frames]
-        else:
-            if frames.ndim != 4 or frames.shape[-1] != 3:
-                raise ValueError(
-                    f"expected (F, H, W, 3) RGB for chroma={cfg.chroma}, "
-                    f"got {frames.shape}")
-            batches = rgb_planes(frames, cfg.chroma, ck, self.device)
+        elif frames.ndim != 4 or frames.shape[-1] != 3:
+            raise ValueError(
+                f"expected (F, H, W, 3) RGB for chroma={cfg.chroma}, "
+                f"got {frames.shape}")
+        with tracing.named_scope("video.encode", frames=int(frames.shape[0])):
+            return self._encode(frames)
+
+    def _encode(self, frames: np.ndarray) -> list[bytes]:
+        cfg, ck = self.config, self.chunk_frames
+        batches = ([frames] if cfg.chroma == "gray"
+                   else rgb_planes(frames, cfg.chroma, ck, self.device))
         h, w = int(frames.shape[1]), int(frames.shape[2])
         if self.mesh is None:
             per_plane = [_encode_plane_batch(b, cfg, ck, self.device,
@@ -233,16 +243,23 @@ class VideoCodec:
         for each plane type); a mixed batch decodes frame by frame."""
         if not streams:
             raise ValueError("decode requires at least one stream")
-        conts = [cont.deserialize(s) for s in streams]
-        c0 = conts[0]
-        if any(_batch_key(c) != _batch_key(c0) for c in conts[1:]):
-            return torch.cat([self._decode_batch([c]) for c in conts])
-        # symmetric with encode: long stacks decode in chunks of frames
-        ck = max(1, self.chunk_frames
-                 or CHUNK_PIXEL_BUDGET // (c0.height * c0.width))
-        parts = [self._decode_batch(conts[i0:i0 + ck])
-                 for i0 in range(0, len(conts), ck)]
-        return parts[0] if len(parts) == 1 else torch.cat(parts)
+        with tracing.named_scope("video.decode_to_device",
+                                 frames=len(streams)):
+            conts = [cont.deserialize(s) for s in streams]
+            c0 = conts[0]
+            if any(_batch_key(c) != _batch_key(c0) for c in conts[1:]):
+                parts = [self._decode_batch([c]) for c in conts]
+            else:
+                # symmetric with encode: long stacks decode in chunks of
+                # frames
+                ck = max(1, self.chunk_frames
+                         or CHUNK_PIXEL_BUDGET // (c0.height * c0.width))
+                parts = [self._decode_batch(conts[i0:i0 + ck])
+                         for i0 in range(0, len(conts), ck)]
+            if len(parts) == 1:
+                return parts[0]
+            with tracing.named_scope("video.stack"):
+                return torch.cat(parts)
 
     def _decode_batch(self, conts: list[cont.Container]) -> torch.Tensor:
         """Containers that share _batch_key -> (F, H, W) or (F, H, W, 3)

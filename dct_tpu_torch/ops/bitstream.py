@@ -33,6 +33,7 @@ import torch
 
 from dct_tpu_torch.ops import huffman as hf
 from dct_tpu_torch.ops.rle import RLEPositional
+from dct_tpu_torch.utils import tracing
 
 def run_field_bits(n2: int) -> int:
     """Fixed run-field width: 8 bits (entropy.c:390), widened to
@@ -67,12 +68,17 @@ def trim_units_count(bits: np.ndarray, capacity: int) -> int:
 def fetch_packed(packed: PackedStripes) -> PackedStripes:
     """Device PackedStripes -> host numpy (uint16 units, int32 bits),
     copying only the units the payload uses."""
-    bits = packed.bit_lengths.cpu().numpy().astype(np.int32)
-    u_trim = trim_units_count(bits, packed.units.shape[-1])
-    # astype keeps the low 16 bits: int16 bit patterns and int32 values
-    # in [0, 65535] both narrow to the same uint16 unit
-    units = packed.units[..., :u_trim].cpu().numpy().astype(np.uint16)
-    return PackedStripes(units=units, bit_lengths=bits)
+    with tracing.named_scope("bitstream.fetch_packed"):
+        lengths = packed.bit_lengths.cpu()
+        bits = lengths.numpy().astype(np.int32)
+        u_trim = trim_units_count(bits, packed.units.shape[-1])
+        # astype keeps the low 16 bits: int16 bit patterns and int32
+        # values in [0, 65535] both narrow to the same uint16 unit
+        units = packed.units[..., :u_trim].cpu()
+        tracing.add("d2h_bytes", lengths.numel() * lengths.element_size()
+                    + units.numel() * units.element_size())
+        return PackedStripes(units=units.numpy().astype(np.uint16),
+                             bit_lengths=bits)
 
 
 def symbol_chunks(
@@ -177,13 +183,14 @@ def pack_chunks(
 def stripes_to_bytes(packed: PackedStripes) -> list[bytes]:
     """Host epilogue: unit buffers -> per-stripe byte strings (big-endian
     16-bit units, truncated to the actual byte length)."""
-    units = np.asarray(packed.units).astype(np.uint16)
-    bits = np.asarray(packed.bit_lengths)
-    out = []
-    for s in range(units.shape[0]):
-        n_bytes = int((bits[s] + 7) // 8)
-        out.append(units[s].astype(">u2").tobytes()[:n_bytes])
-    return out
+    with tracing.named_scope("bitstream.stripes_to_bytes"):
+        units = np.asarray(packed.units).astype(np.uint16)
+        bits = np.asarray(packed.bit_lengths)
+        out = []
+        for s in range(units.shape[0]):
+            n_bytes = int((bits[s] + 7) // 8)
+            out.append(units[s].astype(">u2").tobytes()[:n_bytes])
+        return out
 
 
 class BitReader:

@@ -31,6 +31,7 @@ import torch
 
 from dct_tpu_torch.ops import _build
 from dct_tpu_torch.ops import entropy_decode as ed
+from dct_tpu_torch.utils import tracing
 
 KERNEL_N2 = (4, 16, 64, 256)
 PAYLOAD_ALIGN = 16  # bytes
@@ -104,7 +105,8 @@ def decode_blocks_kernel(
     if n_blocks == 0:
         return out if status is None else (out, status)
     lib = _build.library("entropy_decode")
-    with torch.cuda.device(payload.device):
+    with tracing.named_scope("kernel.entropy_decode"), \
+            torch.cuda.device(payload.device):
         rc = lib.dct_entropy_decode(
             payload.data_ptr(), payload.numel(), stripe_start.data_ptr(),
             block_bits.data_ptr(), bps, tabs.data_ptr(),

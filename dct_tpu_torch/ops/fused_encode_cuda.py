@@ -33,6 +33,7 @@ from dct_tpu_torch.config import CodecConfig
 from dct_tpu_torch.ops import _build, blocks, rle, transform, transform_cuda
 from dct_tpu_torch.ops import bitstream as bs
 from dct_tpu_torch.tables import CodecOperators
+from dct_tpu_torch.utils import tracing
 
 KERNEL_N2 = (16, 64, 256)
 KERNEL_MODES = ("category", "direct", "none")
@@ -254,13 +255,14 @@ def _launch(px: torch.Tensor, plane_width: int, bps: int, cfg: CodecConfig,
     args = (px.data_ptr(), *op.operators, _build.ptr(recip), *op.rest,
             words.data_ptr(), op.n_words, bits.data_ptr(),
             block_bits.data_ptr(), op.rescued)
-    if dev.index == torch.cuda.current_device():  # no device switch
-        rc = op.lib.dct_encode_stripes(
-            *args, torch.cuda.current_stream(dev).cuda_stream)
-    else:
-        with torch.cuda.device(dev):
+    with tracing.named_scope("kernel.encode_stripes"):
+        if dev.index == torch.cuda.current_device():  # no device switch
             rc = op.lib.dct_encode_stripes(
                 *args, torch.cuda.current_stream(dev).cuda_stream)
+        else:
+            with torch.cuda.device(dev):
+                rc = op.lib.dct_encode_stripes(
+                    *args, torch.cuda.current_stream(dev).cuda_stream)
     _build.check(op.lib, rc, f"encode_stripes (n2={cfg.n2}, {op.mode})")
     _build.LAUNCHES["encode_stripes"] += 1
     units = words.view(torch.int16)[:, :op.capacity]

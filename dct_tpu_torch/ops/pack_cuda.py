@@ -21,6 +21,7 @@ import torch
 
 from dct_tpu_torch.ops import _build
 from dct_tpu_torch.ops import bitstream as bs
+from dct_tpu_torch.utils import tracing
 
 
 def _check_launch(chunk_values, chunk_lens, units_capacity) -> None:
@@ -62,7 +63,8 @@ def pack_chunks_kernel(
     bits = torch.empty(n_stripes, dtype=torch.int32, device=dev)
     if n_stripes:
         lib = _build.library("pack")
-        with torch.cuda.device(dev):
+        with tracing.named_scope("kernel.pack_chunks"), \
+                torch.cuda.device(dev):
             rc = lib.dct_pack_chunks(
                 chunk_values.data_ptr(), chunk_lens.data_ptr(), n_stripes,
                 n_chunks, units_capacity, words.data_ptr(), n_words,

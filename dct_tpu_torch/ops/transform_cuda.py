@@ -24,6 +24,7 @@ from dct_tpu_torch import tables
 from dct_tpu_torch.config import CodecConfig
 from dct_tpu_torch.ops import _build, transform
 from dct_tpu_torch.tables import PACKED_N2, CodecOperators
+from dct_tpu_torch.utils import tracing
 
 ENCODE_N2 = PACKED_N2 + (256,)
 DECODE_N2 = PACKED_N2
@@ -112,7 +113,8 @@ def encode_blocks_kernel(
     if n_blocks == 0:
         return out
     lib = _build.library("transform")
-    with torch.cuda.device(pixels.device):
+    with tracing.named_scope("kernel.encode_blocks"), \
+            torch.cuda.device(pixels.device):
         rc = lib.dct_encode_blocks(
             pixels.data_ptr(), frag.data_ptr(), cert.data_ptr(),
             parts.data_ptr(), bias.data_ptr(), _build.ptr(recip),
@@ -173,7 +175,8 @@ def decode_blocks_kernel(
     if n_blocks == 0:
         return out
     lib = _build.library("transform")
-    with torch.cuda.device(zz.device):
+    with tracing.named_scope("kernel.decode_blocks"), \
+            torch.cuda.device(zz.device):
         rc = lib.dct_decode_blocks(
             zz.data_ptr(), ops.m_dec.data_ptr(), ops.m_dec.shape[1],
             _build.ptr(scale), out.data_ptr(), n_blocks, cfg.n2,

@@ -108,11 +108,15 @@ def test_kloop_delta_seconds_on_the_cpu():
 
 def test_named_scope_fills_and_reset_clears_the_registry():
     tracing.reset_timings()
-    for _ in range(3):
-        with tracing.named_scope("stage"):
-            torch.ones(8).sum()
-    with tracing.named_scope("other"):
-        pass
+    tracing.enable()  # off by default: no profiler runs here
+    try:
+        for _ in range(3):
+            with tracing.named_scope("stage"):
+                torch.ones(8).sum()
+        with tracing.named_scope("other"):
+            pass
+    finally:
+        tracing.disable()
     s = tracing.timings_summary()
     assert set(s) == {"stage", "other"}
     assert s["stage"]["calls"] == 3 and s["stage"]["total_s"] > 0
