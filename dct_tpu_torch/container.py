@@ -64,6 +64,7 @@ import struct
 
 import numpy as np
 
+from dct_tpu_torch import native
 from dct_tpu_torch.config import CodecConfig
 from dct_tpu_torch.utils import tracing
 
@@ -80,6 +81,13 @@ AUTO_INDEX_BOUND = 0.06
 
 _HUFFMAN_MODES = ("category", "direct", "none")
 _CHROMA_MODES = ("gray", "444", "420")
+
+_PAD_NOT_ZERO = "decode index pad bits not zero"
+_SUMS_DISAGREE = "decode index stripe sums disagree with stripe_bits"
+
+# Packed decode indexes parsed, by path: "native" (native.unpack_index, one
+# pass in C++) or "python" (_unpack_index, where the library did not build).
+INDEX_UNPACKS = {"native": 0, "python": 0}
 
 
 def _index_width(bb: np.ndarray) -> int:
@@ -102,11 +110,43 @@ def _unpack_index(data: bytes, off: int, n: int, w: int) -> np.ndarray:
     raw = np.frombuffer(data, np.uint8, nbytes, off)
     bits = np.unpackbits(raw)
     if bits[n * w:].any():
-        raise ValueError("decode index pad bits not zero")
+        raise ValueError(_PAD_NOT_ZERO)
     vals = np.zeros(n, np.int64)
     for k in range(w):
         vals = (vals << 1) | bits[k::w][:n]
     return vals.astype(np.uint16)
+
+
+def _check_stripe_sums(block_bits: np.ndarray, stripe_bits: np.ndarray,
+                       n_stripes: int) -> None:
+    per = block_bits.astype(np.int64).reshape(n_stripes, -1).sum(1)
+    if not np.array_equal(per, stripe_bits.astype(np.int64)):
+        # a hostile/corrupt index would misaddress every block the
+        # device decoder touches — reject up front, like the other
+        # geometry checks; kernel D relies on it
+        raise ValueError(_SUMS_DISAGREE)
+
+
+def _read_packed_index(data: bytes, off: int, n_stripes: int, bps: int,
+                       w: int, stripe_bits: np.ndarray) -> np.ndarray:
+    """The (n_stripes * bps,) u16 entries of a packed index at data[off:],
+    each stripe's sum checked against stripe_bits: in one native pass
+    where the host library built, else in Python."""
+    n = n_stripes * bps
+    if native.available():
+        # frombuffer is the bounds check, with _unpack_index's message
+        raw = np.frombuffer(data, np.uint8, (n * w + 7) // 8, off)
+        block_bits, rc = native.unpack_index(raw, n_stripes, bps, w,
+                                             stripe_bits)
+        if rc:
+            raise ValueError({1: _PAD_NOT_ZERO, 2: _SUMS_DISAGREE}.get(
+                rc, f"decode index unpack failed with code {rc}"))
+        INDEX_UNPACKS["native"] += 1
+        return block_bits
+    block_bits = _unpack_index(data, off, n, w)
+    _check_stripe_sums(block_bits, stripe_bits, n_stripes)
+    INDEX_UNPACKS["python"] += 1
+    return block_bits
 
 
 def index_cost_bytes(planes: "list[PlaneData]") -> int:
@@ -235,9 +275,7 @@ def _serialize(c: Container) -> bytes:
                 )
             per = bb.reshape(n_stripes, -1).sum(axis=1)
             if not np.array_equal(per, np.asarray(p.stripe_bits, np.int64)):
-                raise ValueError(
-                    "decode index stripe sums disagree with stripe_bits"
-                )
+                raise ValueError(_SUMS_DISAGREE)
             if bb.max(initial=0) > 0xFFFF or bb.min(initial=0) < 0:
                 raise ValueError("per-block bit length outside u16")
             w, packed = pack_index(bb)
@@ -370,21 +408,17 @@ def _deserialize(data: bytes) -> Container:
                 off += 1
                 if not 1 <= w <= 16:
                     raise ValueError(f"invalid decode index width {w}")
-                block_bits = _unpack_index(data, off, n_stripes * bps, w)
+                with tracing.named_scope("container.unpack_index",
+                                         index_entries=n_stripes * bps):
+                    block_bits = _read_packed_index(
+                        data, off, n_stripes, bps, w, stripe_bits)
                 off += (n_stripes * bps * w + 7) // 8
             else:  # legacy v2: raw u16 entries
                 block_bits = np.frombuffer(
                     data, "<u2", n_stripes * bps, off
                 ).copy()
                 off += 2 * n_stripes * bps
-            per = block_bits.astype(np.int64).reshape(n_stripes, bps).sum(1)
-            if not np.array_equal(per, stripe_bits.astype(np.int64)):
-                # a hostile/corrupt index would misaddress every block the
-                # device decoder touches — reject up front, like the other
-                # geometry checks; kernel D relies on it
-                raise ValueError(
-                    "decode index stripe sums disagree with stripe_bits"
-                )
+                _check_stripe_sums(block_bits, stripe_bits, n_stripes)
         stripes = []
         for s in range(n_stripes):
             nbytes = int((int(stripe_bits[s]) + 7) // 8)

@@ -1,10 +1,12 @@
 // bitpack.cpp — the host entropy decoder of dct_tpu_torch (a copy of the
 // reference package's native/bitpack.cpp, cut to the stripe decoder and
-// the integrity scan the port calls).
+// the integrity scan the port calls), and the parse of a container's
+// packed decode index.
 //
 // Canonical-Huffman DECODE of stripe substreams, serial within a stripe and
-// parallel across stripes on a thread pool, and the integrity scan of
-// stripes against their recorded bit lengths. Built with the host compiler
+// parallel across stripes on a thread pool, the integrity scan of stripes
+// against their recorded bit lengths, and the unpack of the packed w-bit
+// per-block index with its validation. Built with the host compiler
 // on first use and bound with ctypes by dct_tpu_torch/native.py. The wire
 // format is documented in dct_tpu_torch/ops/bitstream.py and
 // dct_tpu_torch/container.py; the result must equal the Python decoder
@@ -285,9 +287,9 @@ void run_parallel(const F& work, int n, int n_threads) {
 extern "C" {
 
 // Binding handshake: dct_tpu_torch/native.py refuses a library whose ABI
-// version differs from its own (v2: unpack writes int16 coefficients).
-// Bump on ANY signature or contract change.
-int dctbits_abi_version(void) { return 2; }
+// version differs from its own (v2: unpack writes int16 coefficients; v3:
+// dctbits_unpack_index). Bump on ANY signature or contract change.
+int dctbits_abi_version(void) { return 3; }
 
 // Decode n_stripes independent substreams (offsets[i]..offsets[i+1] bytes
 // each) of bps blocks into out[(stripe*bps + b)*n2 + k]. Returns 0 on
@@ -357,6 +359,59 @@ int dctbits_verify_stripes(const uint8_t* blob, const uint64_t* offsets,
   };
   run_parallel(work, n_stripes, n_threads);
   return 0;
+}
+
+// Parse a container's packed decode index (container.py): n_stripes * bps
+// MSB-first w-bit entries (1 <= w <= 16) from raw into out[n_stripes * bps],
+// in one pass. Each stripe's entries must sum, in 64 bits, to its
+// stripe_bits entry, and the pad bits after the last entry must be zero.
+// Reads at most ceil(n * w / 8) bytes of raw, which must be <= nbytes.
+// Returns 0 on success; 1 the pad bits are not zero; 2 a stripe's sum
+// disagrees with stripe_bits (1 wins where both hold); 3 the arguments are
+// out of range (w, n_stripes < 1, bps < 1, nbytes short), before anything
+// is read or written. On 1 or 2 every entry has been written.
+int dctbits_unpack_index(const uint8_t* raw, uint64_t nbytes, int n_stripes,
+                         int bps, int w, const uint32_t* stripe_bits,
+                         uint16_t* out) {
+  if (w < 1 || w > 16 || n_stripes < 1 || bps < 1) return 3;
+  const uint64_t n = (uint64_t)n_stripes * (uint64_t)bps;  // < 2^62
+  if (n > (UINT64_MAX >> 4)) return 3;  // n * w must not wrap
+  const uint64_t need = (n * w + 7) / 8;
+  if (need > nbytes) return 3;
+  const uint32_t mask = (1u << w) - 1;
+  // entry i starts at bit i * w; a big-endian 32-bit window at its byte
+  // holds it whole (bit offset <= 7, w <= 16). The first `fast` entries'
+  // windows lie inside the index; later ones take the bytes that are
+  // left, zero-filled.
+  const uint64_t fast = need >= 4 ? ((need - 3) * 8 - 1) / w + 1 : 0;
+  bool sums_ok = true;
+  uint64_t i = 0, bit = 0;
+  for (int s = 0; s < n_stripes; ++s) {
+    uint64_t sum = 0;
+    const uint64_t end = i + (uint64_t)bps;
+    for (; i < end && i < fast; ++i, bit += w) {
+      uint32_t win;
+      memcpy(&win, raw + (bit >> 3), 4);
+      win = __builtin_bswap32(win);
+      uint32_t v = (win >> (32 - w - (bit & 7))) & mask;
+      out[i] = (uint16_t)v;
+      sum += v;
+    }
+    for (; i < end; ++i, bit += w) {
+      uint32_t win = 0;
+      for (uint64_t k = 0; k < 4; ++k) {
+        uint64_t b = (bit >> 3) + k;
+        win = (win << 8) | (b < need ? raw[b] : 0);
+      }
+      uint32_t v = (win >> (32 - w - (bit & 7))) & mask;
+      out[i] = (uint16_t)v;
+      sum += v;
+    }
+    sums_ok &= sum == (uint64_t)stripe_bits[s];
+  }
+  const int pad = (int)(need * 8 - n * w);  // 0..7
+  if (pad && (raw[need - 1] & ((1u << pad) - 1))) return 1;
+  return sums_ok ? 0 : 2;
 }
 
 }  // extern "C"

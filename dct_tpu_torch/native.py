@@ -1,5 +1,5 @@
-"""ctypes binding of the port's host entropy decoder and stripe integrity
-scan (csrc/host/bitpack.cpp).
+"""ctypes binding of the port's host entropy decoder, stripe integrity
+scan and decode-index parse (csrc/host/bitpack.cpp).
 
 The decode of a stripe is serial; stripes are independent, so the C++
 decoder runs them on a thread pool. The library is compiled with the host
@@ -7,8 +7,9 @@ C++ compiler on first use into ``build/torch_kernels/`` (listed in
 .gitignore), named by a digest of the source and flags, and installed with
 an atomic rename, so concurrent processes agree. Where no compiler is
 found, or the build fails, ``available()`` is False and the codec decodes
-with the Python decoder (ops/bitstream.unpack_stripe_host), which the
-tests hold equal.
+with the Python decoder (ops/bitstream.unpack_stripe_host) and parses the
+decode index in Python (container._unpack_index), which the tests hold
+equal.
 """
 
 from __future__ import annotations
@@ -30,9 +31,9 @@ CXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC", "-pthread")
 _MODE_IDS = {"category": 0, "direct": 1, "none": 2}
 
 # Must equal bitpack.cpp's dctbits_abi_version(): v2 writes int16
-# coefficients, and a library of another version would be called through
-# a mismatched signature.
-_ABI_VERSION = 2
+# coefficients, v3 adds dctbits_unpack_index, and a library of another
+# version would be called through a mismatched signature.
+_ABI_VERSION = 3
 
 _lib: ctypes.CDLL | None = None
 _build_failed = False
@@ -101,6 +102,16 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         i,  # n_threads
     ]
     lib.dctbits_verify_stripes.restype = i
+    lib.dctbits_unpack_index.argtypes = [
+        p,  # packed index bytes
+        ctypes.c_uint64,  # their count
+        i,  # n_stripes
+        i,  # blocks per stripe
+        i,  # entry width w
+        p,  # bits per stripe, uint32 (n_stripes)
+        p,  # out, uint16 (n_stripes * bps)
+    ]
+    lib.dctbits_unpack_index.restype = i
     return lib
 
 
@@ -206,3 +217,25 @@ def verify_stripes(
         status.ctypes.data, _threads(n_threads),
     )
     return status
+
+
+def unpack_index(raw: np.ndarray, n_stripes: int, bps: int, w: int,
+                 stripe_bits: np.ndarray) -> tuple[np.ndarray, int]:
+    """Parse a packed decode index in one pass -> ((n_stripes * bps,)
+    uint16 entries, status). raw: the index's bytes (uint8; at least
+    ceil(n_stripes * bps * w / 8)), MSB-first w-bit entries. Status: 0 ok;
+    1 the pad bits after the last entry are not zero; 2 a stripe's entries
+    do not sum to its stripe_bits; 3 the arguments are out of range (w
+    outside 1..16, no stripes or blocks, raw too short), with the entries
+    unwritten."""
+    lib = _require()
+    raw = np.ascontiguousarray(raw, np.uint8)
+    sb = np.ascontiguousarray(stripe_bits, np.uint32)
+    n = n_stripes * bps
+    if not (1 <= w <= 16 and 1 <= n_stripes < 2**31 and 1 <= bps < 2**31
+            and (n * w + 7) // 8 <= raw.size and n_stripes <= sb.size):
+        return np.empty(0, np.uint16), 3
+    out = np.empty(n, np.uint16)
+    rc = lib.dctbits_unpack_index(raw.ctypes.data, raw.size, n_stripes, bps,
+                                  w, sb.ctypes.data, out.ctypes.data)
+    return out, rc

@@ -14,6 +14,14 @@ with the same error code. The same cases then run through
 native/fuzz_driver.cpp built against the port's bitpack.cpp with
 -fsanitize=address,undefined (any report aborts it), and its printed
 status, return code and checksum must equal the in-process results.
+
+The parse of a packed decode index (``native.unpack_index``) meets the
+port's plain version (``container._unpack_index`` and the stripe-sum
+check) on valid indexes, indexes with a stripe's length off, a pad bit
+set, random bytes, bytes cut short, and hostile widths and counts: the
+same status, and the same entries wherever both write them. The same
+cases run through tests/index_fuzz_harness.cpp under the same sanitizers,
+with every buffer at exactly the size it is declared.
 """
 
 import pathlib
@@ -259,3 +267,115 @@ def test_port_decoder_under_sanitizers_payload(asan_harness, cfg_i, tmp_path):
 def test_port_decoder_under_sanitizers_tables(asan_harness, tmp_path):
     # the 40001-symbol table is past the harness's own 4096-entry cap
     _run_asan(asan_harness, _table_cases() + _value_cases()[1:], tmp_path)
+
+
+# ---------------------------------------------------------------------------
+# The decode index's parse (dctbits_unpack_index)
+# ---------------------------------------------------------------------------
+
+def _pack(vals: np.ndarray, w: int) -> bytes:
+    """MSB-first w-bit entries, zero pad bits (container.pack_index at a
+    width of the caller's choosing)."""
+    bits = (vals[:, None] >> np.arange(w - 1, -1, -1)) & 1
+    return np.packbits(bits.astype(np.uint8).ravel()).tobytes()
+
+
+def _index_cases() -> list[tuple]:
+    """(w, n_stripes, bps, index bytes, stripe lengths) cases."""
+    rng = np.random.default_rng(20)
+    cases = []
+    for k in range(80):
+        w = int(rng.integers(1, 17))
+        n_stripes, bps = int(rng.integers(1, 9)), int(rng.integers(1, 40))
+        vals = rng.integers(0, 1 << w, n_stripes * bps)
+        raw = bytearray(_pack(vals, w))
+        sums = vals.reshape(n_stripes, bps).sum(1).astype(np.uint32)
+        kind = k % 5
+        if kind == 1:  # a stripe's length off
+            sums[rng.integers(0, n_stripes)] ^= 1 << int(rng.integers(0, 4))
+        elif kind == 2:  # a pad bit set, where there are pad bits
+            raw[-1] |= 1
+        elif kind == 3:  # random bytes
+            raw = bytearray(rng.integers(0, 256, len(raw), dtype=np.uint8))
+        elif kind == 4:  # cut short
+            raw = raw[:int(rng.integers(0, len(raw)))]
+        cases.append((w, n_stripes, bps, bytes(raw), sums))
+    noise = rng.integers(0, 256, 64, dtype=np.uint8).tobytes()
+    for w in (-1, 0, 1, 16, 17, 255):
+        for n_stripes in (-1, 0, 1, 2**31 - 1):
+            for bps in (-7, 0, 1, 2**31 - 1):
+                sums = np.zeros(min(max(n_stripes, 0), 4096), np.uint32)
+                cases.append((w, n_stripes, bps, noise, sums))
+    return cases
+
+
+def _plain_fate(w, n_stripes, bps, raw, sums):
+    """(status, entries or None) of the plain parse, in the library's
+    status codes."""
+    n = n_stripes * bps
+    if not (1 <= w <= 16 and n_stripes >= 1 and bps >= 1
+            and (n * w + 7) // 8 <= len(raw) and n_stripes <= sums.size):
+        return 3, None
+    try:
+        vals = cont._unpack_index(raw, 0, n, w)
+    except ValueError:
+        return 1, None
+    try:
+        cont._check_stripe_sums(vals, sums, n_stripes)
+    except ValueError:
+        return 2, vals
+    return 0, vals
+
+
+def test_index_unpack_meets_the_plain_parse_on_hostile_input():
+    seen = set()
+    for k, (w, n_stripes, bps, raw, sums) in enumerate(_index_cases()):
+        want, vals = _plain_fate(w, n_stripes, bps, raw, sums)
+        got, rc = native.unpack_index(np.frombuffer(raw, np.uint8),
+                                      n_stripes, bps, w, sums)
+        assert rc == want, (k, w, n_stripes, bps, len(raw))
+        if vals is not None:
+            assert got.dtype == np.uint16 and np.array_equal(got, vals), k
+        seen.add(rc)
+    assert seen == {0, 1, 2, 3}
+
+
+def test_index_unpack_under_sanitizers(tmp_path):
+    """Every case of the test above through tests/index_fuzz_harness.cpp
+    under ASan and UBSan: no report, and the in-process status and sum."""
+    cxx = shutil.which("g++")
+    if cxx is None:
+        pytest.skip("no g++")
+    exe = tmp_path / "index_fuzz_asan"
+    r = subprocess.run(
+        [cxx, "-O1", "-g", "-std=c++17", "-pthread",
+         "-fsanitize=address,undefined", "-fno-sanitize-recover=all",
+         "-fno-omit-frame-pointer", "-Wall", "-o", str(exe),
+         str(REPO / "tests" / "index_fuzz_harness.cpp"),
+         str(REPO / "dct_tpu_torch" / "csrc" / "host" / "bitpack.cpp")],
+        capture_output=True, text=True, timeout=300)
+    if r.returncode != 0 and "sanitize" in r.stderr:
+        pytest.skip(f"the sanitizer runtime is missing: {r.stderr[-300:]}")
+    assert r.returncode == 0, r.stderr[-3000:]
+    cases = _index_cases()
+    path = tmp_path / "cases.bin"
+    with open(path, "wb") as f:
+        for w, n_stripes, bps, raw, sums in cases:
+            f.write(struct.pack("<iiiQI", w, n_stripes, bps, len(raw),
+                                sums.size))
+            f.write(np.asarray(sums, "<u4").tobytes() + raw)
+    r = subprocess.run([str(exe), str(path)], capture_output=True, text=True,
+                       timeout=120, env={"ASAN_OPTIONS": "detect_leaks=0",
+                                         "UBSAN_OPTIONS": "print_stacktrace=1"})
+    assert r.returncode == 0 and "runtime error" not in r.stderr, (
+        r.stderr[-3000:])
+    lines = r.stdout.splitlines()
+    assert len(lines) == len(cases)
+    for k, ((w, n_stripes, bps, raw, sums), line) in enumerate(
+            zip(cases, lines)):
+        out, rc = native.unpack_index(np.frombuffer(raw, np.uint8),
+                                      n_stripes, bps, w, sums)
+        want = f"rc={rc}"
+        if rc <= 2:
+            want += f" sum={int(out.astype(np.int64).sum())}"
+        assert line == want, (k, line, want)

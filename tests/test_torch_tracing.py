@@ -27,8 +27,9 @@ ENCODE_SPANS = {"video.encode", "video.upload_pad", "codec.encode_step",
                 "bitstream.fetch_packed", "codec.index_readback",
                 "bitstream.stripes_to_bytes", "container.serialize"}
 DECODE_SPANS = {"video.decode_to_device", "container.deserialize",
-                "codec.indexed_operands", "codec.upload", "codec.reconstruct",
-                "codec.status_readback", "color.planes_to_rgb", "video.stack"}
+                "container.unpack_index", "codec.indexed_operands",
+                "codec.upload", "codec.reconstruct", "codec.status_readback",
+                "color.planes_to_rgb", "video.stack"}
 
 
 @pytest.fixture
