@@ -162,14 +162,24 @@ def encode_analyze(
     the leading axes, (..., NB). histogram: the (16,) category histogram,
     in direct mode the (512,) histogram of [-255, 255] + ESC, in "none" mode
     a zero stub; run_histogram: the (65,) run histogram under
-    cfg.coded_runs, else a zero stub."""
+    cfg.coded_runs, else a zero stub. Span ``codec.encode_analyze``
+    (frames, blocks)."""
+    n = cfg.block_size
+    frames = math.prod(image.shape[:-2])
+    blocks = frames * (image.shape[-2] // n) * (image.shape[-1] // n)
+    with tracing.named_scope("codec.encode_analyze", frames=frames,
+                             blocks=blocks):
+        return _analyze(image, cfg, ops, frames)
+
+
+def _analyze(image: torch.Tensor, cfg: CodecConfig,
+             ops: tables.CodecOperators, frames: int):
     n = cfg.block_size
     lead = image.shape[:-2]
     pixels = blk.image_to_blocks(image, n).reshape(-1, cfg.n2)
     var_codes, scale = _adaptive(pixels, cfg)
     zz = encode_transform(pixels, cfg, ops, scale)
     if cfg.dc_prediction:
-        frames = int(np.prod(lead, dtype=np.int64))
         zz = dc_predict(zz, frames * (image.shape[-2] // n) // cfg.stripe_rows)
     symbols = rle.rle_encode_positional(zz)
     mode = cfg.huffman_mode if cfg.use_huffman else "none"
@@ -234,6 +244,30 @@ def encode_pack_plain(
     staged pipeline the kernels are held against."""
     cv, cl, capacity, block_bits = _stripe_chunks(symbols, cfg, n_stripes, ops)
     return bs.pack_chunks(cv, cl, capacity), block_bits
+
+
+def read_histograms(hist: torch.Tensor, run_hist: torch.Tensor):
+    """encode_analyze's histograms as host arrays, in one span,
+    ``codec.histogram_readback``, that holds the host's wait for the
+    device and both copies."""
+    nbytes = (hist.numel() * hist.element_size()
+              + run_hist.numel() * run_hist.element_size())
+    with tracing.named_scope("codec.histogram_readback", d2h_bytes=nbytes):
+        return hist.cpu().numpy(), run_hist.cpu().numpy()
+
+
+def build_tables(cfg: CodecConfig, ops: tables.CodecOperators,
+                 hist: np.ndarray, run_hist: np.ndarray):
+    """The dynamic tables from host histograms, in the span
+    ``codec.build_tables`` (h2d_bytes: the tables handed to ops' device)
+    -> (table, run_table, ops with them)."""
+    with tracing.named_scope("codec.build_tables"):
+        table = _build_table(cfg, hist)
+        run_table = _build_run_table(cfg, run_hist)
+        tracing.add("h2d_bytes", sum(8 * len(t.lengths)
+                                     for t in (table, run_table)
+                                     if t is not None))
+        return table, run_table, ops.with_tables(table, run_table)
 
 
 def _build_table(cfg: CodecConfig, hist: np.ndarray | None):
@@ -316,12 +350,14 @@ def pack_frames(
     axes ``lead`` (``()`` for one plane) + tables -> (PackedStripes,
     block_bits-or-None) with those axes. The chunks of every stripe of
     every frame are packed in one launch of kernel E on CUDA
-    (ops/pack_cuda.py), by its plain version on the CPU."""
+    (ops/pack_cuda.py), by its plain version on the CPU. Span
+    ``codec.pack_frames`` (frames)."""
     frames = int(np.prod(lead, dtype=np.int64))
-    cv, cl, capacity, block_bits = _stripe_chunks(symbols, cfg,
-                                                  frames * n_stripes, ops)
-    packed = pack_cuda.pack_chunks_kernel(cv, cl, capacity)
-    return _frames_out(packed, block_bits, cfg, lead, n_stripes)
+    with tracing.named_scope("codec.pack_frames", frames=frames):
+        cv, cl, capacity, block_bits = _stripe_chunks(symbols, cfg,
+                                                      frames * n_stripes, ops)
+        packed = pack_cuda.pack_chunks_kernel(cv, cl, capacity)
+        return _frames_out(packed, block_bits, cfg, lead, n_stripes)
 
 
 def encode_staged_step(
@@ -396,9 +432,8 @@ def encode_plane(
     else:
         ops = tables.build(cfg, chroma=chroma, device=device)
         symbols, var_codes, hist, run_hist = encode_analyze(img, cfg, ops)
-        table = _build_table(cfg, hist.cpu().numpy())
-        run_table = _build_run_table(cfg, run_hist.cpu().numpy())
-        ops = ops.with_tables(table, run_table)
+        table, run_table, ops = build_tables(
+            cfg, ops, *read_histograms(hist, run_hist))
         if device.type == "cuda" and fused_kernel_ok(cfg):
             # the fused kernel re-runs the transform with the real tables
             packed, var_codes, block_bits = encode_fused_step(

@@ -92,18 +92,17 @@ def _encode_plane_batch(
             # one chunk: analyze once and pack the same symbols
             symbols_once, var_once, hist, run_hist = codec.encode_analyze(
                 prep(0), cfg, ops)
-            hist, run_hist = hist.cpu().numpy(), run_hist.cpu().numpy()
+            hist, run_hist = codec.read_histograms(hist, run_hist)
         else:
             # pass 1: the stack's histograms, chunk by chunk, summed in
             # int64 on the host (a bin can pass 2^31 over a long stack)
             hist = run_hist = 0
             for i0 in range(0, f, chunk):
                 _, _, h_, rh_ = codec.encode_analyze(prep(i0), cfg, ops)
-                hist = hist + h_.cpu().numpy().astype(np.int64)
-                run_hist = run_hist + rh_.cpu().numpy().astype(np.int64)
-        table = codec._build_table(cfg, hist)
-        run_table = codec._build_run_table(cfg, run_hist)
-        ops = ops.with_tables(table, run_table)
+                h_, rh_ = codec.read_histograms(h_, rh_)
+                hist = hist + h_.astype(np.int64)
+                run_hist = run_hist + rh_.astype(np.int64)
+        table, run_table, ops = codec.build_tables(cfg, ops, hist, run_hist)
 
     out: list[cont.PlaneData] = []
     for i0 in range(0, f, chunk):

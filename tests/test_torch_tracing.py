@@ -210,3 +210,110 @@ def test_the_image_entries_nest_their_stages(on):
     assert {"container.deserialize", "codec.reconstruct"} <= by_call[2]
     assert sum(r.counts.get("h2d_bytes", 0) for r in recs
                if r.call == 1) == img.size
+
+
+ANALYZE_SPANS = ("codec.encode_analyze", "codec.histogram_readback",
+                 "codec.build_tables", "codec.pack_frames")
+
+
+def photo_frames(n: int, h: int, w: int, seed: int) -> np.ndarray:
+    """Smooth frames with noise: every category table symbol in use."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[:h, :w]
+    base = 128 + 60 * np.sin(xx / 5.0) * np.cos(yy / 3.0)
+    return np.clip(base + rng.normal(0, 6, (n, h, w)), 0, 255).astype(
+        np.uint8)
+
+
+def by_name(recs, name):
+    return [r for r in recs if r.name == name]
+
+
+def test_dynamic_video_encode_spans_its_analyze_pass(on):
+    frames = photo_frames(3, 24, 40, 1)
+    VideoCodec(CodecConfig(quality=50), device="cpu").encode(frames)
+    recs = tracing.records()
+    entry = recs.index(next(r for r in recs if r.parent is None))
+    assert recs[entry].name == "video.encode"
+    for name in ANALYZE_SPANS:
+        found = by_name(recs, name)
+        assert len(found) == 1, name
+        assert found[0].parent == entry, name
+    (a,) = by_name(recs, "codec.encode_analyze")
+    assert a.counts == {"frames": 3, "blocks": 3 * 3 * 5}
+    (rb,) = by_name(recs, "codec.histogram_readback")
+    assert rb.counts == {"d2h_bytes": 16 * 4 + 4}   # categories, run stub
+    (bt,) = by_name(recs, "codec.build_tables")
+    assert bt.counts == {"h2d_bytes": 16 * 8}      # lengths and codes
+    (pk,) = by_name(recs, "codec.pack_frames")
+    assert pk.counts == {"frames": 3}
+    order = [r.name for r in recs if r.name in ANALYZE_SPANS]
+    assert order == list(ANALYZE_SPANS)
+    assert "codec.encode_step" not in names()
+
+
+def test_dynamic_video_encode_in_chunks_reads_each_chunks_histogram(on):
+    frames = photo_frames(3, 24, 40, 2)
+    VideoCodec(CodecConfig(quality=50), chunk_frames=2,
+               device="cpu").encode(frames)
+    recs = tracing.records()
+    analyzed = by_name(recs, "codec.encode_analyze")
+    assert [r.counts["frames"] for r in analyzed] == [2, 1]
+    assert len(by_name(recs, "codec.histogram_readback")) == 2
+    assert len(by_name(recs, "codec.build_tables")) == 1
+    # pass 2 of 8x8 blocks is kernel B's, which packs nothing apart
+    assert by_name(recs, "codec.pack_frames") == []
+
+
+def test_the_one_chunk_route_packs_its_symbols_and_runs_no_b(monkeypatch):
+    from dct_tpu_torch.models import codec
+
+    calls = []
+
+    def counted(name):
+        real = getattr(codec, name)
+
+        def fn(*a, **k):
+            calls.append(name)
+            return real(*a, **k)
+        return fn
+
+    for name in ("encode_analyze", "pack_frames", "encode_fused_step",
+                 "encode_step"):
+        monkeypatch.setattr(codec, name, counted(name))
+    VideoCodec(CodecConfig(quality=50), device="cpu").encode(
+        photo_frames(4, 16, 24, 3))
+    assert calls == ["encode_analyze", "pack_frames"]
+
+
+def test_encode_plane_dynamic_spans_analyze_readback_and_tables(on):
+    img = photo_frames(1, 24, 40, 4)[0]
+    ImageCodec(CodecConfig(quality=50), device="cpu").encode(img)
+    recs = tracing.records()
+    entry = recs.index(next(r for r in recs if r.parent is None))
+    assert recs[entry].name == "image.encode"
+    for name in ANALYZE_SPANS[:3]:
+        (r,) = by_name(recs, name)
+        assert r.parent == entry and r.call == recs[entry].call
+    assert by_name(recs, "codec.encode_analyze")[0].counts == {
+        "frames": 1, "blocks": 15}
+
+
+def test_off_a_dynamic_encode_records_nothing():
+    tracing.disable()
+    tracing.reset_timings()
+    VideoCodec(CodecConfig(quality=50), device="cpu").encode(
+        photo_frames(2, 16, 24, 5))
+    ImageCodec(CodecConfig(quality=50), device="cpu").encode(
+        photo_frames(1, 16, 24, 6)[0])
+    assert tracing.records() == []
+
+
+@pytest.mark.parametrize("entry", ["video", "image"])
+def test_a_static_table_encode_records_no_analyze_span(on, entry):
+    cfg = CodecConfig(quality=50, static_tables=True)
+    if entry == "video":
+        VideoCodec(cfg, device="cpu").encode(photo_frames(2, 16, 24, 7))
+    else:
+        ImageCodec(cfg, device="cpu").encode(photo_frames(1, 16, 24, 8)[0])
+    assert names() and not names() & set(ANALYZE_SPANS)
