@@ -2258,9 +2258,14 @@ def main() -> int:
         vc = video.VideoCodec(cfg, device=dev)
         torch.cuda.reset_peak_memory_stats()
         _build.reset_launch_counts()
+        packs = dict(bs.PAYLOAD_PACKS)
         streams = vc.encode(vframes)
         torch.cuda.synchronize()
         enc_counts = dict(_build.LAUNCHES)
+        check(bs.PAYLOAD_PACKS["native"] - packs["native"] == VIDEO_FRAMES
+              and bs.PAYLOAD_PACKS["python"] == packs["python"],
+              f"video {name}: the payload of {VIDEO_FRAMES} planes was not "
+              f"written by the native pass ({bs.PAYLOAD_PACKS} from {packs})")
         enc_peak = torch.cuda.max_memory_allocated()
         torch.cuda.reset_peak_memory_stats()
         _build.reset_launch_counts()
@@ -2384,9 +2389,7 @@ def main() -> int:
             torch.cuda.synchronize()), 3),
         "kernel E": cuda_ms(lambda: pack_cuda.pack_chunks_kernel(*e_args), 5),
         "fetch units": host_ms(lambda: bs.fetch_packed(packed_v), 3),
-        "stripe bytes": host_ms(lambda: [bs.stripes_to_bytes(bs.PackedStripes(
-            fetched_v.units[i], fetched_v.bit_lengths[i]))
-            for i in range(VIDEO_FRAMES)], 3),
+        "stripe bytes": host_ms(lambda: bs.plane_payloads(fetched_v), 3),
         "serialize": host_ms(lambda: [cont.serialize(c) for c in conts_v], 3),
     }
     log(f"video q50 {VIDEO_FRAMES} x {VH}x{VW} encode stages: " + ", ".join(

@@ -60,7 +60,9 @@ and mesh-shape-invariant like everything else on the wire.
 from __future__ import annotations
 
 import dataclasses
+import operator
 import struct
+from collections.abc import Sequence
 
 import numpy as np
 
@@ -178,6 +180,54 @@ def _resolve_decode_index(c: "Container") -> bool:
     )
 
 
+class StripePayload(Sequence):
+    """A plane's stripes held as one payload: stripe i is
+    ``payload[offsets[i]:offsets[i + 1]]``. The encoder writes a chunk's
+    stripes in one pass (ops/bitstream.py) and hands each plane one of
+    these; serialize copies the payload whole. It reads as the list of
+    ``bytes`` it stands for (len, indexing, slices as lists, iteration,
+    ==) and is read-only: build a list to change a stripe."""
+
+    __slots__ = ("payload", "offsets")
+
+    def __init__(self, buf, offsets: np.ndarray):
+        """buf: bytes-like; offsets: the n_stripes + 1 byte offsets of the
+        plane's stripes in it, ascending."""
+        offsets = np.asarray(offsets, np.int64)
+        payload = np.frombuffer(buf, np.uint8)[offsets[0]:offsets[-1]]
+        payload.flags.writeable = False
+        self.payload = payload
+        self.offsets = offsets - offsets[0]
+
+    def __len__(self) -> int:
+        return len(self.offsets) - 1
+
+    def __getitem__(self, i):
+        if isinstance(i, slice):
+            return [self[k] for k in range(*i.indices(len(self)))]
+        i = operator.index(i)
+        k = i + len(self) if i < 0 else i
+        if not 0 <= k < len(self):
+            raise IndexError(f"stripe {i} out of range ({len(self)} stripes)")
+        return self.payload[self.offsets[k]:self.offsets[k + 1]].tobytes()
+
+    def __iter__(self):
+        o = self.offsets.tolist()
+        return (self.payload[a:b].tobytes() for a, b in zip(o, o[1:]))
+
+    def __eq__(self, other):
+        if not isinstance(other, Sequence):
+            return NotImplemented
+        return len(self) == len(other) and all(
+            a == b for a, b in zip(self, other))
+
+    __hash__ = None
+
+    def __repr__(self) -> str:
+        return (f"StripePayload({len(self)} stripes, "
+                f"{self.payload.size} bytes)")
+
+
 @dataclasses.dataclass
 class PlaneData:
     width: int
@@ -186,7 +236,7 @@ class PlaneData:
     vmin: int  # direct mode only
     variance_codes: np.ndarray | None  # (bh*bw,) u8, adaptive only
     stripe_bits: np.ndarray  # (n_stripes,) u32
-    stripes: list[bytes]
+    stripes: list[bytes] | StripePayload
     run_table_lengths: np.ndarray | None = None  # coded_runs only, 65 x u8
     # (canonical code length for each run 0..64 — 64 is the all-zero-block
     # terminal symbol, see ops/rle.py)
@@ -223,9 +273,9 @@ def serialize(c: Container) -> bytes:
 def _serialize(c: Container) -> bytes:
     cfg = c.config
     with_index = _resolve_decode_index(c)
-    out = bytearray()
-    out += MAGIC
-    out += struct.pack(
+    # the container's parts, joined once: a StripePayload's payload is
+    # copied whole, a list's stripes one by one
+    out = [MAGIC, struct.pack(
         "<BBBBIIBBH",
         VERSION_EXT if with_index else VERSION,
         _pack_flags(cfg),
@@ -236,11 +286,11 @@ def _serialize(c: Container) -> bytes:
         len(c.planes),
         _CHROMA_MODES.index(cfg.chroma),
         cfg.stripe_rows,
-    )
+    )]
     if with_index:
-        out += struct.pack("<B", 0b11)  # flags2: index present, packed
+        out.append(struct.pack("<B", 0b11))  # flags2: index present, packed
     for p in c.planes:
-        out += struct.pack("<III", p.width, p.height, len(p.stripes))
+        out.append(struct.pack("<III", p.width, p.height, len(p.stripes)))
         mode = cfg.huffman_mode if cfg.use_huffman else "none"
         if mode == "category":
             # wire-format invariants raise (not assert): `python -O` strips
@@ -250,21 +300,21 @@ def _serialize(c: Container) -> bytes:
                     f"category table must have 16 lengths, got "
                     f"{len(p.table_lengths)}"
                 )
-            out += bytes(np.asarray(p.table_lengths, np.uint8))
+            out.append(bytes(np.asarray(p.table_lengths, np.uint8)))
         elif mode == "direct":
             lengths = np.asarray(p.table_lengths, np.uint8)
-            out += struct.pack("<iH", p.vmin, len(lengths) - 1)
-            out += bytes(lengths)
+            out.append(struct.pack("<iH", p.vmin, len(lengths) - 1))
+            out.append(bytes(lengths))
         if cfg.coded_runs:
             if len(p.run_table_lengths) != 65:
                 raise ValueError(
                     f"run table must have 65 lengths (runs 0..64), got "
                     f"{len(p.run_table_lengths)}"
                 )
-            out += bytes(np.asarray(p.run_table_lengths, np.uint8))
+            out.append(bytes(np.asarray(p.run_table_lengths, np.uint8)))
         if cfg.adaptive:
-            out += bytes(np.asarray(p.variance_codes, np.uint8))
-        out += np.asarray(p.stripe_bits, "<u4").tobytes()
+            out.append(bytes(np.asarray(p.variance_codes, np.uint8)))
+        out.append(np.asarray(p.stripe_bits, "<u4").tobytes())
         if with_index:
             bb = np.asarray(p.block_bits, np.int64)
             n_stripes = len(p.stripes)
@@ -279,11 +329,13 @@ def _serialize(c: Container) -> bytes:
             if bb.max(initial=0) > 0xFFFF or bb.min(initial=0) < 0:
                 raise ValueError("per-block bit length outside u16")
             w, packed = pack_index(bb)
-            out += struct.pack("<B", w)
-            out += packed
-        for s in p.stripes:
-            out += s
-    return bytes(out)
+            out.append(struct.pack("<B", w))
+            out.append(packed)
+        if isinstance(p.stripes, StripePayload):
+            out.append(p.stripes.payload)
+        else:
+            out += p.stripes
+    return b"".join(out)
 
 
 def deserialize(data: bytes) -> Container:

@@ -1,7 +1,8 @@
 // bitpack.cpp — the host entropy decoder of dct_tpu_torch (a copy of the
 // reference package's native/bitpack.cpp, cut to the stripe decoder and
-// the integrity scan the port calls), and the parse of a container's
-// packed decode index.
+// the integrity scan the port calls), the parse of a container's packed
+// decode index, and the encoder's payload writer (packed stripe units to
+// the stripes' bytes).
 //
 // Canonical-Huffman DECODE of stripe substreams, serial within a stripe and
 // parallel across stripes on a thread pool, the integrity scan of stripes
@@ -288,8 +289,9 @@ extern "C" {
 
 // Binding handshake: dct_tpu_torch/native.py refuses a library whose ABI
 // version differs from its own (v2: unpack writes int16 coefficients; v3:
-// dctbits_unpack_index). Bump on ANY signature or contract change.
-int dctbits_abi_version(void) { return 3; }
+// dctbits_unpack_index; v4: dctbits_pack_payload). Bump on ANY signature
+// or contract change.
+int dctbits_abi_version(void) { return 4; }
 
 // Decode n_stripes independent substreams (offsets[i]..offsets[i+1] bytes
 // each) of bps blocks into out[(stripe*bps + b)*n2 + k]. Returns 0 on
@@ -412,6 +414,43 @@ int dctbits_unpack_index(const uint8_t* raw, uint64_t nbytes, int n_stripes,
   const int pad = (int)(need * 8 - n * w);  // 0..7
   if (pad && (raw[need - 1] & ((1u << pad) - 1))) return 1;
   return sums_ok ? 0 : 2;
+}
+
+// Serialize n packed stripes into one payload (ops/bitstream.py): stripe s
+// is the first ceil(bits[s] / 8) bytes of its U 16-bit units
+// (units[s * U ..]) written big-endian, the stripes back to back in out,
+// and offsets[0..n] their n + 1 byte offsets. Returns 0 on success; 1 a
+// bit length below 0 or above 16 * U; 2 the payload needs more than
+// out_cap bytes; 3 n or U out of range (below 0, U above 2^58). Lengths
+// and capacity are checked before anything is written: on a nonzero
+// return neither out nor offsets is touched.
+int dctbits_pack_payload(const uint16_t* units, int64_t U,
+                         const int64_t* bits, int64_t n, uint8_t* out,
+                         uint64_t out_cap, uint64_t* offsets) {
+  if (n < 0 || U < 0 || U > (INT64_MAX >> 5)) return 3;
+  for (int64_t s = 0; s < n; ++s)
+    if (bits[s] < 0 || bits[s] > 16 * U) return 1;
+  uint64_t total = 0;  // each stripe <= 2^59 bytes: checked as it grows
+  for (int64_t s = 0; s < n; ++s) {
+    total += ((uint64_t)bits[s] + 7) / 8;
+    if (total > out_cap) return 2;
+  }
+  uint64_t off = 0;
+  for (int64_t s = 0; s < n; ++s) {
+    offsets[s] = off;
+    const uint64_t nbytes = ((uint64_t)bits[s] + 7) / 8;
+    const uint16_t* u = units + s * U;
+    uint8_t* o = out + off;
+    const uint64_t full = nbytes / 2;
+    for (uint64_t k = 0; k < full; ++k) {
+      o[2 * k] = (uint8_t)(u[k] >> 8);
+      o[2 * k + 1] = (uint8_t)u[k];
+    }
+    if (nbytes & 1) o[nbytes - 1] = (uint8_t)(u[full] >> 8);
+    off += nbytes;
+  }
+  offsets[n] = off;
+  return 0;
 }
 
 }  // extern "C"

@@ -411,6 +411,36 @@ def read_back(t: torch.Tensor, span: str) -> np.ndarray:
         return t.cpu().numpy()
 
 
+def plane_data(packed: bs.PackedStripes, w: int, h: int, table, run_table,
+               var_codes: np.ndarray | None = None,
+               block_bits: np.ndarray | None = None) -> list[cont.PlaneData]:
+    """Fetched packed stripes of one plane ((S, U) units, (S,) bits) or of
+    a chunk of planes ((F, S, U), (F, S)) on the host, with their variance
+    codes ((F,) NB) and block bits ((F,) S, bps) or None -> one PlaneData a
+    plane against the tables given; every plane's stripes written by one
+    payload pass (bs.plane_payloads)."""
+    stripes = bs.plane_payloads(packed)
+    n = len(stripes)
+    bits = np.asarray(packed.bit_lengths).reshape(n, -1).astype(np.uint32)
+    if var_codes is not None:
+        var_codes = np.asarray(var_codes).reshape(n, -1)
+    if block_bits is not None:
+        block_bits = np.asarray(block_bits).reshape(n, -1).astype(np.uint16)
+    return [cont.PlaneData(
+        width=w,
+        height=h,
+        table_lengths=table.lengths if table is not None else None,
+        vmin=DIRECT_VMIN,
+        variance_codes=None if var_codes is None else var_codes[i],
+        stripe_bits=bits[i],
+        stripes=stripes[i],
+        run_table_lengths=(
+            run_table.lengths if run_table is not None else None
+        ),
+        block_bits=None if block_bits is None else block_bits[i],
+    ) for i in range(n)]
+
+
 def encode_plane(
     plane, cfg: CodecConfig,
     device: str | torch.device | None = None,
@@ -442,23 +472,11 @@ def encode_plane(
         else:
             packed, block_bits = pack_frames(symbols, cfg, (), n_stripes, ops)
     packed = bs.fetch_packed(packed)  # trim worst-case slack before D2H
-    return cont.PlaneData(
-        width=w,
-        height=h,
-        table_lengths=table.lengths if table is not None else None,
-        vmin=DIRECT_VMIN,
-        variance_codes=var_codes.cpu().numpy() if cfg.adaptive else None,
-        stripe_bits=packed.bit_lengths.astype(np.uint32),
-        stripes=bs.stripes_to_bytes(packed),
-        run_table_lengths=(
-            run_table.lengths if run_table is not None else None
-        ),
-        block_bits=(
-            read_back(block_bits, "codec.index_readback")
-            .reshape(-1).astype(np.uint16)
-            if block_bits is not None else None
-        ),
-    )
+    return plane_data(
+        packed, w, h, table, run_table,
+        var_codes.cpu().numpy() if cfg.adaptive else None,
+        (read_back(block_bits, "codec.index_readback")
+         if block_bits is not None else None))[0]
 
 
 def host_decoder() -> str:

@@ -124,8 +124,8 @@ def _encode_stripes(rows: torch.Tensor, cfg: CodecConfig,
     packed, block_bits = codec.pack_frames(symbols, cfg, rows.shape[:1], 1,
                                            ops)
     packed = bs.fetch_packed(packed)  # trim worst-case slack, as encode
-    stripes = [bs.stripes_to_bytes(bs.PackedStripes(u, b))[0]
-               for u, b in zip(packed.units, packed.bit_lengths)]
+    stripes = list(bs.stripes_to_bytes(bs.PackedStripes(
+        packed.units[:, 0], packed.bit_lengths[:, 0])))
     return (stripes, packed.bit_lengths[:, 0],
             None if var_codes is None else var_codes.cpu().numpy(),
             None if block_bits is None else block_bits.cpu().numpy())

@@ -120,29 +120,12 @@ def _encode_plane_batch(
             packed, var_codes, block_bits = codec.encode_staged_step(
                 prep(i0), cfg, n_stripes, ops)
 
-        packed = bs.fetch_packed(packed)  # trim worst-case slack before D2H
-        units, bits = packed.units, packed.bit_lengths
-        var_np = var_codes.cpu().numpy() if cfg.adaptive else None
-        bb_np = (codec.read_back(block_bits, "codec.index_readback")
-                 if block_bits is not None else None)
-        for i in range(units.shape[0]):
-            out.append(cont.PlaneData(
-                width=w,
-                height=h,
-                table_lengths=table.lengths if table is not None else None,
-                vmin=codec.DIRECT_VMIN,
-                variance_codes=var_np[i] if cfg.adaptive else None,
-                stripe_bits=bits[i].astype(np.uint32),
-                stripes=bs.stripes_to_bytes(bs.PackedStripes(units[i],
-                                                             bits[i])),
-                run_table_lengths=(
-                    run_table.lengths if run_table is not None else None
-                ),
-                block_bits=(
-                    bb_np[i].reshape(-1).astype(np.uint16)
-                    if bb_np is not None else None
-                ),
-            ))
+        out += codec.plane_data(
+            bs.fetch_packed(packed),  # trim worst-case slack before D2H
+            w, h, table, run_table,
+            var_codes.cpu().numpy() if cfg.adaptive else None,
+            (codec.read_back(block_bits, "codec.index_readback")
+             if block_bits is not None else None))
     return out
 
 

@@ -1,5 +1,5 @@
 """ctypes binding of the port's host entropy decoder, stripe integrity
-scan and decode-index parse (csrc/host/bitpack.cpp).
+scan, decode-index parse and payload writer (csrc/host/bitpack.cpp).
 
 The decode of a stripe is serial; stripes are independent, so the C++
 decoder runs them on a thread pool. The library is compiled with the host
@@ -7,9 +7,10 @@ C++ compiler on first use into ``build/torch_kernels/`` (listed in
 .gitignore), named by a digest of the source and flags, and installed with
 an atomic rename, so concurrent processes agree. Where no compiler is
 found, or the build fails, ``available()`` is False and the codec decodes
-with the Python decoder (ops/bitstream.unpack_stripe_host) and parses the
-decode index in Python (container._unpack_index), which the tests hold
-equal.
+with the Python decoder (ops/bitstream.unpack_stripe_host), parses the
+decode index in Python (container._unpack_index) and writes the encoder's
+payload in Python (ops/bitstream._pack_payload_python), which the tests
+hold equal.
 """
 
 from __future__ import annotations
@@ -31,9 +32,10 @@ CXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC", "-pthread")
 _MODE_IDS = {"category": 0, "direct": 1, "none": 2}
 
 # Must equal bitpack.cpp's dctbits_abi_version(): v2 writes int16
-# coefficients, v3 adds dctbits_unpack_index, and a library of another
-# version would be called through a mismatched signature.
-_ABI_VERSION = 3
+# coefficients, v3 adds dctbits_unpack_index, v4 dctbits_pack_payload, and
+# a library of another version would be called through a mismatched
+# signature.
+_ABI_VERSION = 4
 
 _lib: ctypes.CDLL | None = None
 _build_failed = False
@@ -112,6 +114,16 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         p,  # out, uint16 (n_stripes * bps)
     ]
     lib.dctbits_unpack_index.restype = i
+    lib.dctbits_pack_payload.argtypes = [
+        p,  # units, uint16 (n * U)
+        ctypes.c_int64,  # U, units a stripe
+        p,  # bits per stripe, int64 (n)
+        ctypes.c_int64,  # n, stripes
+        p,  # out, uint8
+        ctypes.c_uint64,  # its capacity in bytes
+        p,  # out offsets, uint64 (n + 1)
+    ]
+    lib.dctbits_pack_payload.restype = i
     return lib
 
 
@@ -239,3 +251,25 @@ def unpack_index(raw: np.ndarray, n_stripes: int, bps: int, w: int,
     rc = lib.dctbits_unpack_index(raw.ctypes.data, raw.size, n_stripes, bps,
                                   w, sb.ctypes.data, out.ctypes.data)
     return out, rc
+
+
+def pack_payload(units: np.ndarray, bits: np.ndarray
+                 ) -> tuple[np.ndarray, np.ndarray, int]:
+    """Write n packed stripes' bytes back to back in one pass ->
+    (uint8 payload, (n + 1,) uint64 byte offsets, status). units: (n, U)
+    uint16 bit patterns of big-endian 16-bit units; bits: (n,) bit
+    lengths; stripe s is the first ceil(bits[s] / 8) bytes of its units.
+    Status: 0 ok; 1 a bit length below 0 or above 16 * U, with nothing
+    written."""
+    lib = _require()
+    units = np.ascontiguousarray(units, np.uint16)
+    bits = np.ascontiguousarray(bits, np.int64)
+    n, u = units.shape
+    if bits.shape != (n,):
+        raise ValueError(f"{bits.shape} bit lengths for {n} stripes")
+    out = np.empty(int(((np.maximum(bits, 0) + 7) // 8).sum()), np.uint8)
+    offsets = np.empty(n + 1, np.uint64)
+    rc = lib.dctbits_pack_payload(units.ctypes.data, u, bits.ctypes.data, n,
+                                  out.ctypes.data, out.size,
+                                  offsets.ctypes.data)
+    return out, offsets, rc

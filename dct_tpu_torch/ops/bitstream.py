@@ -22,15 +22,24 @@ kernel E takes; this packer widens them to int64 for the bit offsets and
 the 32-bit windows. Stream units are held in any integer tensor whose low
 16 bits are the unit (int32 from this packer, int16 bit patterns from the
 kernels) until fetch_packed narrows them to numpy uint16.
+
+The host epilogue (plane_payloads, stripes_to_bytes) writes the stripes'
+bytes: each stripe's ceil(bits / 8) bytes of big-endian units, a whole
+chunk's stripes back to back in one buffer, in one native pass
+(native.pack_payload) or, where the host library did not build, in
+NumPy; each plane gets a container.StripePayload over its part.
 """
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
+from dct_tpu_torch import container as cont
+from dct_tpu_torch import native
 from dct_tpu_torch.ops import huffman as hf
 from dct_tpu_torch.ops.rle import RLEPositional
 from dct_tpu_torch.utils import tracing
@@ -180,17 +189,59 @@ def pack_chunks(
     )
 
 
-def stripes_to_bytes(packed: PackedStripes) -> list[bytes]:
-    """Host epilogue: unit buffers -> per-stripe byte strings (big-endian
-    16-bit units, truncated to the actual byte length)."""
+# Planes whose payload was written, by path: "native" (native.pack_payload,
+# one pass over a chunk in C++) or "python" (_pack_payload_python, where the
+# library did not build).
+PAYLOAD_PACKS = {"native": 0, "python": 0}
+
+_LENGTH_OUT_OF_RANGE = "a stripe bit length outside [0, 16 * units]"
+
+
+def _pack_payload_python(units: np.ndarray, bits: np.ndarray):
+    """native.pack_payload's result in NumPy: (n, U) uint16 units, (n,)
+    int64 bit lengths -> (uint8 payload, (n + 1,) int64 byte offsets)."""
+    if bits.size and not 0 <= bits.min() <= bits.max() <= 16 * units.shape[1]:
+        raise ValueError(_LENGTH_OUT_OF_RANGE)
+    nbytes = (bits + 7) // 8
+    offsets = np.zeros(bits.size + 1, np.int64)
+    np.cumsum(nbytes, out=offsets[1:])
+    be = units.astype(">u2").view(np.uint8).reshape(units.shape[0], -1)
+    return be[np.arange(be.shape[1]) < nbytes[:, None]], offsets
+
+
+def plane_payloads(packed: PackedStripes) -> list[cont.StripePayload]:
+    """Host epilogue: the fetched units of one plane ((S, U) units, (S,)
+    bits) or of a chunk of planes ((..., S, U), (..., S)) -> each plane's
+    stripes (big-endian 16-bit units cut to ceil(bits / 8) bytes), all
+    written into one buffer by one pass. Units are read as 16-bit
+    patterns: uint16 as they are, int16 viewed, wider types narrowed."""
     with tracing.named_scope("bitstream.stripes_to_bytes"):
-        units = np.asarray(packed.units).astype(np.uint16)
-        bits = np.asarray(packed.bit_lengths)
-        out = []
-        for s in range(units.shape[0]):
-            n_bytes = int((bits[s] + 7) // 8)
-            out.append(units[s].astype(">u2").tobytes()[:n_bytes])
-        return out
+        units = np.asarray(packed.units)
+        if units.dtype == np.int16:
+            units = units.view(np.uint16)
+        units = np.ascontiguousarray(units, np.uint16)
+        bits = np.asarray(packed.bit_lengths, np.int64)
+        n_planes, n_stripes = math.prod(bits.shape[:-1]), bits.shape[-1]
+        units = units.reshape(-1, units.shape[-1])
+        bits = bits.reshape(-1)
+        if native.available():
+            payload, offsets, rc = native.pack_payload(units, bits)
+            if rc:
+                raise ValueError(_LENGTH_OUT_OF_RANGE)
+            PAYLOAD_PACKS["native"] += n_planes
+        else:
+            payload, offsets = _pack_payload_python(units, bits)
+            PAYLOAD_PACKS["python"] += n_planes
+        return [cont.StripePayload(
+            payload, offsets[i * n_stripes:(i + 1) * n_stripes + 1])
+            for i in range(n_planes)]
+
+
+def stripes_to_bytes(packed: PackedStripes) -> cont.StripePayload:
+    """One plane's unit buffers ((S, U) units, (S,) bits) -> its stripes'
+    bytes (big-endian 16-bit units, truncated to each stripe's byte
+    length), as a StripePayload."""
+    return plane_payloads(packed)[0]
 
 
 class BitReader:

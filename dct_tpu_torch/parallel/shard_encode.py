@@ -218,30 +218,18 @@ def _dynamic_tables_sharded(symbols, cfg: CodecConfig, mesh, nb_real: int):
 
 def _plane_data(w: int, h: int, table, run_table, bits: np.ndarray,
                 units: np.ndarray, var_codes, block_bits, n_stripes: int,
-                nb_real: int) -> cont.PlaneData:
-    """One frame's gathered outputs over the mesh-padded stripes -> its
-    PlaneData. Mesh-pad stripes exist only so the stripe count divides the
-    stripe axis: their variance codes, block bits and stripes are cut
-    here, or the bytes would depend on the mesh."""
-    bits = bits[:n_stripes]
-    return cont.PlaneData(
-        width=w,
-        height=h,
-        table_lengths=table.lengths if table is not None else None,
-        vmin=_codec.DIRECT_VMIN,
-        variance_codes=(var_codes[:nb_real] if var_codes is not None
-                        else None),
-        stripe_bits=bits.astype(np.uint32),
-        stripes=bs.stripes_to_bytes(bs.PackedStripes(units[:n_stripes],
-                                                     bits)),
-        run_table_lengths=(
-            run_table.lengths if run_table is not None else None
-        ),
-        block_bits=(
-            block_bits[:n_stripes].reshape(-1).astype(np.uint16)
-            if block_bits is not None else None
-        ),
-    )
+                nb_real: int) -> list[cont.PlaneData]:
+    """Gathered outputs over the mesh-padded stripes, of one frame ((S_p,)
+    bits, (S_p, U) units, (NB_p,) var codes, (S_p, bps) block bits) or of
+    frames (a leading frame axis on each) -> one PlaneData a frame. Mesh-pad
+    stripes exist only so the stripe count divides the stripe axis: their
+    variance codes, block bits and stripes are cut here, or the bytes would
+    depend on the mesh."""
+    return _codec.plane_data(
+        bs.PackedStripes(units[..., :n_stripes, :], bits[..., :n_stripes]),
+        w, h, table, run_table,
+        None if var_codes is None else var_codes[..., :nb_real],
+        None if block_bits is None else block_bits[..., :n_stripes, :])
 
 
 def _gather_outputs(packed: bs.PackedStripes, var_codes, block_bits, mesh,
@@ -253,7 +241,7 @@ def _gather_outputs(packed: bs.PackedStripes, var_codes, block_bits, mesh,
     bits = _host_full(packed.bit_lengths, mesh, frames)
     u_trim = bs.trim_units_count(bits, packed.units.shape[-1])
     # int32 units (gloo and NCCL have no int16): kernels B and E give an
-    # int16 view, whose low 16 bits stripes_to_bytes keeps
+    # int16 view, whose low 16 bits the payload pass keeps
     units = _host_full(packed.units[..., :u_trim].to(torch.int32), mesh,
                        frames)
     var = None if var_codes is None else _host_full(var_codes, mesh, frames)
@@ -314,7 +302,7 @@ def encode_plane_sharded(plane, cfg: CodecConfig, mesh,
     bits, units, var, bb = _gather_outputs(packed, var_codes, block_bits,
                                            mesh, frames=False)
     return _plane_data(w, h, table, run_table, bits, units, var, bb,
-                       n_stripes, bh_real * bw)
+                       n_stripes, bh_real * bw)[0]
 
 
 def encode_image_sharded(image: np.ndarray, cfg: CodecConfig, mesh) -> bytes:
@@ -698,11 +686,11 @@ def encode_video_plane_batch_sharded(
                 fr, cfg, n_stripes_p, mesh, chroma, plan.ops)
         bits, units, var, bb = _gather_outputs(packed, var_codes, block_bits,
                                                mesh, frames=True)
-        out += [_plane_data(w, h, plan.table, plan.run_table, bits[i],
-                            units[i], None if var is None else var[i],
-                            None if bb is None else bb[i], n_stripes,
-                            bh_real * bw)
-                for i in range(f_real)]
+        out += _plane_data(w, h, plan.table, plan.run_table, bits[:f_real],
+                           units[:f_real],
+                           None if var is None else var[:f_real],
+                           None if bb is None else bb[:f_real], n_stripes,
+                           bh_real * bw)
     return out
 
 

@@ -376,9 +376,9 @@ def indexed_stream(zz: torch.Tensor, cfg: CodecConfig, n_stripes: int):
     """Pack (NB, n2) zigzag coefficients into an indexed stream with the
     plain staged packer (codec.encode_pack_plain), in cfg's mode
     (category, direct or none, fixed or coded runs), with canonical tables
-    built from the coefficients' histograms: -> (stripe bytes, (NB,)
-    uint16 block bits, table, run_table). A stream from plain code only,
-    for holding kernel D to it."""
+    built from the coefficients' histograms: -> (stripe bytes (a list,
+    which callers may damage), (NB,) uint16 block bits, table, run_table).
+    A stream from plain code only, for holding kernel D to it."""
     sym = rle.rle_encode_positional(zz)
     mode = cfg.huffman_mode if cfg.use_huffman else "none"
     table = None
@@ -393,7 +393,7 @@ def indexed_stream(zz: torch.Tensor, cfg: CodecConfig, n_stripes: int):
         cfg, hf.run_histogram_masked(sym.runs, sym.is_sym).cpu().numpy())
     ops = dct_tables.build(cfg, device=zz.device).with_tables(table, run_table)
     packed, block_bits = codec.encode_pack_plain(sym, cfg, n_stripes, ops)
-    stripes = bs.stripes_to_bytes(bs.fetch_packed(packed))
+    stripes = list(bs.stripes_to_bytes(bs.fetch_packed(packed)))
     return (stripes, block_bits.cpu().numpy().reshape(-1).astype(np.uint16),
             table, run_table)
 

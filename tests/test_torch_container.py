@@ -1,12 +1,16 @@
 """The port's copy of the container format (dct_tpu_torch.container) and
 of the image helpers (dct_tpu_torch.utils.image_io) against the JAX
 package's: the same bytes from the same fields, the same fields from the
-same bytes, the same refusals of damaged input, the same arrays."""
+same bytes, the same refusals of damaged input, the same arrays; and the
+encoder's StripePayload read as the list of stripes it stands for."""
 
+import copy
 import dataclasses
+import pickle
 
 import numpy as np
 import pytest
+import torch
 
 from dct_tpu import container as ref_cont
 from dct_tpu.config import CodecConfig as RefConfig
@@ -15,6 +19,7 @@ from dct_tpu.utils import image_io as ref_image_io
 from dct_tpu_torch import CodecConfig
 from dct_tpu_torch import container as cont
 from dct_tpu_torch import native
+from dct_tpu_torch.models import codec, recovery
 from dct_tpu_torch.models.color import ColorImageCodec
 from dct_tpu_torch.utils import image_io, tracing
 
@@ -245,6 +250,55 @@ def test_tampered_index_is_rejected(fault, index_path):
     p.block_bits[0] += 8
     with pytest.raises(ValueError, match="stripe sums"):
         cont.serialize(dataclasses.replace(c, planes=[p]))
+
+
+def test_stripe_payload_reads_as_its_list_of_stripes():
+    """A StripePayload over part of a buffer reads as the list of stripes
+    it stands for: len, indexing from either end, slices (lists),
+    iteration, list(), == and != either way, copies; it is read-only."""
+    stripes = [b"", b"\x01", b"\x02\x03\x04", b"", b"\xff" * 9]
+    buf = np.frombuffer(b"head" + b"".join(stripes) + b"tail", np.uint8)
+    v = cont.StripePayload(buf, 4 + np.cumsum([0] + [len(s) for s in stripes]))
+    assert len(v) == 5 and v[2] == stripes[2] and v[-1] == stripes[-1]
+    assert v[-5] == stripes[0] and v[np.int64(1)] == stripes[1]
+    assert v[1:4] == stripes[1:4] and isinstance(v[1:4], list)
+    assert v[::-2] == stripes[::-2] and v[7:] == []
+    assert list(v) == stripes and [s for s in v] == stripes
+    assert v == stripes and stripes == v and not v != stripes
+    assert v != stripes[:-1] and v != stripes[:-1] + [b"\xfe" * 9]
+    assert v == tuple(stripes) and v != "not stripes"
+    assert v.payload.tobytes() == b"".join(stripes)
+    for k in (5, -6):
+        with pytest.raises(IndexError):
+            v[k]
+    with pytest.raises(TypeError):
+        v[0] = b"x"
+    with pytest.raises(ValueError):
+        v.payload[0] = 1
+    assert copy.deepcopy(v) == pickle.loads(pickle.dumps(v)) == stripes
+
+
+def test_plane_data_with_a_stripe_payload_serves_every_reader():
+    """encode_plane's PlaneData carries a StripePayload; serialize writes
+    it as it writes the same stripes in a list; dataclasses.replace,
+    recovery's repair of a plane and rate control's empty-stripe skeleton
+    work on it unchanged."""
+    cfg = CodecConfig(quality=60, decode_index=True)
+    im = image_io.synthetic_image(37, 70, "photo", seed=4)
+    p = codec.encode_plane(im, cfg, "cpu")
+    assert isinstance(p.stripes, cont.StripePayload) and len(p.stripes) == 5
+
+    def wire(plane):
+        return cont.serialize(cont.Container(cfg, 70, 37, [plane]))
+
+    data = wire(p)
+    assert data == wire(dataclasses.replace(p, stripes=list(p.stripes)))
+    assert cont.deserialize(data).planes[0].stripes == p.stripes
+    fixed = recovery._repair_plane(p, cfg, torch.from_numpy(im), [1, 3],
+                                   False)
+    assert isinstance(fixed.stripes, list) and wire(fixed) == data
+    skeleton = dataclasses.replace(p, stripes=[b""] * len(p.stripes))
+    assert wire(skeleton) + p.stripes.payload.tobytes() == data
 
 
 def test_stream_files_match():

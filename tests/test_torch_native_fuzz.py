@@ -22,6 +22,15 @@ set, random bytes, bytes cut short, and hostile widths and counts: the
 same status, and the same entries wherever both write them. The same
 cases run through tests/index_fuzz_harness.cpp under the same sanitizers,
 with every buffer at exactly the size it is declared.
+
+The encoder's payload pass (``native.pack_payload``, through
+``bitstream.plane_payloads``) and its Python version write the per-stripe
+formula's bytes (big-endian units cut to ceil(bits / 8) bytes) on uint16,
+int16 and int32 units, single planes and chunks, zero-bit and full
+stripes; both refuse bit lengths out of range. The same cases, bit
+lengths out of range and buffers one byte short, run through
+tests/payload_fuzz_harness.cpp under the same sanitizers: no write past
+a buffer, nothing written where the pass refuses.
 """
 
 import pathlib
@@ -31,6 +40,7 @@ import subprocess
 
 import numpy as np
 import pytest
+import torch
 
 from dct_tpu import native as ref_native
 from dct_tpu.config import CodecConfig as RefConfig
@@ -38,6 +48,7 @@ from dct_tpu.models import codec as ref_codec
 from dct_tpu_torch import container as cont
 from dct_tpu_torch import native
 from dct_tpu_torch.models import codec
+from dct_tpu_torch.ops import bitstream as bs
 from dct_tpu_torch.ops import huffman as hf
 from dct_tpu_torch.utils import image_io
 
@@ -379,3 +390,166 @@ def test_index_unpack_under_sanitizers(tmp_path):
         if rc <= 2:
             want += f" sum={int(out.astype(np.int64).sum())}"
         assert line == want, (k, line, want)
+
+
+# ---------------------------------------------------------------------------
+# The encoder's payload pass (dctbits_pack_payload)
+# ---------------------------------------------------------------------------
+
+def test_abi_handshake_binds_version_4_only(monkeypatch):
+    """The library reports ABI 4 (the payload pass); one of version 3,
+    built before it, does not bind, and the port falls back to Python."""
+    assert native._ABI_VERSION == 4
+    assert native._load().dctbits_abi_version() == 4
+
+    class _Version:
+        restype = None
+
+        def __init__(self, v):
+            self.v = v
+
+        def __call__(self):
+            return self.v
+
+    class _Library:
+        def __init__(self, v):
+            self.dctbits_abi_version = _Version(v)
+
+    with pytest.raises(OSError, match="ABI 3 != expected 4"):
+        native._bind(_Library(3))
+    monkeypatch.setattr(native, "_lib", None)
+    monkeypatch.setattr(native, "_build_failed", False)
+    monkeypatch.setattr(native.ctypes, "CDLL", lambda *a, **k: _Library(3))
+    assert not native.available()
+    monkeypatch.undo()
+    assert native.available()
+
+
+def _formula(units, bits) -> list[list[bytes]]:
+    """Each plane's stripes by the per-stripe formula the pass replaced:
+    big-endian 16-bit units cut to ceil(bits / 8) bytes."""
+    bits = np.asarray(bits)
+    units = np.asarray(units).astype(np.uint16).reshape(
+        -1, bits.shape[-1], np.shape(units)[-1])
+    return [[u.astype(">u2").tobytes()[:(int(b) + 7) // 8]
+             for u, b in zip(us, bb)]
+            for us, bb in zip(units, bits.reshape(-1, bits.shape[-1]))]
+
+
+def _unit_cases() -> list[tuple]:
+    """(name, units, bits) of planes ((S, U), (S,)) and chunks ((F, S, U),
+    (F, S)): odd byte counts, zero-bit stripes and stripes at exactly
+    16 * U bits; int16 units with the high bit set; the plain packer's
+    int32 units."""
+    rng = np.random.default_rng(22)
+    cases = []
+    for lead, s, u in (((), 1, 1), ((), 1, 5), ((), 7, 3), ((3,), 5, 16),
+                       ((3,), 9, 64)):
+        bits = rng.integers(0, 16 * u + 1, lead + (s,))
+        flat = bits.reshape(-1)
+        flat[-1] = 0
+        flat[0] = 16 * u
+        # odd byte counts
+        flat[1::3] = np.minimum(flat[1::3] // 16 * 16 + 1, 16 * u - 15)
+        units = rng.integers(0, 1 << 16, lead + (s, u)).astype(np.uint16)
+        cases.append((f"uint16{lead}x{s}x{u}", units, bits))
+        cases.append((f"int16{lead}x{s}x{u}",
+                      units.view(np.int16), bits.astype(np.int32)))
+    cv = torch.from_numpy(rng.integers(0, 1 << 16, (6, 40, 3))).int()
+    cl = torch.from_numpy(rng.integers(0, 17, (6, 40, 3))).int()
+    packed = bs.pack_chunks(cv, cl, 128)
+    assert packed.units.dtype == torch.int32
+    cases.append(("int32_plain_packer", packed.units.reshape(3, 2, -1),
+                  packed.bit_lengths.reshape(3, 2)))
+    return cases
+
+
+@pytest.mark.parametrize("path", ("native", "python"))
+def test_payload_pass_equals_the_per_stripe_formula(path, monkeypatch):
+    """bs.plane_payloads, by the native pass and by its Python version,
+    writes every plane's stripes as the per-stripe formula does, byte for
+    byte, and counts one plane each under the path that ran."""
+    if path == "python":
+        monkeypatch.setattr(native, "available", lambda: False)
+    other = "python" if path == "native" else "native"
+    for name, units, bits in _unit_cases():
+        want = _formula(units, bits)
+        before = dict(bs.PAYLOAD_PACKS)
+        got = bs.plane_payloads(bs.PackedStripes(units, bits))
+        assert [list(p) for p in got] == want, name
+        assert bs.PAYLOAD_PACKS[path] - before[path] == len(want), name
+        assert bs.PAYLOAD_PACKS[other] == before[other], name
+        if np.ndim(bits) == 1:
+            assert bs.stripes_to_bytes(bs.PackedStripes(units, bits)) == (
+                want[0]), name
+
+
+@pytest.mark.parametrize("path", ("native", "python"))
+def test_payload_pass_refuses_lengths_out_of_range(path, monkeypatch):
+    if path == "python":
+        monkeypatch.setattr(native, "available", lambda: False)
+    units = np.zeros((2, 4), np.uint16)
+    for bits in ([-1, 8], [8, 16 * 4 + 1]):
+        with pytest.raises(ValueError, match="outside"):
+            bs.plane_payloads(bs.PackedStripes(units, np.array(bits)))
+
+
+def test_payload_pass_under_sanitizers(tmp_path):
+    """The cases above and hostile counts through
+    tests/payload_fuzz_harness.cpp under ASan and UBSan, every buffer at
+    exactly its declared size: no report, the formula's bytes and offsets
+    where the call succeeds, nothing written where it refuses."""
+    cxx = shutil.which("g++")
+    if cxx is None:
+        pytest.skip("no g++")
+    exe = tmp_path / "payload_fuzz_asan"
+    r = subprocess.run(
+        [cxx, "-O1", "-g", "-std=c++17", "-pthread",
+         "-fsanitize=address,undefined", "-fno-sanitize-recover=all",
+         "-fno-omit-frame-pointer", "-Wall", "-o", str(exe),
+         str(REPO / "tests" / "payload_fuzz_harness.cpp"),
+         str(REPO / "dct_tpu_torch" / "csrc" / "host" / "bitpack.cpp")],
+        capture_output=True, text=True, timeout=300)
+    if r.returncode != 0 and "sanitize" in r.stderr:
+        pytest.skip(f"the sanitizer runtime is missing: {r.stderr[-300:]}")
+    assert r.returncode == 0, r.stderr[-3000:]
+    cases = []  # (n, U, out_cap, bits, units, expected line)
+    for _, units, bits in _unit_cases():
+        units = np.asarray(units).astype(np.uint16)
+        units = units.reshape(-1, units.shape[-1])
+        bits = np.asarray(bits, np.int64).reshape(-1)
+        want = b"".join(s for p in _formula(units, bits) for s in p)
+        offs = np.concatenate([[0], np.cumsum((bits + 7) // 8)])
+        ok = (f"rc=0 out={want.hex()} offsets="
+              + ",".join(str(int(o)) for o in offs))
+        cases.append((bits.size, units.shape[1], len(want), bits, units, ok))
+        if want:
+            cases.append((bits.size, units.shape[1], len(want) - 1, bits,
+                          units, "rc=2 untouched"))
+        for k, v in ((0, -1), (-1, 16 * units.shape[1] + 1)):
+            bad = bits.copy()
+            bad[k] = v
+            cases.append((bits.size, units.shape[1], len(want), bad, units,
+                          "rc=1 untouched"))
+    none = np.zeros(0, np.int64)
+    for n, u in ((-1, 4), (0, -1), (0, 2**62), (2**40, 2**62)):
+        cases.append((n, u, 0, none, np.zeros((0, 0), np.uint16),
+                      "rc=3 untouched"))
+    cases.append((0, 4, 0, none, np.zeros((0, 4), np.uint16),
+                  "rc=0 out= offsets=0"))
+    path = tmp_path / "cases.bin"
+    with open(path, "wb") as f:
+        for n, u, cap, bits, units, _ in cases:
+            f.write(struct.pack("<qqQQQ", n, u, cap, np.size(bits),
+                                np.size(units)))
+            f.write(np.asarray(bits, "<i8").tobytes()
+                    + np.asarray(units, "<u2").tobytes())
+    r = subprocess.run([str(exe), str(path)], capture_output=True, text=True,
+                       timeout=120, env={"ASAN_OPTIONS": "detect_leaks=0",
+                                         "UBSAN_OPTIONS": "print_stacktrace=1"})
+    assert r.returncode == 0 and "runtime error" not in r.stderr, (
+        r.stderr[-3000:])
+    lines = r.stdout.splitlines()
+    assert len(lines) == len(cases)
+    for k, (case, line) in enumerate(zip(cases, lines)):
+        assert line == case[-1], (k, line, case[-1])

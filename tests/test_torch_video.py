@@ -1,7 +1,8 @@
 """The port's gray VideoCodec against the JAX VideoCodec on the CPU:
 byte-identical streams for every chunking, decoded stacks within decode
 ties on the indexed (v2) and host (v1) routes and for mixed batches, and
-the routing of the encode paths.
+the routing of the encode paths; the same containers from every way of
+writing the payload.
 
 Decoded pixels: equal, except at most 1 apart where the float64 value
 lies within 1e-3 of a .5 boundary (the two decode products sum in
@@ -19,11 +20,12 @@ from dct_tpu.config import CodecConfig as RefConfig
 from dct_tpu.models import codec as ref_codec
 from dct_tpu.models.video import VideoCodec as RefVideoCodec
 from dct_tpu.utils import image_io
-from dct_tpu_torch import CodecConfig, testing
+from dct_tpu_torch import CodecConfig, native, testing
 from dct_tpu_torch import container as cont
 from dct_tpu_torch.models import codec
 from dct_tpu_torch.models.video import VideoCodec
 from dct_tpu_torch.ops import _build
+from dct_tpu_torch.ops import bitstream as bs
 
 CASES = {
     "dynamic_q50": dict(quality=50),
@@ -173,6 +175,48 @@ def test_rgb_stacks_round_trip(frames):
     got = VideoCodec(device="cpu").decode(color)
     want = RefVideoCodec(RefConfig(quality=60, chroma="444")).decode(color)
     assert int(np.abs(got.astype(int) - want).max()) <= 1
+
+
+def _formula_payloads(packed):
+    """Each plane's stripes as a list, by the per-stripe formula the
+    payload pass replaced; serialize then takes a list's route."""
+    bits = np.asarray(packed.bit_lengths)
+    units = np.asarray(packed.units).astype(np.uint16).reshape(
+        -1, bits.shape[-1], np.shape(packed.units)[-1])
+    return [[u.astype(">u2").tobytes()[:(int(b) + 7) // 8]
+             for u, b in zip(us, bb)]
+            for us, bb in zip(units, bits.reshape(-1, bits.shape[-1]))]
+
+
+@pytest.mark.parametrize("case", ("static_q50", "dynamic_q50"))
+def test_payload_routes_write_the_same_containers(frames, case, monkeypatch):
+    """The stack's containers are the same bytes whichever way the payload
+    is written: the native pass over the chunk, its Python version (the
+    host library patched away), the per-stripe formula in lists, and the
+    JAX package's. PAYLOAD_PACKS counts one plane a frame, an RGB frame
+    three, under the path that ran."""
+    if not native.available():
+        pytest.skip("the host library did not build")
+    vc = VideoCodec(CodecConfig(**CASES[case]), device="cpu")
+    runs = {}
+    for path in ("native", "python", "formula"):
+        with monkeypatch.context() as m:
+            if path == "python":
+                m.setattr(native, "available", lambda: False)
+            elif path == "formula":
+                m.setattr(bs, "plane_payloads", _formula_payloads)
+            before = dict(bs.PAYLOAD_PACKS)
+            runs[path] = vc.encode(frames)
+            moved = {k: bs.PAYLOAD_PACKS[k] - before[k] for k in before}
+        assert moved == {"native": len(frames) * (path == "native"),
+                         "python": len(frames) * (path == "python")}
+    assert (runs["native"] == runs["python"] == runs["formula"]
+            == list(_ref_streams(case)))
+    before = bs.PAYLOAD_PACKS["native"]
+    rgb = np.stack([frames[:2]] * 3, -1)
+    VideoCodec(CodecConfig(**CASES[case], chroma="444"),
+               device="cpu").encode(rgb)
+    assert bs.PAYLOAD_PACKS["native"] - before == 2 * 3
 
 
 def test_entry_points_without_a_card_raise(frames, monkeypatch):
