@@ -800,13 +800,14 @@ def color_stages(dev, rgb, data, vrgb, cfg) -> None:
 
     batches = video.rgb_planes(vrgb, "420", None, dev)
     h, w = vrgb.shape[1:3]
-    per_plane = [video._encode_plane_batch(b, cfg, None, dev, chroma=i > 0)
+    place = codec.Placement(dev)
+    per_plane = [video._encode_plane_batch(b, cfg, None, place, chroma=i > 0)
                  for i, b in enumerate(batches)]
     v_stages = {"RGB -> planes (upload, convert, download)": host_ms(
         lambda: video.rgb_planes(vrgb, "420", None, dev), 3)}
     for name, (i, b) in zip(("Y", "Cb", "Cr"), enumerate(batches)):
         v_stages[f"plane stack {name}"] = host_ms(
-            lambda: video._encode_plane_batch(b, cfg, None, dev,
+            lambda: video._encode_plane_batch(b, cfg, None, place,
                                               chroma=i > 0), 3)
     v_stages["serialize"] = host_ms(lambda: [cont.serialize(cont.Container(
         config=cfg, width=w, height=h, planes=list(p)))
@@ -959,8 +960,9 @@ def phase_rate_control(dev, frame, vframes, main_runs) -> None:
 
 def sharded_plane_stages(mesh, plane, cfg, dev) -> dict:
     """Milliseconds of each stage of a sharded dynamic-table plane encode
-    (shard_encode.encode_plane_sharded; host clock, synchronised), beside
-    the whole call and the unsharded codec.encode_plane."""
+    (codec.encode_plane over a shard_encode.MeshPlacement; host clock,
+    synchronised), beside the whole call and the unsharded
+    codec.encode_plane."""
     import torch
     from dct_tpu_torch import tables
     from dct_tpu_torch.models import codec
@@ -974,36 +976,37 @@ def sharded_plane_stages(mesh, plane, cfg, dev) -> dict:
         return run
 
     h, w = plane.shape
-    bh, bw, n_stripes, n_p, bh_real = se._mesh_stripe_grid(h, w, cfg, mesh)
-    band = synced(lambda: se._sharded_padded_plane(plane, cfg, mesh, bh, bw))
+    place = se.MeshPlacement(mesh)
+    grid = place.grid(h, w, cfg)
+    band = synced(lambda: place.upload(plane, grid))
     img = band()
     ops = tables.build(cfg, device=dev)
     analyze = synced(lambda: codec.encode_analyze(img, cfg, ops))
-    sym = analyze()[0]
+    sym, _, hist, run_hist = analyze()
 
     def build_tables():
-        return se._dynamic_tables_sharded(sym, cfg, mesh, bh_real * bw)
+        return codec.build_tables(cfg, ops, *place.histograms(
+            sym, hist, run_hist, cfg, grid))
 
-    table, run_table = build_tables()
-    ops_t = ops.with_tables(table, run_table)
-    fused = synced(lambda: codec.encode_fused_step(img, cfg, n_p, ops_t))
+    table, run_table, ops_t = build_tables()
+    fused = synced(lambda: codec.encode_fused_step(img, cfg, grid.n_loc,
+                                                   ops_t))
     packed, var, bb = fused()
 
     def gather():
-        return se._gather_outputs(packed, var, bb, mesh, frames=False)
+        return place.outputs(packed, var, bb, grid)
 
-    bits, units, var_h, bb_h = gather()
+    packed_h, var_h, bb_h = gather()
     return {
         "band upload + pad": host_ms(band, 10),
         "analyze (A, RLE)": host_ms(analyze, 10),
         "masked histograms + all-reduce + tables": host_ms(build_tables, 10),
         "B": host_ms(fused, 10),
         "gathers (bits, units, block bits) to the host": host_ms(gather, 10),
-        "PlaneData (stripe bytes)": host_ms(lambda: se._plane_data(
-            w, h, table, run_table, bits, units, var_h, bb_h, n_stripes,
-            bh_real * bw), 10),
-        "encode_plane_sharded": host_ms(
-            lambda: se.encode_plane_sharded(plane, cfg, mesh), 10),
+        "PlaneData (stripe bytes)": host_ms(lambda: codec.plane_data(
+            packed_h, w, h, table, run_table, var_h, bb_h), 10),
+        "encode_plane over the mesh": host_ms(
+            lambda: codec.encode_plane(plane, cfg, placement=place), 10),
         "encode_plane (unsharded)": host_ms(
             lambda: codec.encode_plane(plane, cfg, dev), 10),
     }

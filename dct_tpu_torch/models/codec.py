@@ -25,8 +25,10 @@ decode through the plain float32 product on the card
 
 The entry points run on the card: with no ``device`` they take ``cuda``,
 and raise where there is none; ``device="cpu"`` runs the plain versions.
-The tensors handed to the step functions decide where the work runs. The
-video codec batching these functions over frame stacks is
+The tensors handed to the step functions decide where the work runs. A
+plan (encode_plane here) asks a Placement where its data lives: one
+device, or the ranks of a mesh (parallel/shard_encode.py), with the same
+bytes. The video codec batching these functions over frame stacks is
 models/video.py; color images (one plane each of Y, Cb and Cr, the chroma
 planes against the chrominance quant table) are models/color.py.
 """
@@ -34,6 +36,7 @@ planes against the chrominance quant table) are models/color.py.
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -441,42 +444,137 @@ def plane_data(packed: bs.PackedStripes, w: int, h: int, table, run_table,
     ) for i in range(n)]
 
 
+class Grid(NamedTuple):
+    """A plane's stripe grid under a placement: its real stripes, the
+    stripes of each rank (the real ones rounded up to divide the stripe
+    axis; the rest are mesh-pad stripes of edge rows), the blocks of a
+    stripe, and the (rows, columns) of the whole padded plane."""
+    n_stripes: int
+    n_loc: int
+    bps: int
+    ph: int
+    pw: int
+
+
+class Placement:
+    """Where a plan's data lives: this class is one device, holding every
+    frame and stripe of a plane or chunk (parallel/shard_encode.py's
+    MeshPlacement spreads them over a mesh's ranks). The plans
+    (encode_plane, video._encode_plane_batch, the rate-control probes)
+    ask it only for the grid, the chunks of frames, a rank's upload, the
+    histograms summed to the host and the way of the outputs back to the
+    host. ``f_real`` is None for a plane, else the real frames of a chunk
+    of a stack."""
+
+    shape = (1, 1)  # (n_data, n_stripe)
+
+    def __init__(self, device):
+        self.device = torch.device(device)
+
+    def grid(self, h: int, w: int, cfg: CodecConfig) -> Grid:
+        _, bw, n_stripes = _padded_grid(h, w, cfg)
+        n_stripe = self.shape[1]
+        n_loc = -(-n_stripes // n_stripe)
+        n = cfg.block_size
+        return Grid(n_stripes, n_loc, cfg.stripe_rows * bw,
+                    n_loc * n_stripe * cfg.stripe_rows * n, bw * n)
+
+    def chunks(self, f: int, chunk: int):
+        """(frames a chunk, [(first frame, real frames, frames padded to
+        the data axis)] of each chunk of an f-frame stack): pad frames
+        repeat the last frame, count in no histogram and are dropped."""
+        n_data = self.shape[0]
+        chunk = -(-chunk // n_data) * n_data
+        return chunk, [(i0, min(chunk, f - i0),
+                        -(-min(chunk, f - i0) // n_data) * n_data)
+                       for i0 in range(0, f, chunk)]
+
+    def upload(self, a, grid: Grid, f_pad: int | None = None):
+        """A plane (host array or tensor) or, with f_pad, a chunk of a
+        host stack -> this rank's part on its device, edge-padded to the
+        grid."""
+        if f_pad is None:
+            x = to_device_u8(a, self.device)
+        else:
+            a = np.ascontiguousarray(a, np.uint8)
+            tracing.add("h2d_bytes", a.nbytes)
+            x = torch.from_numpy(a).to(self.device)
+        return blk.pad_edge(x, grid.ph, grid.pw)
+
+    def histograms(self, symbols, hist, run_hist, cfg: CodecConfig,
+                   grid: Grid, f_real: int | None = None):
+        """encode_analyze's histograms of the plane or chunk as host
+        arrays (a placement may give None where no table of that kind is
+        built)."""
+        return read_histograms(hist, run_hist)
+
+    def host(self, x: torch.Tensor, n_real: int,
+             f_real: int | None = None) -> np.ndarray:
+        """A per-stripe (or per-block) tensor, with a leading frame axis
+        for a chunk -> the host array of the real frames and the first
+        n_real stripes (blocks)."""
+        return x.cpu().numpy()
+
+    def outputs(self, packed: bs.PackedStripes, var_codes, block_bits,
+                grid: Grid, f_real: int | None = None):
+        """An encode's outputs -> host (PackedStripes, variance codes or
+        None, block bits or None) of the real frames and stripes."""
+        return (bs.fetch_packed(packed),  # trim worst-case slack before D2H
+                None if var_codes is None else var_codes.cpu().numpy(),
+                (read_back(block_bits, "codec.index_readback")
+                 if block_bits is not None else None))
+
+    def row0(self, grid: Grid) -> int:
+        """The first row of this rank's band."""
+        return 0
+
+    def total(self, x: torch.Tensor) -> int:
+        """An integer tensor of one element summed over the ranks."""
+        return int(x.item())
+
+    def rows(self, band: torch.Tensor) -> torch.Tensor:
+        """Every rank's band -> the whole padded plane on the device."""
+        return band
+
+
 def encode_plane(
     plane, cfg: CodecConfig,
     device: str | torch.device | None = None,
     chroma: bool = False,
+    placement: Placement | None = None,
 ) -> cont.PlaneData:
     """Encode one (H, W) u8 plane (host array or tensor) to PlaneData
-    (device compute + host assembly). chroma: a Cb or Cr plane, encoded
-    against the chrominance quant table."""
-    device = torch.device(device) if device is not None else _default_device()
+    (device compute + host assembly), on ``device`` or over
+    ``placement``. chroma: a Cb or Cr plane, encoded against the
+    chrominance quant table."""
+    place = placement or Placement(
+        device if device is not None else _default_device())
     h, w = int(plane.shape[0]), int(plane.shape[1])
-    _, _, n_stripes = _padded_grid(h, w, cfg)
-    img = pad_plane_for_encode(to_device_u8(plane, device), cfg)
+    grid = place.grid(h, w, cfg)
+    img = place.upload(plane, grid)
 
     if cfg.static_tables:
         table = _build_table(cfg, None)
         run_table = _build_run_table(cfg, None)
-        packed, var_codes, block_bits = encode_step(img, cfg, n_stripes,
+        packed, var_codes, block_bits = encode_step(img, cfg, grid.n_loc,
                                                     chroma)
     else:
-        ops = tables.build(cfg, chroma=chroma, device=device)
+        ops = tables.build(cfg, chroma=chroma, device=img.device)
         symbols, var_codes, hist, run_hist = encode_analyze(img, cfg, ops)
         table, run_table, ops = build_tables(
-            cfg, ops, *read_histograms(hist, run_hist))
-        if device.type == "cuda" and fused_kernel_ok(cfg):
+            cfg, ops, *place.histograms(symbols, hist, run_hist, cfg, grid))
+        if img.device.type == "cuda" and fused_kernel_ok(cfg):
             # the fused kernel re-runs the transform with the real tables
             packed, var_codes, block_bits = encode_fused_step(
-                img, cfg, n_stripes, ops
+                img, cfg, grid.n_loc, ops
             )
         else:
-            packed, block_bits = pack_frames(symbols, cfg, (), n_stripes, ops)
-    packed = bs.fetch_packed(packed)  # trim worst-case slack before D2H
-    return plane_data(
-        packed, w, h, table, run_table,
-        var_codes.cpu().numpy() if cfg.adaptive else None,
-        (read_back(block_bits, "codec.index_readback")
-         if block_bits is not None else None))[0]
+            packed, block_bits = pack_frames(symbols, cfg, (), grid.n_loc,
+                                             ops)
+    packed, var_codes, block_bits = place.outputs(packed, var_codes,
+                                                  block_bits, grid)
+    return plane_data(packed, w, h, table, run_table, var_codes,
+                      block_bits)[0]
 
 
 def host_decoder() -> str:
@@ -692,15 +790,10 @@ class ImageCodec:
     def encode(self, image: np.ndarray) -> bytes:
         if image.ndim != 2:
             raise ValueError(f"expected (H, W) grayscale, got {image.shape}")
+        from dct_tpu_torch.models.color import encode_image
+
         with tracing.named_scope("image.encode", frames=1):
-            plane = encode_plane(image, self.config, device=self.device)
-            c = cont.Container(
-                config=self.config,
-                width=int(image.shape[1]),
-                height=int(image.shape[0]),
-                planes=[plane],
-            )
-            return cont.serialize(c)
+            return encode_image(image, self.config, Placement(self.device))
 
     def decode(self, data: bytes) -> np.ndarray:
         return self.decode_to_device(data).cpu().numpy()

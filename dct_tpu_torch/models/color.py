@@ -115,6 +115,23 @@ def _to_planes(rgb: torch.Tensor, mode: str):
     return y, _to_u8(cb), _to_u8(cr)
 
 
+def encode_image(image: np.ndarray, cfg: CodecConfig,
+                 place: _codec.Placement) -> bytes:
+    """(H, W) gray or (H, W, 3) RGB u8 (under a color cfg.chroma) ->
+    container bytes: an RGB image converted to its Y, Cb and Cr planes on
+    the placement's device, each plane encoded by codec.encode_plane over
+    ``place``."""
+    planes = [image]
+    if image.ndim == 3:
+        with tracing.named_scope("color.to_planes"):
+            planes = _to_planes(_codec.to_device_u8(image, place.device),
+                                cfg.chroma)
+    return cont.serialize(cont.Container(
+        config=cfg, width=int(image.shape[1]), height=int(image.shape[0]),
+        planes=[_codec.encode_plane(p, cfg, chroma=i > 0, placement=place)
+                for i, p in enumerate(planes)]))
+
+
 class ColorImageCodec:
     """YCbCr three-plane codec on one device: chroma "444" or "420"."""
 
@@ -129,16 +146,9 @@ class ColorImageCodec:
     def encode(self, rgb: np.ndarray) -> bytes:
         if rgb.ndim != 3 or rgb.shape[-1] != 3:
             raise ValueError(f"expected (H, W, 3) RGB, got {rgb.shape}")
-        h, w = int(rgb.shape[0]), int(rgb.shape[1])
         with tracing.named_scope("color.encode", frames=1):
-            with tracing.named_scope("color.to_planes"):
-                planes = _to_planes(_codec.to_device_u8(rgb, self.device),
-                                    self.config.chroma)
-            return cont.serialize(cont.Container(
-                config=self.config, width=w, height=h,
-                planes=[_codec.encode_plane(p, self.config, self.device,
-                                            chroma=i > 0)
-                        for i, p in enumerate(planes)]))
+            return encode_image(rgb, self.config,
+                                _codec.Placement(self.device))
 
     def decode(self, data: bytes) -> np.ndarray:
         return self.decode_to_device(data).cpu().numpy()

@@ -1,9 +1,10 @@
 """Rate-distortion control: encode to a byte budget or a PSNR target by
 probing EXACT container sizes and distortions on the device (port of
-``dct_tpu.models.rate_control``). With ``mesh=`` (parallel/mesh.py) the
-probes, and the final encodes, run sharded over its ranks
-(parallel/shard_encode.py) and return the same integers, the same PSNR
-and the same bytes as without it, for every mesh shape.
+``dct_tpu.models.rate_control``). Every probe is one plan over a
+placement (codec.Placement): one device, or with ``mesh=``
+(parallel/mesh.py) its ranks (shard_encode.MeshPlacement, built at the
+entry), which gives the same integers, the same PSNR and the same bytes
+for every mesh shape.
 
 A size probe is the encode without the bit pack: the analyze pass
 (kernel A, DC prediction, positional RLE, histograms), the canonical
@@ -37,27 +38,23 @@ from dct_tpu_torch.config import CodecConfig
 from dct_tpu_torch.models import codec as _codec
 from dct_tpu_torch.models import color as _color
 from dct_tpu_torch.models import video as _video
-from dct_tpu_torch.parallel import mesh as meshlib
-from dct_tpu_torch.parallel import shard_encode as _se
+from dct_tpu_torch.ops import blocks as blk
 
 # Quality rungs for the encode_to_* ladders: dense where the size/quality
 # curve is steep (high quality), sparse where it is flat.
 DEFAULT_LADDER = (1, 5, 10, 15, 20, 30, 40, 50, 60, 70, 80, 85, 90, 95, 97, 100)
 
 
-def _device(device, mesh=None) -> torch.device:
-    """The entry point's device: the mesh's when it is given one."""
+def _placement(device, mesh) -> _codec.Placement:
+    """The entry point's placement: over the mesh's ranks when it is given
+    one (shard_encode.MeshPlacement; ``device``, when given, must name
+    the mesh's), else on ``device`` (None: the card)."""
     if mesh is not None:
-        return meshlib.entry_device(mesh, device)
-    return (torch.device(device) if device is not None
-            else _codec._default_device())
+        from dct_tpu_torch.parallel import shard_encode
 
-
-def _encode(image: np.ndarray, cfg: CodecConfig, device, mesh) -> bytes:
-    """The final encode of the encode_to_* fronts, sharded with a mesh."""
-    if mesh is not None:
-        return _se.encode_image_sharded(image, cfg, mesh)
-    return _codec.encode(image, cfg, device)
+        return shard_encode.MeshPlacement(mesh, device)
+    return _codec.Placement(device if device is not None
+                            else _codec._default_device())
 
 
 def _normalize_chroma(ndim: int, cfg: CodecConfig) -> CodecConfig:
@@ -158,34 +155,29 @@ def _probe_skeleton(
     )
 
 
-def _plane_size(plane: torch.Tensor, cfg: CodecConfig, chroma: bool,
-                mesh=None) -> tuple[np.ndarray, cont.PlaneData]:
+def _plane_size(plane, cfg: CodecConfig, chroma: bool,
+                place: _codec.Placement) -> tuple[np.ndarray, cont.PlaneData]:
     """(per-stripe bit counts, empty-stripe skeleton) of one (H, W) u8
-    plane tensor at cfg.quality, on its device: codec.encode_plane up to
-    (not including) the pack. With a mesh, the analyze pass and the
-    chunk-length sums run sharded, with the tables of
-    shard_encode.encode_plane_sharded: the same counts for every mesh."""
+    plane at cfg.quality over ``place``: codec.encode_plane up to (not
+    including) the pack, the same counts for every placement."""
     h, w = int(plane.shape[0]), int(plane.shape[1])
-    _, _, n_stripes = _codec._padded_grid(h, w, cfg)
-    if mesh is not None:
-        bits, bb, vc, table, run_table = _se.plane_probe_bits_sharded(
-            plane, cfg, mesh, chroma)
-        return bits, _probe_skeleton(w, h, cfg, n_stripes, table, run_table,
-                                     vc, bits, bb)
-    img = _codec.pad_plane_for_encode(plane, cfg)
+    grid = place.grid(h, w, cfg)
+    img = place.upload(plane, grid)
     ops = tables.build(cfg, chroma=chroma, device=img.device)
     symbols, var_codes, hist, run_hist = _codec.encode_analyze(img, cfg, ops)
     if cfg.static_tables:
         table, run_table = _plane_tables(cfg, None, None)
     else:
-        table, run_table = _plane_tables(cfg, hist.cpu().numpy(),
-                                         run_hist.cpu().numpy())
-    bits, bb = (t.cpu().numpy() for t in _chunk_bits(
-        symbols, cfg, 1, n_stripes, ops.with_tables(table, run_table)))
-    return bits[0], _probe_skeleton(
-        w, h, cfg, n_stripes, table, run_table,
-        var_codes.cpu().numpy() if cfg.adaptive else None, bits[0], bb[0],
-    )
+        table, run_table = _plane_tables(cfg, *place.histograms(
+            symbols, hist, run_hist, cfg, grid))
+    bits, bb = _chunk_bits(symbols, cfg, 1, grid.n_loc,
+                           ops.with_tables(table, run_table))
+    nb = grid.n_stripes * grid.bps
+    bits = place.host(bits[0], grid.n_stripes)
+    bb = place.host(bb[0], nb)
+    vc = place.host(var_codes, nb) if cfg.adaptive else None
+    return bits, _probe_skeleton(w, h, cfg, grid.n_stripes, table, run_table,
+                                 vc, bits, bb)
 
 
 def _image_plane_args(image: np.ndarray, cfg: CodecConfig,
@@ -202,12 +194,12 @@ def _image_plane_args(image: np.ndarray, cfg: CodecConfig,
 
 def _container_size_from_planes(
     plane_args: list[tuple[torch.Tensor, bool]], cfg: CodecConfig, w: int,
-    h: int, mesh=None,
+    h: int, place: _codec.Placement,
 ) -> int:
     payload = 0
     skeletons = []
     for plane, chroma in plane_args:
-        bits, skel = _plane_size(plane, cfg, chroma, mesh)
+        bits, skel = _plane_size(plane, cfg, chroma, place)
         payload += int(((bits.astype(np.int64) + 7) // 8).sum())
         skeletons.append(skel)
     header = len(cont.serialize(
@@ -224,9 +216,10 @@ def container_size(image: np.ndarray, cfg: CodecConfig,
     (RGB with chroma "gray" encodes at "420"). With a mesh the probe runs
     stripe-sharded and gives the same integer for every mesh shape."""
     cfg = _normalize_chroma(image.ndim, cfg)
+    place = _placement(device, mesh)
     return _container_size_from_planes(
-        _image_plane_args(image, cfg, _device(device, mesh)), cfg,
-        int(image.shape[1]), int(image.shape[0]), mesh)
+        _image_plane_args(image, cfg, place.device), cfg,
+        int(image.shape[1]), int(image.shape[0]), place)
 
 
 # ---------------------------------------------------------------------------
@@ -239,76 +232,39 @@ def _plane_batch_bits(
     cfg: CodecConfig,
     chroma: bool,
     chunk_frames: int | None,
-    device: torch.device,
-    mesh=None,
+    place: _codec.Placement,
 ):
     """((F, n_stripes) bits a stripe, (F, NB) bits a block, skeleton
     factory frame -> PlaneData) of an (F, h, w) plane stack at
-    cfg.quality: video._encode_plane_batch up to (not including) the pack,
-    with the stack's tables and chunks of frames. A stack of one chunk is
-    analyzed once; a longer one drops each chunk's symbols after its
-    histograms (keeping them would unbound the memory CHUNK_PIXEL_BUDGET
-    bounds) and analyzes again to count. Skeletons are per frame: the
-    packed decode index's width depends on each frame's block bits. With a
-    mesh the counts come from shard_encode.video_plane_batch_bits_sharded,
-    the same for every mesh."""
+    cfg.quality over ``place``: video._encode_plane_batch up to (not
+    including) the pack, with the stack's tables and chunks of frames
+    (video.stack_plan). A stack of one chunk is counted from its pass-1
+    symbols; a longer one is analyzed again, chunk by chunk, to count.
+    Skeletons are per frame: the packed decode index's width depends on
+    each frame's block bits."""
     f, h, w = (int(x) for x in planes.shape)
-    bh, bw, n_stripes = _codec._padded_grid(h, w, cfg)
-    if mesh is not None:
-        bits, bbs, table, run_table = _se.video_plane_batch_bits_sharded(
-            planes, cfg, mesh, chroma, chunk_frames)
-    else:
-        bits, bbs, table, run_table = _plane_batch_counts(
-            planes, cfg, chroma, chunk_frames, device, n_stripes)
+    plan = _video.stack_plan(planes, cfg, place, chroma, chunk_frames)
+    grid = plan.grid
+    nb = grid.n_stripes * grid.bps
+    bits, bbs = [], []
+    for i0, f_real, f_pad in plan.chunks:
+        symbols = (plan.once[0] if plan.once is not None
+                   else _codec.encode_analyze(_video.upload_chunk(
+                       plan, i0, f_pad), cfg, plan.ops)[0])
+        b, bb = _chunk_bits(symbols, cfg, f_pad // place.shape[0],
+                            grid.n_loc, plan.ops)
+        bits.append(place.host(b, grid.n_stripes, f_real))
+        bbs.append(place.host(bb, nb, f_real))
+    bits, bbs = np.concatenate(bits), np.concatenate(bbs)
 
     def skeleton(i: int) -> cont.PlaneData:
         return _probe_skeleton(
-            w, h, cfg, n_stripes, table, run_table,
-            np.zeros(bh * bw, np.uint8) if cfg.adaptive else None,
+            w, h, cfg, grid.n_stripes, plan.table, plan.run_table,
+            np.zeros(nb, np.uint8) if cfg.adaptive else None,
             bits[i], bbs[i],
         )
 
     return bits, bbs, skeleton
-
-
-def _plane_batch_counts(planes: np.ndarray, cfg: CodecConfig, chroma: bool,
-                        chunk_frames: int | None, device: torch.device,
-                        n_stripes: int):
-    """_plane_batch_bits on one device -> (bits, block bits, table,
-    run_table)."""
-    f, h, w = (int(x) for x in planes.shape)
-    chunk = _video.frames_per_chunk(f, h, w, chunk_frames)
-    ops = tables.build(cfg, chroma=chroma, device=device)
-
-    def analyze(i0: int):
-        img = _codec.pad_plane_for_encode(
-            _codec.to_device_u8(planes[i0:i0 + chunk], device), cfg)
-        return _codec.encode_analyze(img, cfg, ops)
-
-    symbols_once = None
-    if cfg.static_tables:
-        table, run_table = _plane_tables(cfg, None, None)
-    elif f <= chunk:
-        symbols_once, _, hist, run_hist = analyze(0)
-        table, run_table = _plane_tables(cfg, hist.cpu().numpy(),
-                                         run_hist.cpu().numpy())
-    else:
-        # summed in int64 on the host, as the encoder's pass 1 does
-        hist = run_hist = 0
-        for i0 in range(0, f, chunk):
-            _, _, h_, rh_ = analyze(i0)
-            hist = hist + h_.cpu().numpy().astype(np.int64)
-            run_hist = run_hist + rh_.cpu().numpy().astype(np.int64)
-        table, run_table = _plane_tables(cfg, hist, run_hist)
-    ops = ops.with_tables(table, run_table)
-
-    bits, bbs = [], []
-    for i0 in range(0, f, chunk):
-        sym = symbols_once if symbols_once is not None else analyze(i0)[0]
-        b, bb = _chunk_bits(sym, cfg, min(chunk, f - i0), n_stripes, ops)
-        bits.append(b.cpu().numpy())
-        bbs.append(bb.cpu().numpy())
-    return np.concatenate(bits), np.concatenate(bbs), table, run_table
 
 
 def _video_plane_batches(
@@ -337,15 +293,14 @@ def _video_sizes_from_batches(
     w: int,
     h: int,
     chunk_frames: int | None,
-    device: torch.device,
-    mesh=None,
+    place: _codec.Placement,
 ) -> np.ndarray:
     f = int(plane_batches[0][0].shape[0])
     per_frame = np.zeros(f, np.int64)
     skel_factories = []
     for batch, chroma in plane_batches:
         bits, _, skel = _plane_batch_bits(batch, cfg, chroma, chunk_frames,
-                                          device, mesh)
+                                          place)
         per_frame += ((bits.astype(np.int64) + 7) // 8).sum(axis=1)
         skel_factories.append(skel)
     # headers are per frame: the packed decode index's width (and the
@@ -371,11 +326,10 @@ def video_container_sizes(
     container_size wherever tables are dynamic. With a mesh the probe
     runs over its data and stripe axes and gives the same integers for
     every mesh shape."""
-    device = _device(device, mesh)
-    batches = _video_plane_batches(frames, cfg, chunk_frames, device)
+    place = _placement(device, mesh)
+    batches = _video_plane_batches(frames, cfg, chunk_frames, place.device)
     h, w = int(frames.shape[1]), int(frames.shape[2])
-    return _video_sizes_from_batches(batches, cfg, w, h, chunk_frames,
-                                     device, mesh)
+    return _video_sizes_from_batches(batches, cfg, w, h, chunk_frames, place)
 
 
 def encode_video_to_size(
@@ -393,13 +347,13 @@ def encode_video_to_size(
     encode_to_size; each frame's stream stays decodable on its own).
     Returns (streams, quality). With a mesh the probes and the encode run
     sharded; the quality and the bytes are the same for every mesh."""
-    device = _device(device, mesh)
+    place = _placement(device, mesh)
     base = config or CodecConfig()
     if frames.ndim == 4 and base.chroma == "gray":
         base = base.replace(chroma="420")
     ladder = _clean_ladder(qualities)
     # the RGB -> YCbCr split does not depend on the quality: once
-    batches = _video_plane_batches(frames, base, chunk_frames, device)
+    batches = _video_plane_batches(frames, base, chunk_frames, place.device)
     h, w = int(frames.shape[1]), int(frames.shape[2])
 
     totals: dict[int, int] = {}
@@ -408,7 +362,7 @@ def encode_video_to_size(
         if q not in totals:
             totals[q] = int(_video_sizes_from_batches(
                 batches, base.replace(quality=q), w, h, chunk_frames,
-                device, mesh).sum())
+                place).sum())
         return totals[q]
 
     best = _ladder_bisect(
@@ -420,8 +374,8 @@ def encode_video_to_size(
         ),
     )
     streams = _video.VideoCodec(base.replace(quality=best),
-                                chunk_frames=chunk_frames, device=device,
-                                mesh=mesh).encode(frames)
+                                chunk_frames=chunk_frames,
+                                device=place.device, mesh=mesh).encode(frames)
     return streams, best
 
 
@@ -430,29 +384,33 @@ def encode_video_to_size(
 # ---------------------------------------------------------------------------
 
 
-def _plane_roundtrip(plane: torch.Tensor, cfg: CodecConfig,
-                     chroma: bool) -> torch.Tensor:
-    """Quantize and reconstruct one (H, W) u8 plane tensor with the
-    codec's transform pair on its device (kernel A, then kernel C: the
-    ops decode_plane_device runs on the integers the wire carries) ->
-    the (H, W) u8 reconstruction."""
-    h, w = int(plane.shape[0]), int(plane.shape[1])
-    img = _codec.pad_plane_for_encode(plane, cfg)
+def _band_roundtrip(plane, cfg: CodecConfig, chroma: bool,
+                    place: _codec.Placement):
+    """(this rank's band of the padded (H, W) u8 plane, its quantize +
+    reconstruct through the codec's transform pair: kernel A, then kernel
+    C, the ops decode_plane_device runs on the integers the wire
+    carries; the grid)."""
+    grid = place.grid(int(plane.shape[0]), int(plane.shape[1]), cfg)
+    img = place.upload(plane, grid)
     n = cfg.block_size
-    pixels = _codec.blk.image_to_blocks(img, n).reshape(-1, cfg.n2)
+    pixels = blk.image_to_blocks(img, n).reshape(-1, cfg.n2)
     _, scale = _codec._adaptive(pixels, cfg)
     ops = tables.build(cfg, chroma=chroma, device=img.device)
     zz = _codec.encode_transform(pixels, cfg, ops, scale)
     rec = _codec.decode_transform(zz, cfg, ops, scale)
-    return _codec.blk.blocks_to_image(rec, img.shape[0], img.shape[1],
-                                      n)[:h, :w]
+    return img, blk.blocks_to_image(rec, img.shape[0], img.shape[1], n), grid
 
 
-def _sse(a: torch.Tensor, b: torch.Tensor) -> int:
-    """Exact sum of squared differences of two u8 tensors (int64 on their
-    device: each square is at most 255^2)."""
-    d = a.to(torch.int64) - b.to(torch.int64)
-    return int((d * d).sum().item())
+def _plane_sse(plane, cfg: CodecConfig, place: _codec.Placement) -> int:
+    """Exact sum of squared errors of a gray plane's roundtrip, as an
+    int64 on the device (each square is at most 255^2) over the rows and
+    columns of each rank's band inside the plane, summed over the ranks:
+    the same integer for every placement."""
+    h, w = int(plane.shape[0]), int(plane.shape[1])
+    img, rec, grid = _band_roundtrip(plane, cfg, False, place)
+    rows = max(0, min(img.shape[0], h - place.row0(grid)))
+    d = rec[:rows, :w].to(torch.int64) - img[:rows, :w].to(torch.int64)
+    return place.total((d * d).sum())
 
 
 def roundtrip_sse(image: np.ndarray, cfg: CodecConfig,
@@ -461,37 +419,44 @@ def roundtrip_sse(image: np.ndarray, cfg: CodecConfig,
     """EXACT sum of squared pixel errors of encode -> decode under
     ``cfg``, without a bitstream. Gray (H, W) only; color goes through
     psnr_at_quality (its reconstruction crosses planes). With a mesh each
-    rank round-trips its band of rows
-    (shard_encode.plane_sse_chunks_sharded): the same integer for every
+    rank round-trips its band of rows: the same integer for every
     mesh."""
     if image.ndim != 2:
         raise ValueError("roundtrip_sse takes a grayscale (H, W) plane")
-    if mesh is not None:
-        return _se.plane_sse_chunks_sharded(
-            image, cfg, mesh, False, int(image.shape[0]), int(image.shape[1]))
-    x = _codec.to_device_u8(image, _device(device))
-    return _sse(_plane_roundtrip(x, cfg, False), x)
+    return _plane_sse(image, cfg, _placement(device, mesh))
 
 
-def _rgb_sse(image: np.ndarray, cfg: CodecConfig, device: torch.device,
-             mesh=None) -> int:
+def _rgb_sse(image: np.ndarray, cfg: CodecConfig,
+             place: _codec.Placement) -> int:
     """Exact roundtrip squared error of an RGB image: the YCbCr split,
     each plane's quantize and reconstruct (the chrominance table on Cb
     and Cr, 4:2:0 resampling), the RGB reassembly of
-    ColorImageCodec.decode_to_device. With a mesh each plane's roundtrip
-    runs sharded and is gathered (shard_encode.plane_roundtrip_sharded)
+    ColorImageCodec.decode_to_device. Each plane's bands are gathered
     before the reassembly, whose 4:2:0 chroma rows do not follow the luma
     bands."""
-    rgb = _codec.to_device_u8(image, device)
-    recs = []
-    for i, p in enumerate(_color._to_planes(rgb, cfg.chroma)):
-        if mesh is None:
-            recs.append(_plane_roundtrip(p, cfg, chroma=i > 0))
-        else:
-            recs.append(_se.plane_roundtrip_sharded(
-                p, cfg, mesh, chroma=i > 0)[:p.shape[0], :p.shape[1]])
+    rgb = _codec.to_device_u8(image, place.device)
+    recs = [place.rows(_band_roundtrip(p, cfg, i > 0, place)[1])[
+        :p.shape[0], :p.shape[1]]
+        for i, p in enumerate(_color._to_planes(rgb, cfg.chroma))]
     h, w = int(image.shape[0]), int(image.shape[1])
-    return _sse(_color.planes_to_rgb(*recs, cfg.chroma, h, w), rgb)
+    d = (_color.planes_to_rgb(*recs, cfg.chroma, h, w).to(torch.int64)
+         - rgb.to(torch.int64))
+    return int((d * d).sum().item())
+
+
+def _psnr(image: np.ndarray, cfg: CodecConfig,
+          place: _codec.Placement) -> float:
+    h, w = int(image.shape[0]), int(image.shape[1])
+    if image.ndim == 2:
+        sse = _plane_sse(image, cfg, place)
+        n_px = h * w
+    else:
+        sse = _rgb_sse(image, cfg, place)
+        n_px = h * w * 3
+    if sse == 0:
+        return float("inf")
+    mse = sse / n_px  # the mean of the float64 squares, exactly
+    return float(10.0 * np.log10(255.0 ** 2 / mse))
 
 
 def psnr_at_quality(image: np.ndarray, cfg: CodecConfig,
@@ -503,19 +468,8 @@ def psnr_at_quality(image: np.ndarray, cfg: CodecConfig,
     packing or parsing a bitstream. Only the SSE leaves the device. With
     a mesh the roundtrips run sharded; the PSNR is the same float for
     every mesh."""
-    cfg = _normalize_chroma(image.ndim, cfg)
-    device = _device(device, mesh)
-    h, w = int(image.shape[0]), int(image.shape[1])
-    if image.ndim == 2:
-        sse = roundtrip_sse(image, cfg, device, mesh)
-        n_px = h * w
-    else:
-        sse = _rgb_sse(image, cfg, device, mesh)
-        n_px = h * w * 3
-    if sse == 0:
-        return float("inf")
-    mse = sse / n_px  # the mean of the float64 squares, exactly
-    return float(10.0 * np.log10(255.0 ** 2 / mse))
+    return _psnr(image, _normalize_chroma(image.ndim, cfg),
+                 _placement(device, mesh))
 
 
 def encode_to_psnr(
@@ -533,7 +487,7 @@ def encode_to_psnr(
     raise ValueError when ``strict``, else return its encode. With a mesh
     the probes and the encode run sharded; the quality and the bytes are
     the same for every mesh."""
-    device = _device(device, mesh)
+    place = _placement(device, mesh)
     base = _normalize_chroma(image.ndim, config or CodecConfig())
     ladder = _clean_ladder(qualities)[::-1]  # descending: see _ladder_bisect
 
@@ -541,8 +495,7 @@ def encode_to_psnr(
 
     def psnr_of(q: int) -> float:
         if q not in psnrs:
-            psnrs[q] = psnr_at_quality(image, base.replace(quality=q), device,
-                                       mesh)
+            psnrs[q] = _psnr(image, base.replace(quality=q), place)
         return psnrs[q]
 
     best = _ladder_bisect(
@@ -554,7 +507,8 @@ def encode_to_psnr(
             f"target {min_psnr}"
         ),
     )
-    return _encode(image, base.replace(quality=best), device, mesh), best
+    return _color.encode_image(image, base.replace(quality=best),
+                               place), best
 
 
 def encode_to_size(
@@ -573,11 +527,11 @@ def encode_to_size(
     budget). The probes are exact, so the container fits whenever a rung
     does. With a mesh the probes and the encode run sharded; the quality
     and the bytes are the same for every mesh."""
-    device = _device(device, mesh)
+    place = _placement(device, mesh)
     base = _normalize_chroma(image.ndim, config or CodecConfig())
     ladder = _clean_ladder(qualities)
     # the RGB -> YCbCr split does not depend on the quality: once
-    plane_args = _image_plane_args(image, base, device)
+    plane_args = _image_plane_args(image, base, place.device)
     w, h = int(image.shape[1]), int(image.shape[0])
 
     sizes: dict[int, int] = {}
@@ -585,7 +539,7 @@ def encode_to_size(
     def size_of(q: int) -> int:
         if q not in sizes:
             sizes[q] = _container_size_from_planes(
-                plane_args, base.replace(quality=q), w, h, mesh)
+                plane_args, base.replace(quality=q), w, h, place)
         return sizes[q]
 
     best = _ladder_bisect(
@@ -594,4 +548,5 @@ def encode_to_size(
         strict,
         lambda q: f"quality {q} needs {size_of(q)} bytes > budget {max_bytes}",
     )
-    return _encode(image, base.replace(quality=best), device, mesh), best
+    return _color.encode_image(image, base.replace(quality=best),
+                               place), best

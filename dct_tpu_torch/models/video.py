@@ -28,12 +28,16 @@ is encoded as a gray stack is, Cb and Cr against the chrominance quant
 table, with a table of its own; a stack of color containers decodes one
 plane type at a time, then planes_to_rgb over the stack.
 
-With ``mesh`` (parallel/mesh.py) the encode runs over its ranks, frames
-over the data axis and stripes over the stripe axis
-(parallel/shard_encode.py), and writes the same bytes for every mesh.
+The encode and the video size probe (models/rate_control.py) share one
+plan over a placement (codec.Placement, stack_plan). With ``mesh``
+(parallel/mesh.py) it is the mesh's (shard_encode.MeshPlacement): frames
+over the data axis and stripes over the stripe axis, the same bytes for
+every mesh.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -42,7 +46,6 @@ from dct_tpu_torch import container as cont
 from dct_tpu_torch import tables
 from dct_tpu_torch.config import CodecConfig
 from dct_tpu_torch.models import codec, color
-from dct_tpu_torch.ops import bitstream as bs
 from dct_tpu_torch.utils import tracing
 
 # Pixels per encode (and decode) dispatch. The staged path's peak device
@@ -61,71 +64,104 @@ def frames_per_chunk(f: int, h: int, w: int,
     return max(1, min(int(chunk_frames), f))
 
 
+class StackPlan(NamedTuple):
+    """What the encode and the size probe of an (F, h, w) plane stack
+    share: the placement, the grid, the chunks of frames
+    (Placement.chunks), the stack's tables with the operators that hold
+    them, and the (symbols, var_codes) of a one-chunk stack's analyze
+    pass (else None)."""
+    planes: np.ndarray
+    place: codec.Placement
+    grid: codec.Grid
+    chunk: int
+    chunks: list
+    table: object
+    run_table: object
+    ops: tables.CodecOperators
+    once: tuple | None
+
+
+def upload_chunk(plan: StackPlan, i0: int, f_pad: int) -> torch.Tensor:
+    """The chunk of the stack from frame i0, this rank's part of it on
+    its device, padded to the grid (and to f_pad frames)."""
+    with tracing.named_scope("video.upload_pad"):
+        return plan.place.upload(plan.planes[i0:i0 + plan.chunk], plan.grid,
+                                 f_pad)
+
+
+def stack_plan(planes: np.ndarray, cfg: CodecConfig, place: codec.Placement,
+               chroma: bool, chunk_frames: int | None) -> StackPlan:
+    """The grid, the chunks and the stack's tables of an (F, h, w) plane
+    stack (pass 1): static tables; or the analyze pass of each chunk, its
+    histograms summed over the placement's ranks, and over the chunks in
+    int64 on the host (a bin can pass 2^31 over a long stack). A stack of
+    one chunk is analyzed once and keeps its symbols; a longer one drops
+    each chunk's symbols after its histograms (keeping them would unbound
+    the memory CHUNK_PIXEL_BUDGET bounds)."""
+    f, h, w = (int(x) for x in planes.shape)
+    grid = place.grid(h, w, cfg)
+    chunk, chunks = place.chunks(f, frames_per_chunk(f, h, w, chunk_frames))
+    ops = tables.build(cfg, chroma=chroma, device=place.device)
+    plan = StackPlan(planes, place, grid, chunk, chunks, None, None, ops,
+                     None)
+    if cfg.static_tables:
+        return plan._replace(table=codec._build_table(cfg, None),
+                             run_table=codec._build_run_table(cfg, None))
+    hists, once = [], None
+    for i0, f_real, f_pad in chunks:
+        symbols, var_codes, h_, rh_ = codec.encode_analyze(
+            upload_chunk(plan, i0, f_pad), cfg, ops)
+        hists.append(place.histograms(symbols, h_, rh_, cfg, grid, f_real))
+        if len(chunks) == 1:
+            once = (symbols, var_codes)
+        del symbols, var_codes
+    hist, run_hist = (hists[0] if once is not None
+                      else (_sum64(parts) for parts in zip(*hists)))
+    table, run_table, ops = codec.build_tables(cfg, ops, hist, run_hist)
+    return plan._replace(table=table, run_table=run_table, ops=ops,
+                         once=once)
+
+
+def _sum64(parts: list):
+    """The chunks' histograms of one kind summed in int64 (None where the
+    placement gives none)."""
+    return (None if parts[0] is None
+            else sum(p.astype(np.int64) for p in parts))
+
+
 def _encode_plane_batch(
     planes: np.ndarray,
     cfg: CodecConfig,
     chunk_frames: int | None,
-    device: torch.device,
+    place: codec.Placement,
     chroma: bool = False,
 ) -> list[cont.PlaneData]:
     """(F, h, w) u8 plane stack -> one PlaneData per frame, sharing one
     table (and run table) for the whole stack, the same for every
-    chunking. chroma: Cb or Cr planes (the chrominance quant table)."""
+    chunking and placement. chroma: Cb or Cr planes (the chrominance
+    quant table)."""
     f, h, w = (int(x) for x in planes.shape)
-    _, _, n_stripes = codec._padded_grid(h, w, cfg)
-    chunk = frames_per_chunk(f, h, w, chunk_frames)
-
-    def prep(i0: int) -> torch.Tensor:
-        with tracing.named_scope("video.upload_pad"):
-            sub = np.ascontiguousarray(planes[i0:i0 + chunk], np.uint8)
-            tracing.add("h2d_bytes", sub.nbytes)
-            return codec.pad_plane_for_encode(
-                torch.from_numpy(sub).to(device), cfg)
-
-    ops = tables.build(cfg, chroma=chroma, device=device)
-    symbols_once = var_once = None
-    if cfg.static_tables:
-        table = codec._build_table(cfg, None)
-        run_table = codec._build_run_table(cfg, None)
-    else:
-        if f <= chunk:
-            # one chunk: analyze once and pack the same symbols
-            symbols_once, var_once, hist, run_hist = codec.encode_analyze(
-                prep(0), cfg, ops)
-            hist, run_hist = codec.read_histograms(hist, run_hist)
-        else:
-            # pass 1: the stack's histograms, chunk by chunk, summed in
-            # int64 on the host (a bin can pass 2^31 over a long stack)
-            hist = run_hist = 0
-            for i0 in range(0, f, chunk):
-                _, _, h_, rh_ = codec.encode_analyze(prep(i0), cfg, ops)
-                h_, rh_ = codec.read_histograms(h_, rh_)
-                hist = hist + h_.astype(np.int64)
-                run_hist = run_hist + rh_.astype(np.int64)
-        table, run_table, ops = codec.build_tables(cfg, ops, hist, run_hist)
-
+    plan = stack_plan(planes, cfg, place, chroma, chunk_frames)
+    n_loc = plan.grid.n_loc
     out: list[cont.PlaneData] = []
-    for i0 in range(0, f, chunk):
+    for i0, f_real, f_pad in plan.chunks:
         if cfg.static_tables:
             packed, var_codes, block_bits = codec.encode_step(
-                prep(i0), cfg, n_stripes, chroma)
-        elif symbols_once is not None:
-            packed, block_bits = codec.pack_frames(symbols_once, cfg, (f,),
-                                                   n_stripes, ops)
-            var_codes = var_once
-        elif codec.fused_kernel_ok(cfg):
-            packed, var_codes, block_bits = codec.encode_fused_step(
-                prep(i0), cfg, n_stripes, ops)
+                upload_chunk(plan, i0, f_pad), cfg, n_loc, chroma)
+        elif plan.once is not None:
+            # one chunk: pack the pass-1 symbols with one kernel E launch
+            symbols, var_codes = plan.once
+            packed, block_bits = codec.pack_frames(
+                symbols, cfg, (f_pad // place.shape[0],), n_loc, plan.ops)
         else:
-            packed, var_codes, block_bits = codec.encode_staged_step(
-                prep(i0), cfg, n_stripes, ops)
-
-        out += codec.plane_data(
-            bs.fetch_packed(packed),  # trim worst-case slack before D2H
-            w, h, table, run_table,
-            var_codes.cpu().numpy() if cfg.adaptive else None,
-            (codec.read_back(block_bits, "codec.index_readback")
-             if block_bits is not None else None))
+            step = (codec.encode_fused_step if codec.fused_kernel_ok(cfg)
+                    else codec.encode_staged_step)
+            packed, var_codes, block_bits = step(
+                upload_chunk(plan, i0, f_pad), cfg, n_loc, plan.ops)
+        packed, var_codes, block_bits = place.outputs(
+            packed, var_codes, block_bits, plan.grid, f_real)
+        out += codec.plane_data(packed, w, h, plan.table, plan.run_table,
+                                var_codes, block_bits)
     return out
 
 
@@ -171,18 +207,18 @@ class VideoCodec:
         """chunk_frames caps the frames per dispatch (None: from
         CHUNK_PIXEL_BUDGET); the output bytes do not depend on it. With a
         torch.distributed DeviceMesh from parallel.mesh.make_mesh, encode
-        runs sharded on the mesh's device (shard_encode) and the bytes do
-        not depend on the mesh either."""
+        runs over its ranks on the mesh's device (a MeshPlacement) and the
+        bytes do not depend on the mesh either."""
         self.config = config or CodecConfig()
         self.chunk_frames = chunk_frames
-        self.mesh = mesh
         if mesh is not None:
-            from dct_tpu_torch.parallel import mesh as meshlib
+            from dct_tpu_torch.parallel import shard_encode
 
-            self.device = meshlib.entry_device(mesh, device)
+            self.placement = shard_encode.MeshPlacement(mesh, device)
         else:
-            self.device = (torch.device(device) if device is not None
-                           else codec._default_device())
+            self.placement = codec.Placement(
+                device if device is not None else codec._default_device())
+        self.device = self.placement.device
 
     def encode(self, frames: np.ndarray) -> list[bytes]:
         cfg = self.config
@@ -201,16 +237,9 @@ class VideoCodec:
         batches = ([frames] if cfg.chroma == "gray"
                    else rgb_planes(frames, cfg.chroma, ck, self.device))
         h, w = int(frames.shape[1]), int(frames.shape[2])
-        if self.mesh is None:
-            per_plane = [_encode_plane_batch(b, cfg, ck, self.device,
-                                             chroma=i > 0)
-                         for i, b in enumerate(batches)]
-        else:
-            from dct_tpu_torch.parallel import shard_encode
-
-            per_plane = [shard_encode.encode_video_plane_batch_sharded(
-                b, cfg, self.mesh, chroma=i > 0, chunk_frames=ck)
-                for i, b in enumerate(batches)]
+        per_plane = [_encode_plane_batch(b, cfg, ck, self.placement,
+                                         chroma=i > 0)
+                     for i, b in enumerate(batches)]
         return [cont.serialize(cont.Container(config=cfg, width=w, height=h,
                                               planes=list(planes)))
                 for planes in zip(*per_plane)]

@@ -564,6 +564,13 @@ def rank_histograms(values: np.ndarray, live: np.ndarray, runs: np.ndarray,
             shard_encode.global_run_histogram(r, l, mesh))
 
 
+def sharded_decode_fates(containers: list[bytes], mesh) -> list:
+    """decode_fate of shard_encode.decode_image_sharded of each container
+    (a job)."""
+    return [decode_fate(lambda: shard_encode.decode_image_sharded(m, mesh))
+            for m in containers]
+
+
 def fail_on_rank(rank: int, mesh) -> None:
     """Raise on ``rank`` while every other rank waits for it in an
     all-reduce (a job: the call must end without waiting out its

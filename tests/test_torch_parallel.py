@@ -6,15 +6,18 @@ Each mesh shape is spawned once for the module (testing.run_mesh_jobs,
 its ranks run every case) and the tests compare the saved results:
   * the collectives: stripe_byte_offsets and the two global histograms
     against their plain sums; the collectives each path calls (the
-    batch step and a rank's decode none, a dynamic plane one all-reduce
-    per histogram and one all-gather of bit lengths);
+    batch step and a rank's decode of its stripes none, a decode one
+    all-reduce of its ranks' failures before its gathers, a dynamic
+    plane one all-reduce per histogram and one all-gather of bit
+    lengths);
   * encode_image_sharded byte for byte the port's unsharded ImageCodec /
     ColorImageCodec on the CPU, on every rank, and the JAX package's
     shard_encode.encode_image_sharded on the same-shaped JAX CPU mesh,
     ties excepted (testing.encode_mismatches);
   * encode_batch_step's stripes those of codec.encode_step per frame;
   * decode_image_sharded the unsharded port decode's pixels, v1 and v2,
-    gray and 4:2:0.
+    gray and 4:2:0, and of damaged v2 containers its fate (the same
+    pixels, or ValueError on every rank).
 """
 
 from __future__ import annotations
@@ -73,6 +76,10 @@ DECODE = {
     "v2_420": dict(quality=50, chroma="420", decode_index=True),
 }
 
+# damaged containers (testing.damaged_containers) of one v2 config
+DAMAGED = {"gray": DECODE["v2_gray"],
+           "420": dict(DECODE["v2_gray"], chroma="420")}
+
 BATCH_CFG = CodecConfig(quality=50, static_tables=True)
 BATCH = np.stack([image_io.synthetic_image(64, 96, "photo", seed=s)
                   for s in range(4)])  # 8 stripes a frame
@@ -95,12 +102,24 @@ def _container(case: str) -> bytes:
     return codec.encode(_src(cfg), cfg, device="cpu")
 
 
+@functools.lru_cache(maxsize=None)
+def _damaged(chroma: str) -> list[bytes]:
+    """40 damaged copies of the port's unsharded CPU container of a
+    DAMAGED case."""
+    cfg = CodecConfig(**DAMAGED[chroma])
+    return testing.damaged_containers(codec.encode(_src(cfg), cfg,
+                                                   device="cpu"),
+                                      np.random.default_rng(7), 40)
+
+
 def _jobs(shape) -> list:
     jobs = [(f"enc_{case}", se.encode_image_sharded,
              (_src(CodecConfig(**kw)), CodecConfig(**kw)), {})
             for case, kw in ENCODE.items()]
     jobs += [(f"dec_{case}", se.decode_image_sharded, (_container(case),),
               {}) for case in DECODE]
+    jobs += [(f"damaged_{chroma}", testing.sharded_decode_fates,
+              (_damaged(chroma),), {}) for chroma in DAMAGED]
     jobs += [
         ("batch", se.encode_batch_step, (BATCH, BATCH_CFG, 8), {}),
         ("offsets", testing.rank_byte_offsets, (BITS,), {}),
@@ -280,16 +299,37 @@ def test_batch_step_needs_stripes_that_divide(ranks, shape):
 @pytest.mark.parametrize("case", sorted(DECODE))
 @pytest.mark.parametrize("shape", MESHES)
 def test_decode_equals_the_unsharded_port(ranks, shape, case):
-    """Every rank holds the whole image; each plane is assembled by one
-    all-gather of the ranks' row bands, and nothing else crosses ranks."""
+    """Every rank holds the whole image; one all-reduce of the ranks'
+    failures, then each plane is assembled by one all-gather of the
+    ranks' row bands, and nothing else crosses ranks."""
     data = _container(case)
     want = codec.decode(data, device="cpu")
     n_planes = len(cont.deserialize(data).planes)
     for r in ranks(shape):
         np.testing.assert_array_equal(r[f"dec_{case}"]["value"], want)
         calls = r[f"dec_{case}"]["collectives"]
-        assert [c[:2] for c in calls] == [("all_gather", "torch.uint8")
-                                          ] * n_planes
+        assert [c[:2] for c in calls] == [
+            ("all_reduce", meshlib.STRIPE_AXIS)] + [
+            ("all_gather", "torch.uint8")] * n_planes
+
+
+@pytest.mark.parametrize("chroma", sorted(DAMAGED))
+@pytest.mark.parametrize("shape", MESHES)
+def test_damaged_decode_has_the_unsharded_fate(ranks, shape, chroma):
+    """Damaged v2 containers: every rank's sharded decode gives the
+    unsharded port's pixels, or raises ValueError where it raises (a
+    rank whose stripes decode well raises too, and none is left waiting
+    in a gather)."""
+    fates = {"ok": 0, "ValueError": 0}
+    for k, m in enumerate(_damaged(chroma)):
+        want = testing.decode_fate(lambda: codec.decode(m, device="cpu"))
+        fates[want[0]] += 1
+        for r in ranks(shape):
+            got = r[f"damaged_{chroma}"]["value"][k]
+            assert got[0] == want[0], (k, got[1], want[1])
+            if want[0] == "ok":
+                np.testing.assert_array_equal(got[1], want[1])
+    assert fates["ok"] > 0 and fates["ValueError"] > 0
 
 
 def test_cpu_ranks_launch_no_kernel(ranks):

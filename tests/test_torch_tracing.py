@@ -317,3 +317,57 @@ def test_a_static_table_encode_records_no_analyze_span(on, entry):
     else:
         ImageCodec(cfg, device="cpu").encode(photo_frames(1, 16, 24, 8)[0])
     assert names() and not names() & set(ANALYZE_SPANS)
+
+
+READER_SPANS = {
+    # (span, the span it opens in) for each span a per-layer metric of
+    # the benchmark reads, and the entries and parents that hold them
+    "static": {
+        ("video.encode", None), ("video.upload_pad", "video.encode"),
+        ("codec.encode_step", "video.encode"),
+        ("bitstream.fetch_packed", "video.encode"),
+        ("codec.index_readback", "video.encode"),
+        ("bitstream.stripes_to_bytes", "video.encode"),
+        ("container.serialize", "video.encode")},
+    "dynamic": {
+        ("video.encode", None), ("video.upload_pad", "video.encode"),
+        ("codec.encode_analyze", "video.encode"),
+        ("codec.histogram_readback", "video.encode"),
+        ("codec.build_tables", "video.encode"),
+        ("codec.pack_frames", "video.encode"),
+        ("bitstream.fetch_packed", "video.encode"),
+        ("codec.index_readback", "video.encode"),
+        ("bitstream.stripes_to_bytes", "video.encode"),
+        ("container.serialize", "video.encode")},
+    "decode": {
+        ("video.decode_to_device", None),
+        ("container.deserialize", "video.decode_to_device"),
+        ("container.unpack_index", "container.deserialize"),
+        ("codec.indexed_operands", "video.decode_to_device"),
+        ("codec.upload", "codec.indexed_operands"),
+        ("codec.reconstruct", "video.decode_to_device"),
+        ("codec.status_readback", "video.decode_to_device")},
+}
+
+
+@pytest.mark.parametrize("case", sorted(READER_SPANS))
+def test_the_readers_spans_keep_their_parents(on, case):
+    """A 2-frame VideoCodec encode at static and at dynamic tables, and
+    the decode of its v2 containers, record exactly these spans under
+    these parents: a plan that lost or moved one would null a per-layer
+    metric."""
+    cfg = CodecConfig(quality=50, decode_index=True,
+                      static_tables=case == "static")
+    codec = VideoCodec(cfg, device="cpu")
+    frames = photo_frames(2, 24, 40, 9)
+    if case == "decode":
+        tracing.disable()
+        data = codec.encode(frames)
+        tracing.enable()
+        codec.decode_to_device(data)
+    else:
+        codec.encode(frames)
+    recs = tracing.records()
+    got = {(r.name, None if r.parent is None else recs[r.parent].name)
+           for r in recs}
+    assert got == READER_SPANS[case]
