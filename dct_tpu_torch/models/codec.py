@@ -105,15 +105,21 @@ def dc_reconstruct(zz: torch.Tensor, n_stripes: int) -> torch.Tensor:
     return out
 
 
-def _adaptive(pixels: torch.Tensor, cfg: CodecConfig):
+def _adaptive(pixels: torch.Tensor, cfg: CodecConfig, planes: bool = False):
     """(variance codes, scales) per block under cfg.adaptive, else
-    (None, None)."""
+    (None, None). pixels: (..., n2) blocks, or with ``planes`` the padded
+    planes (..., Hp, Wp), blocked here. Span ``codec.variance_codes``
+    (blocks), under cfg.adaptive only."""
     if not cfg.adaptive:
         return None, None
-    codes = quant.variance_code(
-        quant.block_variance_flat(transform.level_shift(pixels))
-    )
-    return codes, quant.scale_from_variance_code(codes)
+    with tracing.named_scope("codec.variance_codes",
+                             blocks=pixels.numel() // cfg.n2):
+        if planes:
+            pixels = blk.image_to_blocks(pixels, cfg.block_size)
+        codes = quant.variance_code(
+            quant.block_variance_flat(transform.level_shift(pixels))
+        )
+        return codes, quant.scale_from_variance_code(codes)
 
 
 def encode_transform(pixels: torch.Tensor, cfg: CodecConfig,
@@ -332,10 +338,7 @@ def encode_fused_step(
     Kernel B reads the planes themselves; only the variances of
     cfg.adaptive are computed on their blocks."""
     lead = image.shape[:-2]
-    var_codes = scale = None
-    if cfg.adaptive:
-        var_codes, scale = _adaptive(blk.image_to_blocks(image, cfg.block_size),
-                                     cfg)
+    var_codes, scale = _adaptive(image, cfg, planes=True)
     packed, block_bits = fused_encode_cuda.encode_plane_stripes_fused(
         image, cfg, math.prod(lead) * n_stripes, ops, scale)
     packed, block_bits = _frames_out(packed, block_bits, cfg, lead, n_stripes)

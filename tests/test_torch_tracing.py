@@ -371,3 +371,24 @@ def test_the_readers_spans_keep_their_parents(on, case):
     got = {(r.name, None if r.parent is None else recs[r.parent].name)
            for r in recs}
     assert got == READER_SPANS[case]
+
+
+@pytest.mark.parametrize("adaptive", [True, False])
+def test_the_variance_pass_is_spanned_under_adaptive_only(on, adaptive):
+    """encode_step records one codec.variance_codes, with the blocks of
+    every frame, inside its own span under adaptive quantization, and
+    none at static quantization."""
+    from dct_tpu_torch.models import codec
+
+    cfg = CodecConfig(quality=50, static_tables=True, adaptive=adaptive)
+    planes = torch.from_numpy(photo_frames(3, 24, 40, 10))
+    codec.encode_step(planes, cfg, 3)
+    recs = tracing.records()
+    found = by_name(recs, "codec.variance_codes")
+    if not adaptive:
+        assert found == [] and names() == {"codec.encode_step"}
+        return
+    (v,) = found
+    assert recs[v.parent].name == "codec.encode_step"
+    assert v.counts == {"blocks": 3 * 3 * 5}
+    assert recs[v.parent].counts == {"frames": 3}
