@@ -42,10 +42,16 @@ to int64 products at n2 4, 16, 64 and 256, then:
      other configs B takes: 4x4 blocks in category (dynamic),
      direct and "none" modes; 8x8 in direct q90, "none", and direct with
      adaptive + DC prediction + coded runs; 16x16 in category q90, direct
-     and "none"; each timed beside its plain version and its bound;
+     and "none"; each timed beside its plain version and its bound; then
+     the adaptive encode's variance kernel against its plain version run
+     on the CPU's copy of the planes (codes byte-equal, reciprocals
+     bit-equal, one launch a call) on the batch and on 32 planes at 8x8
+     and on the batch at 4x4 and 16x16, timed over shifted copies in turn
+     (past the L2) beside its plain version and its byte bound;
   4. the main path: ImageCodec(cfg, device="cuda") encodes a 1080p frame
      at static and at dynamic tables, decodes it (decode and
-     decode_to_device), and encode_step encodes the 8-frame batch, with
+     decode_to_device), and encode_step encodes the 8-frame batch
+     (static, and adaptive: one variance kernel and one B), with
      the kernels' launch counters zeroed before and read after. The
      containers must equal the CPU path's byte for byte, or differ only
      in tie coefficients; pixels must agree within 1;
@@ -415,16 +421,18 @@ def check_b(name, cfg, px, scale, n_stripes, ops, plane=None):
     import torch
     from dct_tpu_torch.models import codec
     from dct_tpu_torch.ops import bitstream as bs
-    from dct_tpu_torch.ops import fused_encode_cuda, rle, transform_cuda
+    from dct_tpu_torch.ops import fused_encode_cuda, rle, transform
+    from dct_tpu_torch.ops import transform_cuda
 
     from dct_tpu_torch.ops import _build
 
     zz = transform_cuda.encode_blocks_kernel(px, cfg, ops, scale)
     if cfg.dc_prediction:
         zz = codec.dc_predict(zz, n_stripes)
+    recip = None if scale is None else transform.reciprocal_scale(scale)
     _build.reset_rescued()
     got, got_bb = fused_encode_cuda.encode_stripes_fused(
-        px, cfg, n_stripes, ops, scale)
+        px, cfg, n_stripes, ops, adaptive_recip=recip)
     share = rescue_share("encode_stripes", px, cfg, ops, scale)
     ref, ref_bb = codec.encode_pack_plain(rle.rle_encode_positional(zz),
                                           cfg, n_stripes, ops)
@@ -438,7 +446,7 @@ def check_b(name, cfg, px, scale, n_stripes, ops, plane=None):
     if plane is not None:
         _build.reset_rescued()
         from_plane, plane_bb = fused_encode_cuda.encode_plane_stripes_fused(
-            plane, cfg, n_stripes, ops, scale)
+            plane, cfg, n_stripes, ops, adaptive_recip=recip)
         plane_share = rescue_share("encode_stripes", px, cfg, ops, scale)
         plane_same = (torch.equal(from_plane.units, got.units)
                       and torch.equal(from_plane.bit_lengths,
@@ -458,6 +466,63 @@ def check_b(name, cfg, px, scale, n_stripes, ops, plane=None):
     check(same, f"B {name} differs from the staged pipeline")
     err = int(np.abs(g.units.astype(np.int64) - r.units).max())
     return got, got_bb, err
+
+
+def check_variance(name, batches, cfg) -> tuple:
+    """The adaptive encode's variance kernel
+    (fused_encode_cuda.plane_variance_codes) on padded planes against its
+    plain version run on the CPU's copy of them: codes byte-equal,
+    reciprocals bit-equal, one launch a call. Timed over ``batches`` in
+    turn (together past the 50 MB L2, as the benchmark cycles its
+    batches) beside its plain version on the card and its byte bound
+    (pixels in; a code byte and a float32 reciprocal a block out). The
+    plain version on the card (quant.py's chain, which the blocks route
+    and the dynamic tables' analyze pass run) must give the same codes.
+    -> (kernel ms, plain ms, (bound ms, by), max |diff|)."""
+    import torch
+    from dct_tpu_torch.ops import _build, fused_encode_cuda
+
+    planes = batches[0]
+    _build.reset_launch_counts()
+    codes, recip = fused_encode_cuda.plane_variance_codes(planes, cfg)
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in _build.LAUNCHES.items() if v}
+    want_codes, want_recip = fused_encode_cuda.variance_codes_plain(
+        planes.cpu(), cfg)
+    same = (torch.equal(codes.cpu(), want_codes)
+            and torch.equal(recip.cpu().view(torch.int32),
+                            want_recip.view(torch.int32)))
+    on_card = fused_encode_cuda.variance_codes_plain(planes, cfg)[0].cpu()
+    nb = codes.numel()
+    turn = iter(range(1 << 30))
+
+    def call(fn):
+        return lambda: fn(batches[next(turn) % len(batches)], cfg)
+
+    ms = cuda_ms(call(fused_encode_cuda.plane_variance_codes), 40)
+    dev_ms, enq_ms = device_ms(call(fused_encode_cuda.plane_variance_codes),
+                               40)
+    plain_ms = cuda_ms(call(fused_encode_cuda.variance_codes_plain), 5)
+    bound = bound_ms(planes.numel() + nb * 5)
+    at0 = float((want_codes == 0).float().mean())
+    log(f"variance_codes {name}: {tuple(planes.shape)}, {nb} blocks; codes "
+        f"and reciprocals equal to the plain version's on the CPU: {same}; "
+        f"launches {launches}; codes at 0 {100 * at0:.2f} %, largest "
+        f"{int(want_codes.max())}; the plain version on the card differs in "
+        f"{int((on_card != want_codes).sum())} codes")
+    log(f"time variance_codes {name}: kernel {ms:.4f} ms ({len(batches)} "
+        f"batches in turn; the card's work alone {dev_ms:.4f} ms, host "
+        f"enqueue {enq_ms:.4f} ms a call), plain {plain_ms:.4f} ms, bound "
+        f"{bound[0]:.5f} ms ({bound[1]}; the card's work at "
+        f"{100 * bound[0] / dev_ms:.1f} % of it)")
+    check(same, f"variance_codes {name} differs from its plain version")
+    check(torch.equal(on_card, want_codes), f"variance_codes {name}: the "
+          f"plain version on the card differs from the CPU's")
+    check(launches == {"variance_codes": 1},
+          f"variance_codes {name} launched {launches}")
+    err = int((codes.cpu().to(torch.int32) - want_codes.to(torch.int32))
+              .abs().max())
+    return dev_ms, plain_ms, bound, err
 
 
 def check_d(name, stripes, bits, table, run_table, mode, n2, dev):
@@ -1619,7 +1684,9 @@ def main() -> int:
 
     imma = imma_counts(("transform", "fused_encode"))
     for fn, n in imma.items():
-        if "encode" in fn:  # kernels A and B (C and D do no integer products)
+        # kernels A and B (C, D and the variance kernel do no integer
+        # products on the tensor cores)
+        if "encode_blocks" in fn or "encode_stripes" in fn:
             log(f"IMMA instructions in {fn}: {n}")
             check(n > 0, f"{fn} has no integer tensor-core instructions")
     for n2 in fused_encode_cuda.KERNEL_N2:  # kernel B's persistent grid
@@ -1674,10 +1741,16 @@ def main() -> int:
                       gpu.decode_to_device(containers[name]))
     packed, _, _ = codec.encode_step(frames_d, static, n_stripes)
     batch_bits = packed.bit_lengths.sum().item()  # waits for the batch
+    # the adaptive cell's entry: one variance pass and one B a call
+    packed, _, _ = codec.encode_step(frames_d, dataclasses.replace(
+        static, adaptive=True), n_stripes)
+    adaptive_bits = packed.bit_lengths.sum().item()
     launches = dict(_build.LAUNCHES)
     main_runs = [launches]  # the launch counts of every main-path run
-    log(f"main path launches {launches}; batch payload {batch_bits} bits")
-    for k in ("encode_blocks", "encode_stripes", "decode_blocks"):
+    log(f"main path launches {launches}; batch payload {batch_bits} bits, "
+        f"adaptive {adaptive_bits}")
+    for k in ("encode_blocks", "encode_stripes", "decode_blocks",
+              "variance_codes"):
         check(launches[k] > 0, f"{k} not launched on the main path")
 
     log(f"host entropy decoder: {codec.host_decoder()}")
@@ -1811,10 +1884,11 @@ def main() -> int:
         ops, _, _ = batch_tables(cfg, pxn, scale, ns,
                                  tables.build(cfg, device=dev))
         packed, _, _ = check_b(name, cfg, pxn, scale, ns, ops, frames_d)
+        recip = None if scale is None else transform.reciprocal_scale(scale)
         b_ms = cuda_ms(lambda: fused_encode_cuda.encode_stripes_fused(
-            pxn, cfg, ns, ops, scale), 10)
+            pxn, cfg, ns, ops, adaptive_recip=recip), 10)
         plain_ms = cuda_ms(lambda: fused_encode_cuda.encode_stripes_plain(
-            pxn, cfg, ns, ops, scale), 3)
+            pxn, cfg, ns, ops, adaptive_recip=recip), 3)
         nb, n2 = pxn.shape
         b_bound = bound_ms(b_bytes(nb, n2, cfg, ops, ns), a_b_ops(nb, n2),
                            INT8_OPS)
@@ -1824,6 +1898,18 @@ def main() -> int:
             f"{n2}, {ns} stripes")
         del packed
     del px_of
+    # the adaptive encode's variance pass, one kernel: the 8-frame batch
+    # and 32 planes (four shifted copies each), at 8x8 and the other sizes
+    adaptive = CodecConfig(quality=50, static_tables=True, adaptive=True)
+    shifted = [torch.roll(frames_d, 37 * k, -1) for k in range(4)]
+    var_ms, var_plain_ms, var_bound, var_err = check_variance(
+        "8 planes 8x8", shifted, adaptive)
+    check_variance("32 planes 8x8", [torch.cat(shifted), torch.cat(
+        [torch.roll(f, 11, -2) for f in shifted])], adaptive)
+    for n in (4, 16):
+        check_variance(f"8 planes {n}x{n}", shifted, dataclasses.replace(
+            adaptive, block_size=n))
+    del shifted
 
     # ---- 5. times --------------------------------------------------------
     ops = tables.build(static, device=dev)
@@ -1850,6 +1936,9 @@ def main() -> int:
     for k, (ms, plain) in times.items():
         log(f"time {k}: kernel {ms:.4f} ms, plain {plain:.4f} ms "
             f"(8 x {H}x{W})")
+    # the card's work alone, the batches in turn (check_variance)
+    times["variance_codes"] = (var_ms, var_plain_ms)
+    results["variance_codes"] = (0, var_err)
     b_dev_ms, b_enq_ms = device_ms(
         lambda: fused_encode_cuda.encode_plane_stripes_fused(
             frames_d, static, s_all, ops), 50)
@@ -1999,7 +2088,8 @@ def main() -> int:
         ops, table, run_table = batch_tables(cfg, px, scale, s_all,
                                              tables.build(cfg, device=dev))
         packed, bb = fused_encode_cuda.encode_stripes_fused(
-            px, cfg, s_all, ops, scale)
+            px, cfg, s_all, ops, adaptive_recip=None if scale is None
+            else transform.reciprocal_scale(scale))
         d_operands[name] = check_d(
             f"batch {name}", bs.stripes_to_bytes(bs.fetch_packed(packed)),
             bb.cpu().numpy().reshape(-1).astype(np.uint16), table, run_table,
@@ -2467,6 +2557,8 @@ def main() -> int:
                            "dct_tpu/ops/entropy_decode_pallas.py:535"),
         "pack_chunks": ("dct_tpu_torch/csrc/pack.cu",
                         "dct_tpu/ops/pack_pallas.py:121"),
+        "variance_codes": ("dct_tpu_torch/csrc/fused_encode.cu",
+                           "none (XLA: dct_tpu/ops/quant.py)"),
     }
     # bounds at the shapes timed above: 8 x 1088x1920, static q50 for A,
     # B, C and static q90 for D; operators and tables count as inputs
@@ -2492,6 +2584,8 @@ def main() -> int:
         "pack_chunks": bound_ms(
             2 * e_inputs[0].numel() * e_inputs[0].element_size()
             + s_all * (e_inputs[2] * 2 + 4)),
+        # the adaptive 8x8 batch: pixels in, a code and a reciprocal out
+        "variance_codes": var_bound,
     }
     counts = {k: sum(run[k] for run in main_runs) for k in sources}
     for k, (b_ms, by) in bounds.items():

@@ -69,6 +69,16 @@ DCT_EXPORT int dct_encode_stripes(const void* px, const void* frag,
                                   void* block_bits, void* rescued,
                                   void* stream);
 
+// The adaptive encode's variance pass: padded u8 plane(s) px, rows * n
+// pixel rows of `width` bytes (n the block side of n2 16, 64 or 256; width
+// a multiple of n) -> codes: one u8 variance code a block and recip: one
+// float32 1 / scale a block, raster order over every plane (rows * width /
+// n blocks), the reciprocal kernel B reads. px, codes and recip 16-byte
+// aligned.
+DCT_EXPORT int dct_variance_codes(const void* px, long long rows, int width,
+                                  int n2, void* codes, void* recip,
+                                  void* stream);
+
 // Kernel B's launch shape on the current device, for n2 16, 64 or 256:
 // out[0..6] = SMs, CTAs an SM, registers a thread, dynamic shared memory
 // bytes a CTA, local (spilled) bytes a thread, threads a CTA, blocks a

@@ -710,6 +710,154 @@ int info(int* out) {
   return 0;
 }
 
+// The adaptive encode's variance pass: padded u8 planes to each block's
+// u8 variance code and the float32 reciprocal of its scale, which kernel B
+// reads (ops/quant.py block_variance_flat, variance_code,
+// scale_from_variance_code, then transform.reciprocal_scale).
+//
+// Replaces no Pallas kernel: the JAX package leaves the variances to XLA
+// (dct_tpu/ops/quant.py), and the port ran them as ~20 eager PyTorch ops
+// over a blocked u8 copy and float32 copies of every pixel. Bytes bind it:
+// each pixel byte is read once, and a block writes 1 code byte and 4 bytes
+// of reciprocal (n2 + 5 bytes a block against a few dozen operations), so
+// its bound is the bytes over 3.35 TB/s.
+//
+// Design. A thread takes 16 bytes of a pixel row (16 / n neighbouring
+// blocks) and the block row's n pixel rows, so a warp reads 512
+// contiguous bytes a row and every load is 16 bytes, or 4-byte words where
+// the row width is not a multiple of 16 (and in a row's narrower last
+// chunk). A thread issues its n loads before it sums them (n x 16 bytes in
+// flight), and stores its blocks' codes and reciprocals with one store of
+// each (uchar4 and float4 at 4x4, uchar2 and float2 at 8x8). The grid
+// covers (block row of every plane, 16-byte chunk) in one launch. The sums are integers: each byte XOR 0x80 is the int8 p - 128,
+// and __dp4a against ones and against itself gives S1 = sum(p - 128) and
+// S2 = sum((p - 128)^2), at most 256 * 128^2 = 2^22, so float32 holds both
+// exactly. After the sums the float32 steps are quant.py's, in its order,
+// each rounded once (no contraction into FMAs): mean = S1 / n2, mean_sq =
+// S2 / n2, var = mean_sq - mean * mean, norm = clamp(var / 1000, 0.1, 1),
+// code = rint((norm - 0.1) * (255 / 0.9)), scale = 2 - (0.1 + code *
+// (0.9 / 255)), recip = 1 / scale. The constants are the float32 values
+// PyTorch gives those Python scalars (tests/test_torch_variance_model.py
+// reads them from this file and runs its model of these steps on them).
+constexpr int kVarThreads = 256;
+constexpr float kVarianceUnit = 0x1.f4p+9f;  // 1000.0
+constexpr float kNormMin = 0x1.99999ap-4f;   // 0.1
+constexpr float kNormMax = 0x1p+0f;          // 1.0
+constexpr float kCodeScale = 0x1.1b5556p+8f; // 255.0 / 0.9
+constexpr float kCodeStep = 0x1.ce9b68p-9f;  // 0.9 / 255.0
+
+template <int N>
+__device__ __forceinline__ void code_and_recip(int s1, int s2, uint8_t& code,
+                                               float& recip) {
+  constexpr float kN2 = N * N;
+  const float mean = __fdiv_rn(__int2float_rn(s1), kN2);
+  const float mean_sq = __fdiv_rn(__int2float_rn(s2), kN2);
+  const float var = __fsub_rn(mean_sq, __fmul_rn(mean, mean));
+  const float norm =
+      fminf(fmaxf(__fdiv_rn(var, kVarianceUnit), kNormMin), kNormMax);
+  const float c = rintf(__fmul_rn(__fsub_rn(norm, kNormMin), kCodeScale));
+  const float scale =
+      __fsub_rn(2.0f, __fadd_rn(kNormMin, __fmul_rn(c, kCodeStep)));
+  code = static_cast<uint8_t>(c);
+  recip = __fdiv_rn(1.0f, scale);
+}
+
+// px: rows * n pixel rows of `width` bytes; codes and recip: one entry a
+// block, raster order over every plane. All three 16-byte aligned.
+template <int N>
+__global__ void __launch_bounds__(kVarThreads)
+    variance_codes_kernel(const uint8_t* __restrict__ px, long long rows,
+                          int width, int chunks, uint8_t* __restrict__ codes,
+                          float* __restrict__ recip) {
+  constexpr int kBlocks = 16 / N;  // blocks a 16-byte chunk
+  constexpr int kWords = N / 4;    // 4-byte words a block row
+  const long long t =
+      static_cast<long long>(blockIdx.x) * kVarThreads + threadIdx.x;
+  if (t >= rows * chunks) return;
+  const long long brow = t / chunks;
+  const int x0 = static_cast<int>(t - brow * chunks) * 16;
+  const int nb = min(16, width - x0) / N;  // fewer in a row's last chunk
+  const uint8_t* p = px + brow * N * width + x0;
+  // sums a 4-byte word column, each its own chain; a block's words are
+  // added at the end
+  int s1[4] = {0, 0, 0, 0}, s2[4] = {0, 0, 0, 0};
+  auto add = [&](int k, unsigned w) {
+    const int y = static_cast<int>(w ^ 0x80808080u);  // four int8 p - 128
+    s1[k] = __dp4a(y, 0x01010101, s1[k]);
+    s2[k] = __dp4a(y, y, s2[k]);
+  };
+  const bool whole = nb == kBlocks && width % 16 == 0;
+  if (whole) {  // every load 16 bytes, all N issued before the sums
+    uint4 v[N];
+#pragma unroll
+    for (int r = 0; r < N; ++r)
+      v[r] = __ldg(reinterpret_cast<const uint4*>(p + r * width));
+#pragma unroll
+    for (int r = 0; r < N; ++r) {
+      add(0, v[r].x);
+      add(1, v[r].y);
+      add(2, v[r].z);
+      add(3, v[r].w);
+    }
+  } else {  // 4-byte loads: rows not 16-byte aligned, or the last chunk
+    const int words = nb * kWords;
+#pragma unroll
+    for (int r = 0; r < N; ++r) {
+      const unsigned* row = reinterpret_cast<const unsigned*>(p + r * width);
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        if (k < words) add(k, __ldg(row + k));
+    }
+  }
+  uint8_t c[kBlocks];
+  float f[kBlocks];
+#pragma unroll
+  for (int b = 0; b < kBlocks; ++b) {
+    int a1 = 0, a2 = 0;
+#pragma unroll
+    for (int k = b * kWords; k < (b + 1) * kWords; ++k) {
+      a1 += s1[k];
+      a2 += s2[k];
+    }
+    code_and_recip<N>(a1, a2, c[b], f[b]);
+  }
+  const long long b0 = brow * (width / N) + x0 / N;
+  if constexpr (kBlocks == 4) {  // b0 a multiple of 4 when width % 16 == 0
+    if (whole) {
+      *reinterpret_cast<uchar4*>(codes + b0) =
+          make_uchar4(c[0], c[1], c[2], c[3]);
+      *reinterpret_cast<float4*>(recip + b0) =
+          make_float4(f[0], f[1], f[2], f[3]);
+      return;
+    }
+  } else if constexpr (kBlocks == 2) {  // b0 even
+    if (whole) {
+      *reinterpret_cast<uchar2*>(codes + b0) = make_uchar2(c[0], c[1]);
+      *reinterpret_cast<float2*>(recip + b0) = make_float2(f[0], f[1]);
+      return;
+    }
+  }
+#pragma unroll
+  for (int b = 0; b < kBlocks; ++b)
+    if (b < nb) {
+      codes[b0 + b] = c[b];
+      recip[b0 + b] = f[b];
+    }
+}
+
+template <int N>
+int launch_variance(const void* px, long long rows, int width, void* codes,
+                    void* recip, cudaStream_t stream) {
+  const int chunks = (width + 15) / 16;
+  const long long grid = (rows * chunks + kVarThreads - 1) / kVarThreads;
+  if (grid > 0x7FFFFFFFLL) return static_cast<int>(cudaErrorInvalidValue);
+  variance_codes_kernel<N><<<static_cast<unsigned>(grid), kVarThreads, 0,
+                             stream>>>(
+      static_cast<const uint8_t*>(px), rows, width, chunks,
+      static_cast<uint8_t*>(codes), static_cast<float*>(recip));
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 DCT_EXPORT int dct_encode_stripes(const void* px, const void* frag,
@@ -741,6 +889,26 @@ DCT_EXPORT int dct_encode_stripes(const void* px, const void* frag,
     case 256: DCT_B(256);
   }
 #undef DCT_B
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+DCT_EXPORT int dct_variance_codes(const void* px, long long rows, int width,
+                                  int n2, void* codes, void* recip,
+                                  void* stream) {
+  if (rows < 0 || width <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (rows == 0) return static_cast<int>(cudaSuccess);
+  auto s = static_cast<cudaStream_t>(stream);
+  switch (n2) {
+    case 16:
+      if (width % 4 == 0) return launch_variance<4>(px, rows, width, codes, recip, s);
+      break;
+    case 64:
+      if (width % 8 == 0) return launch_variance<8>(px, rows, width, codes, recip, s);
+      break;
+    case 256:
+      if (width % 16 == 0) return launch_variance<16>(px, rows, width, codes, recip, s);
+      break;
+  }
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

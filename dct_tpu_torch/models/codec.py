@@ -106,16 +106,25 @@ def dc_reconstruct(zz: torch.Tensor, n_stripes: int) -> torch.Tensor:
 
 
 def _adaptive(pixels: torch.Tensor, cfg: CodecConfig, planes: bool = False):
-    """(variance codes, scales) per block under cfg.adaptive, else
-    (None, None). pixels: (..., n2) blocks, or with ``planes`` the padded
-    planes (..., Hp, Wp), blocked here. Span ``codec.variance_codes``
-    (blocks), under cfg.adaptive only."""
+    """Each block's variance code and what the quantizer takes from it,
+    under cfg.adaptive; else (None, None). The second output's form
+    depends on the route:
+
+    - blocks (pixels (..., n2)): (codes, scales), quant.py's op chain.
+      Kernel A and the decode transform take the scale itself.
+    - ``planes`` (the padded planes (..., Hp, Wp) of kernel B's route):
+      (codes (..., NB), each block's float32 1 / scale (frames * NB,) in
+      raster order over every plane), the reciprocal B takes as it is
+      (fused_encode_cuda.plane_variance_codes: one kernel on the card).
+
+    Both routes give the same codes on every device. Span
+    ``codec.variance_codes`` (blocks), under cfg.adaptive only."""
     if not cfg.adaptive:
         return None, None
     with tracing.named_scope("codec.variance_codes",
                              blocks=pixels.numel() // cfg.n2):
         if planes:
-            pixels = blk.image_to_blocks(pixels, cfg.block_size)
+            return fused_encode_cuda.plane_variance_codes(pixels, cfg)
         codes = quant.variance_code(
             quant.block_variance_flat(transform.level_shift(pixels))
         )
@@ -335,12 +344,12 @@ def encode_fused_step(
     stripe of every frame. Outputs keep the leading frame axes: units (...,
     n_stripes, U), bit lengths (..., n_stripes), var_codes (..., NB),
     block_bits (..., n_stripes, bps) when cfg.decode_index is truthy.
-    Kernel B reads the planes themselves; only the variances of
-    cfg.adaptive are computed on their blocks."""
+    Kernel B reads the planes themselves, as does, under cfg.adaptive,
+    the variance pass that gives it each block's reciprocal scale."""
     lead = image.shape[:-2]
-    var_codes, scale = _adaptive(image, cfg, planes=True)
+    var_codes, recip = _adaptive(image, cfg, planes=True)
     packed, block_bits = fused_encode_cuda.encode_plane_stripes_fused(
-        image, cfg, math.prod(lead) * n_stripes, ops, scale)
+        image, cfg, math.prod(lead) * n_stripes, ops, adaptive_recip=recip)
     packed, block_bits = _frames_out(packed, block_bits, cfg, lead, n_stripes)
     return packed, var_codes, block_bits
 

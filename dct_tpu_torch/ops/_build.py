@@ -43,6 +43,7 @@ _SIGNATURES = {
                                _i, _i, _i, _i, _i, _i, _i, _p, _i, _p, _p,
                                _p, _p],
         "dct_encode_stripes_info": [_i, _p],
+        "dct_variance_codes": [_p, _ll, _i, _i, _p, _p, _p],
     },
     "entropy_decode": {
         "dct_entropy_decode": [_p, _ll, _p, _p, _i, _p, _i, _p, _ll, _i, _i,
@@ -56,7 +57,7 @@ _SIGNATURES = {
 # Launches per kernel, counted by the wrappers where they launch (and
 # nowhere else), so a run can show which kernels the path went through.
 LAUNCHES = {"encode_blocks": 0, "encode_stripes": 0, "decode_blocks": 0,
-            "entropy_decode": 0, "pack_chunks": 0}
+            "entropy_decode": 0, "pack_chunks": 0, "variance_codes": 0}
 
 # Coefficients the float32 chain computed in kernels A and B (the rescue
 # of transform_core.cuh), one uint64 counter in device memory per kernel

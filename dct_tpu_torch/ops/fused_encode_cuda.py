@@ -21,6 +21,15 @@ TILE_BLOCKS[n2] blocks, each entropy-coded in rounds of 256 segments of
 Two entries launch the same kernel: encode_stripes_fused takes (NB, n2)
 blocks, encode_plane_stripes_fused the padded plane(s) (..., Hp, Wp)
 themselves, which the kernel reads block by block (no blocking pass).
+
+The same library holds the adaptive encode's variance pass
+(plane_variance_codes): one kernel reads the padded u8 planes once and
+writes each block's u8 variance code and the float32 reciprocal of its
+scale. Kernel B and its plain version take that reciprocal as it is (the
+keyword adaptive_recip of every entry); a caller holding scales converts
+them once with transform.reciprocal_scale. The variance pass's plain
+version, variance_codes_plain, is ops/quant.py's op chain and
+transform.reciprocal_scale.
 """
 
 from __future__ import annotations
@@ -30,7 +39,8 @@ import ctypes
 import torch
 
 from dct_tpu_torch.config import CodecConfig
-from dct_tpu_torch.ops import _build, blocks, rle, transform, transform_cuda
+from dct_tpu_torch.ops import _build, blocks, quant, rle, transform
+from dct_tpu_torch.ops import transform_cuda
 from dct_tpu_torch.ops import bitstream as bs
 from dct_tpu_torch.tables import CodecOperators
 from dct_tpu_torch.utils import tracing
@@ -50,13 +60,14 @@ def encode_stripes_plain(
     cfg: CodecConfig,
     n_stripes: int,
     ops: CodecOperators,
-    adaptive_scale: torch.Tensor | None = None,
+    *,
+    adaptive_recip: torch.Tensor | None = None,
 ):
     """Plain version of kernel B: (NB, n2) u8 blocks -> (PackedStripes,
     (n_stripes, bps) int32 block bits), through the staged pipeline."""
     from dct_tpu_torch.models import codec  # the staged pipeline's home
 
-    zz = transform.encode_blocks(pixels, cfg, ops, adaptive_scale)
+    zz = transform.encode_blocks_recip(pixels, cfg, ops, adaptive_recip)
     if cfg.dc_prediction:
         zz = codec.dc_predict(zz, n_stripes)
     return codec.encode_pack_plain(rle.rle_encode_positional(zz), cfg,
@@ -145,23 +156,27 @@ def encode_stripes_fused(
     cfg: CodecConfig,
     n_stripes: int,
     ops: CodecOperators,
-    adaptive_scale: torch.Tensor | None = None,
+    *,
+    adaptive_recip: torch.Tensor | None = None,
 ):
     """(NB, n2) u8 blocks, NB = n_stripes * blocks per stripe (stripes of
     every frame stacked) -> (PackedStripes, (n_stripes, bps) int32 block
-    bits). encode_stripes_plain on the CPU, kernel B on CUDA: units come
-    back as an (n_stripes, capacity) int16 view of the kernel's word
-    buffer, capacity = bps * units_per_block_worst(n2, coded_runs). ops
-    carries the mode's value table (cat_lengths / cat_codes: 16 entries
-    in category mode, 512 in direct mode) and, under coded_runs, the run
+    bits); under cfg.adaptive adaptive_recip holds each block's float32
+    1 / scale (transform.reciprocal_scale), taken as it is.
+    encode_stripes_plain on the CPU, kernel B on CUDA: units come back as
+    an (n_stripes, capacity) int16 view of the kernel's word buffer,
+    capacity = bps * units_per_block_worst(n2, coded_runs). ops carries
+    the mode's value table (cat_lengths / cat_codes: 16 entries in
+    category mode, 512 in direct mode) and, under coded_runs, the run
     table."""
     if pixels.device.type == "cpu":
-        return encode_stripes_plain(pixels, cfg, n_stripes, ops, adaptive_scale)
+        return encode_stripes_plain(pixels, cfg, n_stripes, ops,
+                                    adaptive_recip=adaptive_recip)
     _check_pixels(pixels, cfg, n_stripes, ops)
     if pixels.data_ptr() % 16:  # the kernel reads pixels 16 bytes a copy
         pixels = pixels.clone()
     return _launch(pixels, 0, pixels.shape[0] // n_stripes, cfg, n_stripes,
-                   ops, adaptive_scale)
+                   ops, adaptive_recip)
 
 
 def encode_plane_stripes_fused(
@@ -169,22 +184,85 @@ def encode_plane_stripes_fused(
     cfg: CodecConfig,
     n_stripes: int,
     ops: CodecOperators,
-    adaptive_scale: torch.Tensor | None = None,
+    *,
+    adaptive_recip: torch.Tensor | None = None,
 ):
     """encode_stripes_fused on the padded plane(s) (..., Hp, Wp) u8 as they
     are: n_stripes counts the stripes of every frame (each cfg.stripe_rows
-    block rows), adaptive_scale holds one scale a block in raster order.
-    The same outputs as encode_stripes_fused on blocks.image_to_blocks of
-    the planes; on CUDA kernel B reads the blocks out of the planes itself,
-    on the CPU the plain version runs on those blocks."""
+    block rows), adaptive_recip holds each block's float32 1 / scale in
+    raster order (plane_variance_codes' second output). The same outputs
+    as encode_stripes_fused on blocks.image_to_blocks of the planes; on
+    CUDA kernel B reads the blocks out of the planes itself, on the CPU
+    the plain version runs on those blocks."""
     bps = _check_plane(plane, cfg, n_stripes, ops)
     if plane.device.type == "cpu":
         px = blocks.image_to_blocks(plane, cfg.block_size).reshape(-1, cfg.n2)
-        return encode_stripes_plain(px, cfg, n_stripes, ops, adaptive_scale)
-    if not plane.is_contiguous() or plane.data_ptr() % 16:
-        plane = plane.clone(memory_format=torch.contiguous_format)
+        return encode_stripes_plain(px, cfg, n_stripes, ops,
+                                    adaptive_recip=adaptive_recip)
+    plane = _aligned(plane)
     return _launch(plane, plane.shape[-1], bps, cfg, n_stripes, ops,
-                   adaptive_scale)
+                   adaptive_recip)
+
+
+def _aligned(plane: torch.Tensor) -> torch.Tensor:
+    """The planes contiguous and 16-byte aligned, as the kernels read them
+    (a copy only where they are not)."""
+    if not plane.is_contiguous() or plane.data_ptr() % 16:
+        return plane.clone(memory_format=torch.contiguous_format)
+    return plane
+
+
+def variance_codes_plain(plane: torch.Tensor, cfg: CodecConfig):
+    """Plain version of plane_variance_codes: ops/quant.py's op chain on
+    the planes' blocks, then transform.reciprocal_scale."""
+    codes = quant.variance_code(quant.block_variance_flat(
+        transform.level_shift(blocks.image_to_blocks(plane, cfg.block_size))))
+    return codes, transform.reciprocal_scale(
+        quant.scale_from_variance_code(codes).reshape(-1))
+
+
+def plane_variance_codes(plane: torch.Tensor, cfg: CodecConfig):
+    """The adaptive encode's variance pass on padded u8 plane(s) (..., Hp,
+    Wp), n2 in KERNEL_N2 -> (u8 variance codes (..., NB), float32 1 / scale
+    (frames * NB,) in raster block order over every plane: what
+    encode_plane_stripes_fused's adaptive_recip takes). variance_codes_plain
+    on the CPU; on CUDA one launch of the variance kernel over every plane,
+    equal to it bit for bit."""
+    if plane.device.type == "cpu":
+        return variance_codes_plain(plane, cfg)
+    n = cfg.block_size
+    if cfg.n2 not in KERNEL_N2:
+        raise NotImplementedError(f"the variance kernel takes n2 in "
+                                  f"{KERNEL_N2}, got {cfg.n2}")
+    if plane.dtype != torch.uint8 or plane.dim() < 2 \
+            or plane.shape[-2] % n or plane.shape[-1] % n:
+        raise ValueError(f"expected (..., Hp, Wp) uint8 planes of whole "
+                         f"{n}x{n} blocks, got {tuple(plane.shape)} "
+                         f"{plane.dtype}")
+    plane = _aligned(plane)
+    hp, wp = plane.shape[-2], plane.shape[-1]
+    codes = torch.empty(*plane.shape[:-2], hp // n * (wp // n),
+                        dtype=torch.uint8, device=plane.device)
+    recip = torch.empty(codes.numel(), dtype=torch.float32,
+                        device=plane.device)
+    if codes.numel() == 0:
+        return codes, recip
+    lib = _build.library("fused_encode")
+    args = (plane.data_ptr(), plane.numel() // wp // n, wp, cfg.n2,
+            codes.data_ptr(), recip.data_ptr())
+    with tracing.named_scope("kernel.variance_codes"):
+        rc = _call(lib.dct_variance_codes, args, plane.device)
+    _build.check(lib, rc, f"variance_codes (n2={cfg.n2})")
+    _build.LAUNCHES["variance_codes"] += 1
+    return codes, recip
+
+
+def _call(fn, args, dev: torch.device) -> int:
+    """A launcher of the library on dev's current stream."""
+    if dev.index == torch.cuda.current_device():  # no device switch
+        return fn(*args, torch.cuda.current_stream(dev).cuda_stream)
+    with torch.cuda.device(dev):
+        return fn(*args, torch.cuda.current_stream(dev).cuda_stream)
 
 
 class _Operands:
@@ -237,18 +315,20 @@ def _operands(ops, cfg, n_stripes, bps, plane_width, dev) -> _Operands:
 
 
 def _launch(px: torch.Tensor, plane_width: int, bps: int, cfg: CodecConfig,
-            n_stripes: int, ops: CodecOperators, adaptive_scale):
+            n_stripes: int, ops: CodecOperators, adaptive_recip):
     """Kernel B on checked pixels (blocks where plane_width is 0, else the
     planes' rows of plane_width bytes) -> (PackedStripes, block bits)."""
     dev = px.device
     op = _operands(ops, cfg, n_stripes, bps, plane_width, dev)
     recip = None
     if cfg.adaptive:
-        if adaptive_scale is None:
-            raise ValueError("adaptive fused encode requires adaptive_scale")
-        recip = transform.reciprocal_scale(adaptive_scale.reshape(-1))
-        if recip.shape[0] != n_stripes * bps or recip.device != dev:
-            raise ValueError("adaptive_scale must hold one scale per block")
+        if adaptive_recip is None:
+            raise ValueError("adaptive fused encode requires adaptive_recip")
+        recip = adaptive_recip.reshape(-1)
+        if recip.shape[0] != n_stripes * bps or recip.device != dev \
+                or recip.dtype != torch.float32 or not recip.is_contiguous():
+            raise ValueError("adaptive_recip must hold one contiguous "
+                             "float32 reciprocal per block")
     words = torch.empty(n_stripes, op.n_words, dtype=torch.int32, device=dev)
     bits = torch.empty(n_stripes, dtype=torch.int32, device=dev)
     block_bits = torch.empty(op.shape, dtype=torch.int32, device=dev)
@@ -256,13 +336,7 @@ def _launch(px: torch.Tensor, plane_width: int, bps: int, cfg: CodecConfig,
             words.data_ptr(), op.n_words, bits.data_ptr(),
             block_bits.data_ptr(), op.rescued)
     with tracing.named_scope("kernel.encode_stripes"):
-        if dev.index == torch.cuda.current_device():  # no device switch
-            rc = op.lib.dct_encode_stripes(
-                *args, torch.cuda.current_stream(dev).cuda_stream)
-        else:
-            with torch.cuda.device(dev):
-                rc = op.lib.dct_encode_stripes(
-                    *args, torch.cuda.current_stream(dev).cuda_stream)
+        rc = _call(op.lib.dct_encode_stripes, args, dev)
     _build.check(op.lib, rc, f"encode_stripes (n2={cfg.n2}, {op.mode})")
     _build.LAUNCHES["encode_stripes"] += 1
     units = words.view(torch.int16)[:, :op.capacity]

@@ -24,8 +24,13 @@ def block_variance_flat(blocks: torch.Tensor) -> torch.Tensor:
 
 def variance_code(variance: torch.Tensor) -> torch.Tensor:
     """u8 wire code of clamp(var/1000, 0.1, 1.0): round((norm - 0.1) *
-    255 / 0.9), rounding half to even like jnp.round."""
-    norm = torch.clamp(variance / 1000.0, 0.1, 1.0)
+    255 / 0.9), rounding half to even like jnp.round. var / 1000 is a
+    true float32 division on every device, as the variance kernel
+    (csrc/fused_encode.cu) computes it: the divisor is a tensor on the
+    variance's device, since CUDA multiplies by float32(1 / 1000) where it
+    is a Python scalar, and that rounds some codes the other way."""
+    unit = torch.full((), 1000.0, dtype=torch.float32, device=variance.device)
+    norm = torch.clamp(variance / unit, 0.1, 1.0)
     return torch.round((norm - 0.1) * (255.0 / 0.9)).to(torch.uint8)
 
 

@@ -104,13 +104,29 @@ def encode_blocks(
     coefficients. adaptive_scale: (..., B) quantize-divisor scale, required
     under cfg.adaptive (AC coefficients are multiplied by its
     reciprocal)."""
+    recip = None
+    if cfg.adaptive:
+        if adaptive_scale is None:
+            raise ValueError("adaptive quantization requires adaptive_scale")
+        recip = reciprocal_scale(adaptive_scale.reshape(-1))
+    return encode_blocks_recip(pixels, cfg, ops, recip)
+
+
+def encode_blocks_recip(
+    pixels: torch.Tensor,
+    cfg: CodecConfig,
+    ops: CodecOperators,
+    recip: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """encode_blocks on each block's float32 1 / scale itself (required
+    under cfg.adaptive), as kernel B takes it."""
     lead, n2 = pixels.shape[:-2], cfg.n2
     x = pixels.reshape(-1, n2).to(torch.float32)
     r = None
     if cfg.adaptive:
-        if adaptive_scale is None:
-            raise ValueError("adaptive quantization requires adaptive_scale")
-        r = reciprocal_scale(adaptive_scale.reshape(-1))
+        if recip is None:
+            raise ValueError("adaptive quantization requires recip")
+        r = recip.reshape(-1)
     if n2 in PACKED_N2:
         bpr = 128 // n2
         x2, B = pack_rows(x)

@@ -44,6 +44,7 @@ import multiprocessing
 import os
 import pathlib
 import pickle
+import re
 import time
 
 import numpy as np
@@ -413,6 +414,137 @@ def densest_stream(block_size: int, h: int, w: int, seed: int = 0):
     run_table = hf.CanonicalTable(np.full(65, 16)) if coded else None
     return (cfg, image_io.synthetic_image(h, w, "noise", seed=seed), table,
             run_table)
+
+
+# ---------------------------------------------------------------------------
+# The variance kernel's arithmetic (csrc/fused_encode.cu code_and_recip)
+# ---------------------------------------------------------------------------
+
+
+def variance_kernel_constants() -> dict[str, float]:
+    """The variance kernel's float32 constants as its source writes them
+    (hex float literals of csrc/fused_encode.cu), by name."""
+    src = (pathlib.Path(codec.__file__).resolve().parents[1] / "csrc"
+           / "fused_encode.cu").read_text()
+    found = re.findall(r"constexpr float (k\w+) = (0x[0-9a-fA-F.]+p[-+]?\d+)f;",
+                       src)
+    return {name: float.fromhex(v) for name, v in found}
+
+
+def variance_code_product(s1: torch.Tensor, s2: torch.Tensor, n2: int,
+                          k: dict[str, float]) -> torch.Tensor:
+    """The variance kernel's float32 steps on each block's integer sums
+    S1 = sum(p - 128) and S2 = sum((p - 128)^2) up to the code's rounding,
+    in its order, one rounding each, on its constants k
+    (variance_kernel_constants()): (norm - 0.1) * (255 / 0.9)."""
+    lo = _f32(k["kNormMin"])
+    mean = s1.to(torch.float32) / _f32(n2)
+    mean_sq = s2.to(torch.float32) / _f32(n2)
+    var = mean_sq - mean * mean
+    norm = torch.minimum(torch.maximum(var / _f32(k["kVarianceUnit"]), lo),
+                         _f32(k["kNormMax"]))
+    return (norm - lo) * _f32(k["kCodeScale"])
+
+
+def variance_from_sums(s1: torch.Tensor, s2: torch.Tensor, n2: int,
+                       k: dict[str, float]):
+    """The variance kernel's arithmetic on each block's integer sums ->
+    (u8 codes, float32 reciprocal scales): variance_code_product rounded
+    half to even, then scale = 2 - (0.1 + code * (0.9 / 255)) and 1 /
+    scale, each step one rounding."""
+    code = torch.round(variance_code_product(s1, s2, n2, k))
+    scale = _f32(2.0) - (_f32(k["kNormMin"]) + code * _f32(k["kCodeStep"]))
+    return code.to(torch.uint8), _f32(1.0) / scale
+
+
+def block_with_sums(s1: int, s2: int, n2: int) -> np.ndarray:
+    """(n2,) u8 pixels p whose p - 128 sum to s1 and square-sum to s2;
+    ValueError where the search finds none. From the flattest block of
+    sum s1, each step adds 1 to one value and takes 1 from another, which
+    adds 2 (a - b + 1) to the squares: the widest such pair while it fits,
+    then the widest that fits."""
+    q, r = divmod(s1, n2)
+    y = np.array([q + 1] * r + [q] * (n2 - r), np.int64)
+    d = s2 - int((y * y).sum())
+    if d < 0 or d % 2 or y.min() < -128 or y.max() > 127:
+        raise ValueError(f"no u8 block of {n2} pixels has sums {s1}, {s2}")
+    eye = np.eye(n2, dtype=bool)
+    while d:
+        i = np.argmax(np.where(y < 127, y, -129))
+        j = np.argmin(np.where(y > -128, y, 128))
+        gain = 2 * (int(y[i]) - int(y[j]) + 1)
+        if i == j or gain > d or y[i] == 127 or y[j] == -128:
+            # gain[i, j]: y[i] + 1, y[j] - 1
+            gains = 2 * (y[:, None] - y[None, :] + 1)
+            ok = ((y < 127)[:, None] & (y > -128)[None, :] & ~eye
+                  & (gains <= d) & (gains > 0))
+            if not ok.any():
+                raise ValueError(f"no u8 block of {n2} pixels found with "
+                                 f"sums {s1}, {s2}")
+            i, j = np.unravel_index(np.argmax(np.where(ok, gains, 0)),
+                                    gains.shape)
+            gain = int(gains[i, j])
+        y[i] += 1
+        y[j] -= 1
+        d -= gain
+    return (y + 128).astype(np.uint8)
+
+
+def variance_tie_sums(n2: int, k: dict[str, float], count: int,
+                      seed: int = 0) -> list[tuple[int, int]]:
+    """Up to ``count`` sums (S1, S2) of n2-pixel u8 blocks whose code
+    product (norm - 0.1) * 255 / 0.9 is exactly x.5 in the variance
+    kernel's float32 steps, from block means of -64 to 64 drawn from
+    seed."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for s1 in rng.permutation(np.arange(-64 * n2, 64 * n2 + 1)):
+        s1 = int(s1)
+        m2 = (s1 / n2) ** 2
+        lo, hi = int(n2 * (100 + m2)), int(n2 * (1000 + m2))
+        s2 = torch.arange(lo + (lo - s1) % 2, hi + 1, 2)
+        t = variance_code_product(torch.full_like(s2, s1), s2, n2, k)
+        for v in s2[t - torch.floor(t) == 0.5].tolist():
+            try:
+                block_with_sums(s1, int(v), n2)
+            except ValueError:
+                continue
+            out.append((s1, int(v)))
+            break
+        if len(out) == count:
+            break
+    return out
+
+
+def variance_split_sums(n2: int, count: int,
+                        seed: int = 0) -> list[tuple[int, int]]:
+    """Up to ``count`` sums (S1, S2) of n2-pixel u8 blocks whose variance
+    code under the true float32 division var / 1000 (quant.variance_code
+    and the variance kernel) differs from the code under var * float32(1
+    / 1000), what CUDA computes for a division by a Python scalar; from
+    block means of -64 to 64 drawn from seed."""
+    rng = np.random.default_rng(seed)
+    inv = _f32(1.0) / _f32(1000.0)
+    out = []
+    for s1 in rng.permutation(np.arange(-64 * n2, 64 * n2 + 1)):
+        s1 = int(s1)
+        m2 = (s1 / n2) ** 2
+        lo, hi = int(n2 * (100 + m2)), int(n2 * (1000 + m2))
+        s2 = torch.arange(lo + (lo - s1) % 2, hi + 1, 2)
+        mean = _f32(s1) / _f32(n2)
+        var = s2.to(torch.float32) / _f32(n2) - mean * mean
+        by_mul = torch.round((torch.clamp(var * inv, 0.1, 1.0) - 0.1)
+                             * (255.0 / 0.9)).to(torch.uint8)
+        for v in s2[codec.quant.variance_code(var) != by_mul].tolist():
+            try:
+                block_with_sums(s1, int(v), n2)
+            except ValueError:
+                continue
+            out.append((s1, int(v)))
+            break
+        if len(out) == count:
+            break
+    return out
 
 
 # ---------------------------------------------------------------------------

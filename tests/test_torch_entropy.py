@@ -203,11 +203,13 @@ def test_plain_stripe_encode_matches_reference_encode_pack(image, case):
     px = codec.pad_plane_for_encode(torch.from_numpy(image), cfg)
     pixels = codec.blk.image_to_blocks(px, n)
     _, scale = codec._adaptive(pixels, cfg)
+    recip = (None if scale is None
+             else fused_encode_cuda.transform.reciprocal_scale(scale))
     packed, bb = fused_encode_cuda.encode_stripes_plain(
-        pixels, cfg, n_stripes, ops, scale)
+        pixels, cfg, n_stripes, ops, adaptive_recip=recip)
     # the fused wrapper takes the plain path for CPU tensors
     packed2, bb2 = fused_encode_cuda.encode_stripes_fused(
-        pixels, cfg, n_stripes, ops, scale)
+        pixels, cfg, n_stripes, ops, adaptive_recip=recip)
     a, b, r = (bs.fetch_packed(packed), bs.fetch_packed(packed2),
                ref_bs.fetch_packed(ref_packed))
     for p in (a, b):

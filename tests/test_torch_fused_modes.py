@@ -129,12 +129,13 @@ def _coefficients(units, bits, cfg, bps, table, run_table, n_stripes):
 def test_plain_stripe_encode_matches_the_jax_kernel(case):
     cfg, px, scale, ops, table, run_table = _inputs(case)
     _, _, _, n_stripes, bps = CASES[case]
+    recip = None if scale is None else transform.reciprocal_scale(scale)
     before = dict(_build.LAUNCHES)
     packed, bb = fused_encode_cuda.encode_stripes_fused(
-        px, cfg, n_stripes, ops, scale)
+        px, cfg, n_stripes, ops, adaptive_recip=recip)
     assert _build.LAUNCHES == before  # the CPU runs the plain version
     plain, plain_bb = fused_encode_cuda.encode_stripes_plain(
-        px, cfg, n_stripes, ops, scale)
+        px, cfg, n_stripes, ops, adaptive_recip=recip)
     assert torch.equal(packed.units, plain.units)
     assert torch.equal(bb, plain_bb)
     assert packed.units.shape == (
@@ -150,9 +151,8 @@ def test_plain_stripe_encode_matches_the_jax_kernel(case):
                             run_table, n_stripes)
         want = _coefficients(units, bits, cfg, bps, table, run_table,
                              n_stripes)
-        recip = (None if scale is None
-                 else transform.reciprocal_scale(scale).numpy())
         n_mis, n_bad = testing.tie_mismatches(
-            got, want, testing.encode_values_f64(px.numpy(), cfg, recip),
+            got, want, testing.encode_values_f64(
+                px.numpy(), cfg, None if recip is None else recip.numpy()),
             testing.ENCODE_TIE_TOL)
         assert n_mis > 0 and n_bad == 0

@@ -216,7 +216,9 @@ def test_rescue_counts_of_a_and_b_agree(cuda, image, n):
     n_stripes = codec._padded_grid(*image.shape, cfg)[2]
     _build.reset_rescued()
     got = transform_cuda.encode_blocks_kernel(px, cfg, ops, scale)
-    fused_encode_cuda.encode_stripes_fused(px, cfg, n_stripes, ops, scale)
+    fused_encode_cuda.encode_stripes_fused(
+        px, cfg, n_stripes, ops,
+        adaptive_recip=transform.reciprocal_scale(scale))
     ops_h = tables.build(cfg)
     recip = transform.reciprocal_scale(scale.cpu())
     want, rescued = testing.encode_certified(px.cpu(), cfg, ops_h, recip)
@@ -392,8 +394,9 @@ def _stripe_check(cfg, px, scale, n_stripes, ops):
     (the plain block bits, the fullest stripe's share of its worst-case
     buffer)."""
     _build.reset_rescued()
+    recip = None if scale is None else transform.reciprocal_scale(scale)
     packed, bbits = fused_encode_cuda.encode_stripes_fused(
-        px, cfg, n_stripes, ops, scale)
+        px, cfg, n_stripes, ops, adaptive_recip=recip)
     zz = transform_cuda.encode_blocks_kernel(px, cfg, ops, scale)
     assert _build.rescued("encode_stripes") == _build.rescued("encode_blocks")
     if cfg.dc_prediction:
@@ -563,18 +566,18 @@ def _plane_check(cfg, plane, n_stripes, ops, scale=None):
     staged pipeline (_stripe_check), and both rescue counts against the
     CPU model of the certificate (testing.certify) on the same blocks."""
     px = blocks.image_to_blocks(plane, cfg.block_size).reshape(-1, cfg.n2)
+    recip = None if scale is None else transform.reciprocal_scale(scale)
     _build.reset_rescued()
     got, got_bb = fused_encode_cuda.encode_plane_stripes_fused(
-        plane, cfg, n_stripes, ops, scale)
+        plane, cfg, n_stripes, ops, adaptive_recip=recip)
     from_plane = _build.rescued("encode_stripes")
     _build.reset_rescued()
     want, want_bb = fused_encode_cuda.encode_stripes_fused(
-        px, cfg, n_stripes, ops, scale)
+        px, cfg, n_stripes, ops, adaptive_recip=recip)
     from_blocks = _build.rescued("encode_stripes")
     assert torch.equal(got.units, want.units)
     assert torch.equal(got.bit_lengths, want.bit_lengths)
     assert torch.equal(got_bb, want_bb)
-    recip = None if scale is None else transform.reciprocal_scale(scale)
     _, ok = testing.certify(testing.certified_products(px, cfg, ops),
                             ops.int_cert[:cfg.n2], recip)
     assert from_plane == from_blocks == int((~ok).sum())

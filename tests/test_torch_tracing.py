@@ -391,4 +391,7 @@ def test_the_variance_pass_is_spanned_under_adaptive_only(on, adaptive):
     (v,) = found
     assert recs[v.parent].name == "codec.encode_step"
     assert v.counts == {"blocks": 3 * 3 * 5}
+    # the kernels' spans (kernel.variance_codes inside this one) open only
+    # on the card
+    assert names() == {"codec.encode_step", "codec.variance_codes"}
     assert recs[v.parent].counts == {"frames": 3}

@@ -28,6 +28,7 @@ by config:
 
 from __future__ import annotations
 
+import inspect
 import json
 import os
 import subprocess
@@ -119,7 +120,7 @@ def run(root: str) -> dict:
     from dct_tpu_torch import CodecConfig, tables
     from dct_tpu_torch.models import codec
     from dct_tpu_torch.ops import _build, blocks, fused_encode_cuda
-    from dct_tpu_torch.ops import transform_cuda
+    from dct_tpu_torch.ops import transform, transform_cuda
     from dct_tpu_torch.utils import image_io
 
     if not _build.__file__.startswith(root.rstrip("/") + "/"):
@@ -147,6 +148,14 @@ def run(root: str) -> dict:
             px_of[n] = blocks.image_to_blocks(frames_d, n).reshape(-1, n * n)
         px, ns = px_of[n], FRAMES * H // n
         _, scale = codec._adaptive(px, cfg)
+        # B's adaptive operand in the tree's form: the reciprocal where its
+        # entries take only that, else the scale
+        b_kw = {}
+        if scale is not None:
+            b_kw = ({"adaptive_recip": transform.reciprocal_scale(scale)}
+                    if "adaptive_recip" in inspect.signature(
+                        fused_encode_cuda.encode_stripes_fused).parameters
+                    else {"adaptive_scale": scale})
         ops = tables.build(cfg, device=dev)
         if not cfg.static_tables:  # the batch's own tables, as the codec does
             _, _, hist, run_hist = codec.encode_analyze(frames_d, cfg, ops)
@@ -155,10 +164,10 @@ def run(root: str) -> dict:
                 codec._build_run_table(cfg, run_hist.cpu().numpy()))
 
         def call():
-            fused_encode_cuda.encode_stripes_fused(px, cfg, ns, ops, scale)
+            fused_encode_cuda.encode_stripes_fused(px, cfg, ns, ops, **b_kw)
 
         def call_plane():
-            route(frames_d, cfg, ns, ops, scale)
+            route(frames_d, cfg, ns, ops, **b_kw)
 
         out["b_ms"][name] = round(cuda_ms(call), 4)
         card, host = device_ms(call)
